@@ -1,0 +1,31 @@
+"""Carry parameters from the JAX package to the port.
+
+``from_numpy`` takes the tree that ``repro.models.transformer.LM(cfg).init``
+returns, with every leaf turned into a numpy array (``jax.tree.map(np.asarray,
+params)``), and gives the port's parameters: the same nested dicts with the
+same layouts (``wq (d,H,hd)``, ``wo (H,hd,d)``, the stacked
+``params["stack"]["u0"][...]`` leaves of shape ``(n_units, ...)``), as
+tensors of the same dtype on ``device``. This module imports neither JAX
+nor the JAX package: bfloat16 leaves arrive as numpy's ``bfloat16``
+extension dtype and are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _leaf(a: Any, device) -> torch.Tensor:
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def from_numpy(tree: Any, device="cpu") -> Any:
+    """Nested dicts of numpy arrays → the same nested dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)

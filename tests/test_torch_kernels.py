@@ -1,0 +1,126 @@
+"""The port's kernels (repro_torch.kernels) against the JAX package's.
+
+On the CPU each wrapper takes its plain PyTorch version; these tests hold
+that version against the Pallas TPU kernel in interpret mode (or its
+pure-jnp oracle, ``repro.kernels.ref``), at the shapes of
+tests/test_kernels.py. Inputs come from a numpy seed and reach both
+packages as the same numbers. Tolerances are the JAX package's own:
+float32 atol/rtol 2e-5, bfloat16 2e-2 (the Pallas kernel keeps the softmax
+weights in f32, the plain version casts them to q's type before PV).
+
+tests/test_torch_gpu.py holds each CUDA kernel against its plain version on
+the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as jdecode_pallas
+from repro.kernels.flash_attention import flash_attention as jflash_pallas
+from repro_torch import kernels
+from repro_torch.kernels import ops, ref
+
+# two CPU threads each: the suite runs test files side by side in workers
+torch.set_num_threads(2)
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype: str):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
+
+
+def _pair(rng, shape, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------- flash
+@pytest.mark.parametrize("B,S,H,KV,d", [
+    (2, 256, 4, 2, 64),
+    (1, 384, 8, 8, 128),      # S % block != 0
+    (2, 128, 4, 1, 64),       # MQA
+    (1, 512, 16, 4, 32),
+])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_jax(B, S, H, KV, d, window, dtype):
+    rng = np.random.default_rng(0)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (B, S, n, d), dtype) for n in (H, KV, KV))
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    if dtype == "float32" and S <= 256:
+        exp = jflash_pallas(jq, jk, jv, causal=True, window=window, interpret=True)
+    else:                     # interpret mode is slow at these sizes: the oracle
+        exp = jref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+    assert out.dtype == tq.dtype and out.shape == (B, S, H, d)
+    np.testing.assert_allclose(_np(out), _np(exp), **_tol(dtype))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_plain_ragged_t(causal):
+    """S != T (128 queries, 256 keys), against the Pallas kernel."""
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (1, n, 4, 64), "float32")
+                                    for n in (128, 256, 256))
+    out = ops.flash_attention(tq, tk, tv, causal=causal)
+    exp = jflash_pallas(jq, jk, jv, causal=causal, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------- decode
+@pytest.mark.parametrize("B,T,H,KV,d", [
+    (2, 512, 4, 2, 64),
+    (3, 300, 8, 1, 128),      # T % block != 0
+    (2, 512, 4, 4, 64),
+])
+@pytest.mark.parametrize("window", [None, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_matches_jax(B, T, H, KV, d, window, dtype):
+    rng = np.random.default_rng(2)
+    jq, tq = _pair(rng, (B, 1, H, d), dtype)
+    jk, tk = _pair(rng, (B, T, KV, d), dtype)
+    jv, tv = _pair(rng, (B, T, KV, d), dtype)
+    lens = np.full((B,), T // 3 + 1, np.int32)
+    out = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens), window=window)
+    if dtype == "float32":
+        exp = jdecode_pallas(jq, jk, jv, jnp.asarray(lens), window=window, interpret=True)
+    else:
+        exp = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens), window=window)
+    assert out.dtype == tq.dtype and out.shape == (B, 1, H, d)
+    np.testing.assert_allclose(_np(out), _np(exp), **_tol(dtype))
+
+
+def test_decode_attention_plain_per_batch_lengths():
+    rng = np.random.default_rng(3)
+    B, T, H, d = 4, 256, 4, 64
+    jq, tq = _pair(rng, (B, 1, H, d), "float32")
+    jk, tk = _pair(rng, (B, T, H, d), "float32")
+    jv, tv = _pair(rng, (B, T, H, d), "float32")
+    lens = np.array([1, 17, 100, 256], np.int32)
+    out = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    exp = jdecode_pallas(jq, jk, jv, jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------- dispatch
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 4, 64)).astype(np.float32))
+               for _ in range(3))
+    lens = torch.tensor([40], dtype=torch.int32)
+    before = kernels.launch_counts()
+    out_f = ops.flash_attention(q, k, v, window=16)
+    out_d = ops.decode_attention(q[:, :1], k, v, lens, window=16)
+    assert kernels.launch_counts() == before
+    assert torch.equal(out_f, ref.flash_attention_ref(q, k, v, window=16))
+    assert torch.equal(out_d, ref.decode_attention_ref(q[:, :1], k, v, lens, window=16))
