@@ -3,23 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from csrc/ and runs four phases:
+Builds the hand-written CUDA kernels from csrc/ and runs these phases:
 
 1. the device: name and power limit from nvidia-smi;
-2. each kernel against its plain PyTorch version at the serving path's
-   shapes (bf16, qwen3-32b heads) plus ragged, windowed and float32 cases,
-   each error printed beside its bound (see ``check``), with times of the
-   kernel, the plain version and one PyTorch library call as a yardstick;
-3. the serving path: qwen3-32b at full width, depth cut to 8 layers, bf16,
-   batch 4: prefill of 4096 tokens, then 32 greedy decode steps, with
-   launch counters showing both kernels ran on every layer, a profiler
-   window (device time by kernel, busy share) over one prefill and three
-   decode steps, and a check that a decode step agrees with a fresh
-   prefill at batch 1;
-4. a small float32 model on the card against the same model on the CPU.
+2. each kernel against its plain PyTorch version at the serving paths'
+   shapes (bf16 qwen3-32b attention, recurrentgemma-9b's head_dim-256
+   decode, mamba2-780m's SSD scan, recurrentgemma-9b's RG-LRU scan) plus
+   ragged, windowed, grouped and float32 cases, each error printed beside
+   its bound (see ``check``), with times of the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call as a
+   yardstick;
+3. three serving paths, each at full width, bf16, batch 4, with launch
+   counters (zeroed just before the path runs, read just after) showing
+   its kernels ran on every layer, a profiler window (device time by
+   kernel, busy share) over one prefill and three decode steps, and a
+   check at batch 1 that decode steps agree with a fresh prefill:
+   qwen3-32b (depth cut to 8 layers; prefill 4096, 32 decode steps),
+   mamba2-780m (all 48 layers; prefill 4096, 32 steps) and
+   recurrentgemma-9b (all 38 layers; prefill 2048, 32 steps, the
+   2048-slot local-attention ring wrapping from the first step);
+4. small float32 models of the three families on the card against the
+   same models on the CPU, the recurrentgemma one decoding past its
+   window so the ring wraps on both devices.
 
-Every number printed carries the card's name and power limit. The
-second-to-last line is the kernels record (JSON); the last line is
+Each phase frees its parameters and caches before the next. Every number
+printed carries the card's name and power limit. The second-to-last line
+is the kernels record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without that line; without a CUDA device, or without the repository beside
 it, the script exits non-zero at once. The full record is also written to
@@ -28,11 +37,14 @@ build/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from typing import Dict, Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -40,11 +52,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# the serving path's shapes: qwen3-32b, batch 4, prompt 4096, 32 decode steps
+# qwen3-32b's serving shapes: batch 4, prompt 4096, 32 decode steps
 DEVICE = "cuda"
 BATCH, PROMPT, GEN, LAYERS = 4, 4096, 32, 8
 HEADS, KV_HEADS, HEAD_DIM = 64, 8, 128
-ARCH = "qwen3_32b"
+# recurrentgemma-9b's: prompt 2048 (its window), MQA, head_dim 256, lru width 4096
+RG_PROMPT, RG_HEADS, RG_HEAD_DIM, RG_WIDTH = 2048, 16, 256, 4096
+# mamba2-780m's SSD scan at prefill: 48 heads of 64, one group, state 128, chunk 256
+SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK = 48, 64, 128, 256
 
 
 def log(card: str, msg: str) -> None:
@@ -107,20 +122,40 @@ TOL = {"bfloat16": "|err| <= 2**-5 (|ref| + rms_row(ref)) against float32 plain"
        "float32": "|err| <= 2e-5 + 2e-5 |ref|"}
 
 
-def phase_kernels(torch, card: str) -> dict:
+class KernelPhase:
+    """What the kernel cases share: the card, one generator, the launch
+    check, and the records they fill (``rec`` by kernel, ``cases`` by case)."""
+
+    def __init__(self, torch, card: str):
+        self.torch, self.card = torch, card
+        self.gen = torch.Generator(device=DEVICE).manual_seed(0)
+        self.dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+        self.rec, self.cases = {}, []
+
+    def rand(self, shape, dtype):
+        return self.torch.randn(shape, generator=self.gen, device=DEVICE).to(dtype)
+
+    def launched(self, mod, fn):
+        """Run ``fn`` once, check that it launched ``mod``'s kernel, synchronise."""
+        n0 = mod.launches
+        out = fn()
+        self.torch.cuda.synchronize()
+        if mod.launches != n0 + 1:
+            raise AssertionError(f"{mod.__name__} launched {mod.launches - n0} kernels")
+        return out
+
+    def unpack(self):
+        return self.torch, self.card, self.rec, self.cases, self.rand, self.launched, self.dtypes
+
+
+def kernels_flash(kp: KernelPhase) -> None:
+    """flash_attention at qwen3-32b's prefill shape, ragged, windowed, f32."""
     import torch.nn.functional as F
+    from repro_torch import kernels
     from repro_torch.kernels import ops, ref
-
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-
-    def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
-    rec, cases = {}, []
 
-    # -- flash attention -------------------------------------------------------
     for name, (B, S, T, h, kv, d), causal, window, dt in [
             ("main path", (BATCH, PROMPT, PROMPT, H, KV, D), True, None, "bfloat16"),
             ("ragged S", (1, PROMPT + 1, PROMPT + 1, H, KV, D), True, None, "bfloat16"),
@@ -131,8 +166,8 @@ def phase_kernels(torch, card: str) -> dict:
             ("f32 non-causal ragged d64", (2, 300, 777, 8, 2, 64), False, None, "float32")]:
         q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, T, kv, d), dtypes[dt]), \
             rand((B, T, kv, d), dtypes[dt])
-        out = ops.flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
+        out = launched(kernels.flash_attention,
+                       lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
 
         def plain(q=q, k=k, v=v):  # a batch row at a time: all rows' (S, T) scores do not fit
             return torch.cat([ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
@@ -140,7 +175,7 @@ def phase_kernels(torch, card: str) -> dict:
                               for i in range(B)])
         exp = plain(q.float(), k.float(), v.float())
         err, share = check(torch, out, exp, dt)
-        cases.append(dict(kernel="flash_attention", case=name, dtype=dt, max_abs_err=err,
+        cases_out.append(dict(kernel="flash_attention", case=name, dtype=dt, max_abs_err=err,
                           bound_share=share, tol=TOL[dt]))
         log(card, f"flash_attention {name}: B={B} S={S} T={T} H={h} KV={kv} d={d} {dt} "
                   f"window={window} causal={causal}: max abs err {err:.3e}, worst element "
@@ -166,53 +201,171 @@ def phase_kernels(torch, card: str) -> dict:
               f"plain {r['plain_ms']:.3f} ms, scaled_dot_product_attention "
               f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
 
-    # -- decode attention ------------------------------------------------------
+
+def kernels_decode(kp: KernelPhase) -> None:
+    """decode_attention at qwen3-32b's and recurrentgemma-9b's decode shapes."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
+    H, KV, D = HEADS, KV_HEADS, HEAD_DIM
+
+    def run_decode(key, main, cases):
+        for name, (B, t, h, kv, d), lens, window, dt in cases:
+            q = rand((B, 1, h, d), dtypes[dt])
+            kc, vc = rand((B, t, kv, d), dtypes[dt]), rand((B, t, kv, d), dtypes[dt])
+            cl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+            out = launched(kernels.decode_attention,
+                           lambda: ops.decode_attention(q, kc, vc, cl, window=window))
+            exp = ref.decode_attention_ref(q.float(), kc.float(), vc.float(), cl, window=window)
+            err, share = check(torch, out, exp, dt)
+            cases_out.append(dict(kernel="decode_attention", case=name, dtype=dt,
+                                  max_abs_err=err, bound_share=share, tol=TOL[dt]))
+            log(card, f"decode_attention {name}: B={B} T={t} H={h} KV={kv} d={d} {dt} "
+                      f"lens={lens} window={window}: max abs err {err:.3e}, worst element "
+                      f"at {share:.3f} of its bound ({TOL[dt]})")
+            if name == main:
+                live = sum(min(n, t) for n in lens)      # cache rows the lengths make live
+                elt = 2
+                nbytes = elt * (2 * live * kv * d + 2 * B * h * d) + 4 * B
+                ops_n = 4.0 * h * d * live
+                bound_ms, bound_by = bound(ops_n, nbytes, dt)
+                ms = cuda_ms(torch, lambda: ops.decode_attention(q, kc, vc, cl), reps=50,
+                             warmup=3)
+                plain_ms = cuda_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, cl),
+                                   reps=20)
+                mask = (torch.arange(t, device=DEVICE)[None, :] < cl[:, None])[:, None, None, :]
+                qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+                rec[key] = dict(
+                    shape=dict(B=B, T=t, H=h, KV=kv, d=d, dtype=dt, cache_len=lens),
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err,
+                    bound_share=share, tol=TOL[dt])
+            del q, kc, vc, out, exp
+        r = rec[key]
+        log(card, f"decode_attention at {main}'s shape: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
     T = PROMPT + GEN
-    for name, (B, t, h, kv, d), lens, window, dt in [
-            ("main path", (BATCH, T, H, KV, D), [T] * BATCH, None, "bfloat16"),
-            ("per-batch lengths", (4, T, H, KV, D), [T, PROMPT + 1, PROMPT // 4, 1], None,
-             "bfloat16"),
-            ("window", (4, T, H, KV, D), [T, 3 * T // 4, T // 8, 17], T // 4, "bfloat16"),
-            ("T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "bfloat16"),
-            ("f32", (2, T, H, KV, D), [T, PROMPT // 2 + 1], None, "float32"),
-            ("f32 T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "float32")]:
-        q = rand((B, 1, h, d), dtypes[dt])
-        kc, vc = rand((B, t, kv, d), dtypes[dt]), rand((B, t, kv, d), dtypes[dt])
-        cl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-        out = ops.decode_attention(q, kc, vc, cl, window=window)
-        torch.cuda.synchronize()
-        exp = ref.decode_attention_ref(q.float(), kc.float(), vc.float(), cl, window=window)
-        err, share = check(torch, out, exp, dt)
-        cases.append(dict(kernel="decode_attention", case=name, dtype=dt, max_abs_err=err,
-                          bound_share=share, tol=TOL[dt]))
-        log(card, f"decode_attention {name}: B={B} T={t} H={h} KV={kv} d={d} {dt} "
-                  f"lens={lens} window={window}: max abs err {err:.3e}, worst element "
-                  f"at {share:.3f} of its bound ({TOL[dt]})")
-        if name == "main path":
-            live = sum(min(n, t) for n in lens)          # cache rows the lengths make live
-            elt = 2
-            nbytes = elt * (2 * live * kv * d + 2 * B * h * d) + 4 * B
-            ops_n = 4.0 * h * d * live
-            bound_ms, bound_by = bound(ops_n, nbytes, dt)
-            ms = cuda_ms(torch, lambda: ops.decode_attention(q, kc, vc, cl), reps=50, warmup=3)
-            plain_ms = cuda_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, cl), reps=20)
-            mask = (torch.arange(t, device=DEVICE)[None, :] < cl[:, None])[:, None, None, :]
-            qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
-            rec["decode_attention"] = dict(
-                shape=dict(B=B, T=t, H=h, KV=kv, d=d, dtype=dt, cache_len=lens),
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err,
-                bound_share=share, tol=TOL[dt])
-        del q, kc, vc, out, exp
-    r = rec["decode_attention"]
-    log(card, f"decode_attention at the main path's shape: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    run_decode("decode_attention", "main path", [
+        ("main path", (BATCH, T, H, KV, D), [T] * BATCH, None, "bfloat16"),
+        ("per-batch lengths", (4, T, H, KV, D), [T, PROMPT + 1, PROMPT // 4, 1], None,
+         "bfloat16"),
+        ("window", (4, T, H, KV, D), [T, 3 * T // 4, T // 8, 17], T // 4, "bfloat16"),
+        ("T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "bfloat16"),
+        ("f32", (2, T, H, KV, D), [T, PROMPT // 2 + 1], None, "float32"),
+        ("f32 T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "float32")])
+    # recurrentgemma-9b's local attention: a full 2048-slot ring, MQA, head_dim 256
+    Tr, Hr, Dr = RG_PROMPT, RG_HEADS, RG_HEAD_DIM
+    run_decode("decode_attention_d256", "d256 main path", [
+        ("d256 main path", (BATCH, Tr, Hr, 1, Dr), [Tr] * BATCH, None, "bfloat16"),
+        ("d256 ring lengths", (4, Tr, Hr, 1, Dr), [Tr, Tr - 255, 256, 1], None, "bfloat16"),
+        ("d256 window", (4, Tr, Hr, 1, Dr), [Tr, 3 * Tr // 4, 100, 17], Tr // 4, "bfloat16"),
+        ("d256 GQA T=300", (3, 300, 8, 2, Dr), [300, 101, 7], 96, "bfloat16"),
+        ("d256 f32", (2, Tr, Hr, 1, Dr), [Tr, Tr // 2 + 1], None, "float32")])
     torch.cuda.empty_cache()
-    rec["cases"] = cases
-    return rec
+
+
+def kernels_ssd(kp: KernelPhase) -> None:
+    """ssd_scan at mamba2-780m's prefill shape, grouped, ragged chunk."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
+
+    # inputs as tests/test_kernels.py draws them: x, b, c ~ N(0, 0.01), a_log = -0.1 |N(0, 1)|
+    for name, (B, S, h, P, G, N, L), dt in [
+            ("main path", (BATCH, PROMPT, SSD_HEADS, SSD_P, 1, SSD_N, SSD_CHUNK), "bfloat16"),
+            ("grouped f32", (2, 512, 8, 32, 2, 64, 128), "float32"),
+            ("chunk 100 f32", (1, 300, 4, 64, 1, 32, 100), "float32"),
+            ("chunk 100 bf16", (1, 300, 4, 64, 1, 32, 100), "bfloat16")]:
+        x = (rand((B, S, h, P), torch.float32) * 0.1).to(dtypes[dt])
+        a = -rand((B, S, h), torch.float32).abs() * 0.1
+        b = (rand((B, S, G, N), torch.float32) * 0.1).to(dtypes[dt])
+        c = (rand((B, S, G, N), torch.float32) * 0.1).to(dtypes[dt])
+        y, st = launched(kernels.ssd_scan, lambda: ops.ssd_scan(x, a, b, c, chunk=L))
+        ye, se = ref.ssd_scan_ref(x.float(), a, b.float(), c.float(), L)
+        err, share = check(torch, y, ye, dt)
+        err_s, share_s = check(torch, st, se, "float32")
+        cases_out.append(dict(kernel="ssd_scan", case=name, dtype=dt, max_abs_err=err,
+                              bound_share=share, tol=TOL[dt], state_max_abs_err=err_s,
+                              state_bound_share=share_s, state_tol=TOL["float32"]))
+        log(card, f"ssd_scan {name}: B={B} S={S} H={h} P={P} G={G} N={N} chunk={L} {dt}: "
+                  f"y max abs err {err:.3e}, worst element at {share:.3f} of its bound "
+                  f"({TOL[dt]}); final state (f32) {err_s:.3e}, {share_s:.3f} of its bound "
+                  f"({TOL['float32']})")
+        if name == "main path":
+            elt = 2
+            nbytes = elt * (2 * B * S * h * P + 2 * B * S * G * N) + 4 * B * S * h \
+                + 4 * B * h * P * N
+            # the TPU kernel's work per (b, h, chunk): C B^T, (L o CB) X, C state^T, X^T B
+            ops_n = 2.0 * B * h * (S // L) * (L * L * N + L * L * P + 2 * L * N * P)
+            bound_ms, bound_by = bound(ops_n, nbytes, dt)
+            ms = cuda_ms(torch, lambda: ops.ssd_scan(x, a, b, c, chunk=L), reps=5)
+            plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(x, a, b, c, L), reps=2)
+            rec["ssd_scan"] = dict(
+                shape=dict(B=B, S=S, H=h, P=P, G=G, N=N, chunk=L, dtype=dt),
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=max(err, err_s),
+                bound_share=max(share, share_s), tol=f"y: {TOL[dt]}; state: {TOL['float32']}")
+        del x, a, b, c, y, st, ye, se
+    r = rec["ssd_scan"]
+    log(card, f"ssd_scan at the main path's shape: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, no single PyTorch call computes it, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+
+
+def kernels_rglru(kp: KernelPhase) -> None:
+    """rglru_scan at recurrentgemma-9b's prefill shape, a small one, ragged."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    torch, card, rec, cases_out, rand, launched, _ = kp.unpack()
+
+    # inputs as tests/test_kernels.py draws them: a_log = -0.5 |N(0, 1)|, b ~ N(0, 1)
+    for name, (B, S, W) in [("main path", (BATCH, RG_PROMPT, RG_WIDTH)),
+                            ("S 256 W 512", (2, 256, 512)), ("ragged", (3, 77, 96))]:
+        a = -rand((B, S, W), torch.float32).abs() * 0.5
+        b = rand((B, S, W), torch.float32)
+        hh, hl = launched(kernels.rglru_scan, lambda: kernels.rglru_scan.rglru_scan(a, b))
+        he, hle = ref.rglru_scan_ref(a, b)
+        err, share = check(torch, hh, he, "float32")
+        err_l, share_l = check(torch, hl, hle, "float32")
+        cases_out.append(dict(kernel="rglru_scan", case=name, dtype="float32",
+                              max_abs_err=max(err, err_l), bound_share=max(share, share_l),
+                              tol=TOL["float32"]))
+        log(card, f"rglru_scan {name}: B={B} S={S} W={W} float32: h max abs err {err:.3e}, "
+                  f"worst element at {share:.3f} of its bound, h_last {err_l:.3e} / "
+                  f"{share_l:.3f} ({TOL['float32']})")
+        if name == "main path":
+            nbytes = 4 * (3 * B * S * W + B * W)
+            # the TPU kernel's work per element: exp, ceil(log2 bt) doubling rounds of
+            # 3 operations, and the carried state's 2
+            ops_n = float(B * S * W * (3 * math.ceil(math.log2(min(256, S))) + 3))
+            bound_ms, bound_by = bound(ops_n, nbytes, "float32")
+            ms = cuda_ms(torch, lambda: kernels.rglru_scan.rglru_scan(a, b), reps=20, warmup=3)
+            plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b), reps=3)
+            rec["rglru_scan"] = dict(
+                shape=dict(B=B, S=S, W=W, dtype="float32"), ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ops=ops_n,
+                bytes=nbytes, max_abs_err=max(err, err_l), bound_share=max(share, share_l),
+                tol=TOL["float32"])
+        del a, b, hh, hl, he, hle
+    r = rec["rglru_scan"]
+    log(card, f"rglru_scan at the main path's shape: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, no single PyTorch call computes it, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(torch, card: str) -> dict:
+    kp = KernelPhase(torch, card)
+    for run in (kernels_flash, kernels_decode, kernels_ssd, kernels_rglru):
+        run(kp)
+    kp.rec["cases"] = kp.cases
+    return kp.rec
 
 
 def profile(torch, fn, card: str, what: str) -> dict:
@@ -238,34 +391,127 @@ def profile(torch, fn, card: str, what: str) -> dict:
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, top=rows)
 
 
-def phase_serve(torch, card: str) -> dict:
+@dataclasses.dataclass(frozen=True)
+class ServePath:
+    """One serving path: the arch, its depth (None: full), its prompt, the
+    kernel launches one prefill and one decode step must make, and the
+    decode-vs-fresh-prefill check at batch 1 (prefill ``check_prefix``
+    tokens, decode ``check_steps`` more, against one prefill of them all,
+    with the weights in ``check_dtype`` and the first ``check_layers``
+    layers)."""
+    arch: str
+    layers: Optional[int]
+    prompt: int
+    prefill_launches: Dict[str, int]
+    step_launches: Dict[str, int]
+    check_prefix: int
+    check_steps: int
+    check_dtype: str
+    check_layers: Optional[int]    # None: the path's depth
+    warm_len: int          # a warm-up prefill at batch 1 that reaches the path's kernels
+
+
+PATHS = [
+    # decode step vs a fresh prefill over prompt + token: the decode kernel
+    # produces the one, the flash kernel (S = 4097) the other
+    ServePath("qwen3_32b", LAYERS, PROMPT, {"flash_attention": LAYERS},
+              {"decode_attention": LAYERS}, PROMPT, 1, "bfloat16", None, PROMPT + 1),
+    # 48 SSD layers; both check prefills (512 and 768) are multiples of the
+    # 256-step chunk, so both reach the ssd_scan kernel. The check runs the
+    # same seed's weights in float32: in bf16 the decode step and the chunked
+    # prefill round at different points (the JAX package's cast points:
+    # prefill rounds dt and x*dt to bf16, decode keeps them in f32), and over
+    # 48 layers of random weights the two drift apart by more than 3e-2 with
+    # no error in either (the bf16 figure is printed beside the check)
+    ServePath("mamba2_780m", None, PROMPT, {"ssd_scan": 48}, {}, 512, 256, "float32", None,
+              256),
+    # 26 rec + 12 local_attn layers; prefill at the 2048 window (plain GQA
+    # attention up to attn_chunk), the checks' 1792 and 2048 reach rglru_scan.
+    # float32 for the same reason, and at 8 layers (two stacked units and the
+    # two-layer tail, so every cache layout is checked): with random weights
+    # the 38-layer model is chaotic, a 1e-7 change of the embedding already
+    # moves its logits by O(1) (printed beside the check)
+    ServePath("recurrentgemma_9b", None, RG_PROMPT, {"rglru_scan": 26},
+              {"decode_attention": 12}, RG_PROMPT - 256, 256, "float32", 8, 256),
+]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _slice(tree, n: int):
+    """The first ``n`` entries of every leaf of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def decode_vs_prefill(torch, model, params, prefix, extra) -> dict:
+    """Prefill ``prefix`` (1, p0), then decode the argmax token and ``extra``
+    one step at a time, against one prefill over all of them: the last
+    position's logits, as relative L2 and max abs error and both argmaxes."""
+    p0, n = prefix.shape[1], extra.shape[1] + 1
+    with torch.no_grad():
+        c1 = model.init_cache(1, p0 + n + 1)
+        logits_p, c1 = model.prefill(params, prefix, c1)
+        fed = torch.cat([torch.argmax(logits_p, dim=-1).to(torch.int32), extra], dim=1)
+        for i in range(n):
+            logits_d, c1 = model.decode(params, fed[:, i:i + 1], c1,
+                                        torch.full((1,), p0 + i, dtype=torch.int32,
+                                                   device=prefix.device))
+        del c1
+        c2 = model.init_cache(1, p0 + n + 1)
+        logits_f, _ = model.prefill(params, torch.cat([prefix, fed], dim=1), c2)
+        del c2
+    v = model.cfg.vocab_size
+    a, b = logits_d[0, -1, :v].float(), logits_f[0, -1, :v].float()
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise AssertionError("logits are not finite")
+    return dict(rel_l2=float((a - b).norm() / b.norm()), max_abs_err=float((a - b).abs().max()),
+                argmax=[int(a.argmax()), int(b.argmax())])
+
+
+def phase_serve(torch, card: str, path: ServePath) -> dict:
     import numpy as np
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
 
-    full = get_config(ARCH)
-    cfg = dataclasses.replace(full, n_layers=LAYERS)
-    log(card, f"serving {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads, "
-              f"{cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
-              f"{cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.dtype}); depth cut "
-              f"n_layers {full.n_layers} -> {cfg.n_layers}: {cfg.param_count() / 1e9:.2f} B "
-              f"parameters")
+    full = get_config(path.arch)
+    cfg = dataclasses.replace(full, n_layers=path.layers or full.n_layers)
+    prompt = path.prompt
     model, prefill_step = make_prefill_step(cfg, device=DEVICE)
     _, serve_step = make_serve_step(cfg, device=DEVICE)
     params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    analytic = cfg.param_count()     # the JAX package's formula (PERF.md: wrong for rec layers)
+    log(card, f"serving {cfg.name} at full width ({cfg.family}: d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, d_ff "
+              f"{cfg.d_ff}, ssm heads {cfg.ssm_nheads if cfg.ssm else 0} x state "
+              f"{cfg.ssm_state}, lru width {cfg.lru_dim if cfg.block_pattern else 0}, window "
+              f"{cfg.window}, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
+              f"{cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
+              f"parameters summed from the tensors ({n_bytes / 1e9:.2f} GB), "
+              f"ArchConfig.param_count() {analytic / 1e9:.3f} B")
     rng = np.random.default_rng(0)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, prompt)),
                              dtype=torch.int32, device=DEVICE)
-    cache = model.init_cache(BATCH, PROMPT + GEN)
+    cache = model.init_cache(BATCH, prompt + GEN)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     # warm-up on a separate cache so the timed run excludes first-call costs
-    warm = model.init_cache(1, 2 * cfg.attn_chunk + 8)
-    tok_w, warm = prefill_step(params, tokens[:1, :2 * cfg.attn_chunk + 1], warm)
-    serve_step(params, tok_w, warm, torch.full((1,), 2 * cfg.attn_chunk + 1,
-                                               dtype=torch.int32, device=DEVICE))
+    warm = model.init_cache(1, path.warm_len + 8)
+    tok_w, warm = prefill_step(params, tokens[:1, :path.warm_len], warm)
+    serve_step(params, tok_w, warm, torch.full((1,), path.warm_len, dtype=torch.int32,
+                                               device=DEVICE))
     del warm
     torch.cuda.synchronize()
 
@@ -277,7 +523,7 @@ def phase_serve(torch, card: str) -> dict:
     after_prefill = kernels.launch_counts()
     generated, lat = [tok], []
     for i in range(GEN):
-        pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device=DEVICE)
+        pos = torch.full((BATCH,), prompt + i, dtype=torch.int32, device=DEVICE)
         t1 = time.perf_counter()
         tok, cache = serve_step(params, tok, cache, pos)
         torch.cuda.synchronize()
@@ -286,9 +532,10 @@ def phase_serve(torch, card: str) -> dict:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    if after_prefill != {"flash_attention": LAYERS, "decode_attention": 0}:
-        raise AssertionError(f"prefill launches {after_prefill}, expected {LAYERS} flash")
-    want = {"flash_attention": LAYERS, "decode_attention": LAYERS * GEN}
+    want_prefill = {k: path.prefill_launches.get(k, 0) for k in kernels.KERNELS}
+    want = {k: want_prefill[k] + GEN * path.step_launches.get(k, 0) for k in kernels.KERNELS}
+    if after_prefill != want_prefill:
+        raise AssertionError(f"prefill launches {after_prefill}, expected {want_prefill}")
     if counts != want:
         raise AssertionError(f"serving launches {counts}, expected {want}")
     gen_toks = torch.cat(generated, dim=1).cpu()
@@ -299,87 +546,136 @@ def phase_serve(torch, card: str) -> dict:
 
     # where the time goes: one prefill and three decode steps under the profiler
     # (the decode steps rewrite the cache's last slot; the counts are already read)
-    last = torch.full((BATCH,), PROMPT + GEN - 1, dtype=torch.int32, device=DEVICE)
+    last = torch.full((BATCH,), prompt + GEN - 1, dtype=torch.int32, device=DEVICE)
     prof = {"prefill": profile(torch, lambda: prefill_step(params, tokens, cache), card,
-                               f"one prefill ({BATCH}x{PROMPT})"),
+                               f"one {cfg.name} prefill ({BATCH}x{prompt})"),
             "decode": profile(torch, lambda: [serve_step(params, tok, cache, last)
-                                              for _ in range(3)], card, "three decode steps")}
+                                              for _ in range(3)], card,
+                              f"three {cfg.name} decode steps")}
+    del cache
 
     lat_a = np.array(lat)
     p50, p99 = float(np.percentile(lat_a, 50)), float(np.percentile(lat_a, 99))
     tok_s = BATCH * GEN / (lat_a.sum() / 1e3)
-    log(card, f"prefill {BATCH}x{PROMPT} tokens: {prefill_ms:.1f} ms "
-              f"({BATCH * PROMPT / prefill_ms * 1e3:.0f} tokens/s)")
-    log(card, f"decode {GEN} steps at batch {BATCH}: p50 {p50:.2f} ms p99 {p99:.2f} ms "
-              f"per token step, {tok_s:.1f} tokens/s; peak memory "
+    log(card, f"{cfg.name} prefill {BATCH}x{prompt} tokens: {prefill_ms:.1f} ms "
+              f"({BATCH * prompt / prefill_ms * 1e3:.0f} tokens/s)")
+    log(card, f"{cfg.name} decode {GEN} steps at batch {BATCH}: p50 {p50:.2f} ms p99 "
+              f"{p99:.2f} ms per token step, {tok_s:.1f} tokens/s; peak memory "
               f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    log(card, f"launches: prefill {after_prefill}, prefill + {GEN} decode steps {counts}")
+    log(card, f"{cfg.name} launches: prefill {after_prefill}, prefill + {GEN} decode steps "
+              f"{counts}")
 
-    # decode step vs a fresh prefill over prompt + token, at batch 1; the
-    # decode kernel produces the one, the flash kernel (S = 4097) the other
-    with torch.no_grad():
-        c1 = model.init_cache(1, PROMPT + 2)
-        logits_p, c1 = model.prefill(params, tokens[:1], c1)
-        nxt = torch.argmax(logits_p, dim=-1).to(torch.int32)
-        logits_d, _ = model.decode(params, nxt, c1,
-                                   torch.full((1,), PROMPT, dtype=torch.int32, device=DEVICE))
-        c2 = model.init_cache(1, PROMPT + 2)
-        logits_f, _ = model.prefill(params, torch.cat([tokens[:1], nxt], dim=1), c2)
-    v = cfg.vocab_size
-    a, b = logits_d[0, -1, :v].float(), logits_f[0, -1, :v].float()
-    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
-        raise AssertionError("logits are not finite")
-    rel = float((a - b).norm() / b.norm())
+    # decode steps vs one fresh prefill over the same tokens, at batch 1
+    p0, n = path.check_prefix, path.check_steps
+    extra = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n - 1)), dtype=torch.int32,
+                            device=DEVICE)
+    check = {}
+    served = decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra)
+    if path.check_dtype == cfg.dtype:
+        check = served
+    else:
+        log(card, f"{cfg.name} decode vs fresh prefill at batch 1 in the served {cfg.dtype}: "
+                  f"relative L2 {served['rel_l2']:.3e}, argmax {served['argmax']} (reported, "
+                  f"not checked: decode and prefill round to {cfg.dtype} at different points)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, dtype=path.check_dtype)   # the same seed's weights
+        model = build_model(cfg, device=DEVICE)
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        # how far a 1e-7 relative change of the embedding moves the last logits
+        seq = torch.cat([tokens[:1, :p0], extra[:, :1], extra], dim=1)[:, :p0 + n]
+        with torch.no_grad():
+            base = model.prefill(params, seq, model.init_cache(1, p0 + n + 1))[0]
+            embed = params["embed"]
+            params["embed"] = embed * (1 + 1e-7 * torch.randn(
+                embed.shape, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                device=DEVICE))
+            moved = model.prefill(params, seq, model.init_cache(1, p0 + n + 1))[0]
+            params["embed"] = embed
+        v = cfg.vocab_size
+        sens = float((moved[0, -1, :v] - base[0, -1, :v]).norm() / base[0, -1, :v].norm())
+        del base, moved
+        log(card, f"{cfg.name} in {cfg.dtype} at {cfg.n_layers} layers: a 1e-7 relative "
+                  f"change of the embedding moves the last logits by relative L2 {sens:.3e}")
+        check["sensitivity_full_depth"] = sens
+        if path.check_layers:     # the first units and the tail, as views
+            cfg = dataclasses.replace(cfg, n_layers=path.check_layers)
+            model = build_model(cfg, device=DEVICE)
+            _, n_units, _ = model.scan_groups()
+            params = {**params, "stack": {k: _slice(t, n_units)
+                                          for k, t in params["stack"].items()}}
+        check.update(decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra))
+    rel = check["rel_l2"]
     consistency_tol = 3e-2
-    log(card, f"decode vs fresh prefill at position {PROMPT}, batch 1: relative L2 error "
-              f"{rel:.3e} (tol {consistency_tol}), max abs err {float((a - b).abs().max()):.3e}, "
-              f"argmax {int(a.argmax())} vs {int(b.argmax())}")
+    log(card, f"{cfg.name} decode vs fresh prefill at batch 1, {cfg.dtype} weights, "
+              f"{cfg.n_layers} layers: prefill {p0}, {n} decode step(s), against one prefill "
+              f"of {p0 + n}: relative L2 error {rel:.3e} (tol {consistency_tol}), max abs err "
+              f"{check['max_abs_err']:.3e}, argmax {check['argmax']}")
     if rel > consistency_tol:
-        raise AssertionError("decode step disagrees with a fresh prefill")
-    return dict(config=cfg.name, n_layers=cfg.n_layers, full_layers=full.n_layers,
-                params_b=cfg.param_count() / 1e9, batch=BATCH, prompt=PROMPT, gen=GEN,
-                prefill_ms=prefill_ms, decode_p50_ms=p50, decode_p99_ms=p99,
+        raise AssertionError("decode steps disagree with a fresh prefill")
+    check.update(prefix=p0, steps=n, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                 served_rel_l2=served["rel_l2"])
+    return dict(config=full.name, n_layers=path.layers or full.n_layers,
+                full_layers=full.n_layers,
+                params=n_params, params_b=n_params / 1e9, param_bytes=n_bytes,
+                param_count_analytic_b=analytic / 1e9, batch=BATCH, prompt=prompt,
+                gen=GEN, prefill_ms=prefill_ms, decode_p50_ms=p50, decode_p99_ms=p99,
                 decode_tokens_s=tok_s, peak_bytes=peak, launches=counts,
-                launches_prefill=after_prefill, consistency_rel_l2=rel,
+                launches_prefill=after_prefill, consistency_rel_l2=rel, consistency=check,
                 decode_ms=lat, profile=prof)
 
 
-def phase_small_model(torch, card: str) -> dict:
-    """A small float32 model (head_dim 64, chunked prefill) on the card
-    against the same weights on the CPU, where the plain versions run."""
+# (arch, overrides, prefill length, decode steps, launches the card must make)
+SMALL = [
+    ("qwen3_32b", dict(head_dim=64, n_layers=2, attn_chunk=64), 128, 3,
+     {"flash_attention": 2, "decode_attention": 6}),
+    ("mamba2_780m", {}, 64, 3, {"ssd_scan": 4}),                 # chunk 32: 2 chunks
+    # head_dim 64 for the decode kernel; window 32: prefill rolls the ring and
+    # every decode step wraps it; prompt 300, off the TPU kernel's 256-step
+    # tiles, still takes rglru_scan on every rec layer
+    ("recurrentgemma_9b", dict(head_dim=64), 300, 6, {"rglru_scan": 4, "decode_attention": 6}),
+]
+
+
+def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int, steps: int,
+                      want: Dict[str, int]) -> dict:
+    """A small float32 model on the card against the same weights on the
+    CPU, where the plain versions run."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(reduced_config("qwen3_32b"), head_dim=64, n_layers=2,
-                              attn_chunk=64)
+    cfg = dataclasses.replace(reduced_config(arch), **overrides)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=DEVICE)
     params = cpu.init(torch.Generator().manual_seed(1))
     params_g = _to(params, DEVICE)
     g = torch.Generator().manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (2, 131), generator=g, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt + steps), generator=g,
+                         dtype=torch.int32)
     kernels.reset_launches()
     errs = []
     with torch.no_grad():
-        c_cpu, c_gpu = cpu.init_cache(2, 136), gpu.init_cache(2, 136)
-        lc, c_cpu = cpu.prefill(params, toks[:, :128], c_cpu)
-        lg, c_gpu = gpu.prefill(params_g, toks[:, :128].to(DEVICE), c_gpu)
+        c_cpu, c_gpu = cpu.init_cache(2, prompt + steps + 5), gpu.init_cache(2, prompt + steps + 5)
+        lc, c_cpu = cpu.prefill(params, toks[:, :prompt], c_cpu)
+        lg, c_gpu = gpu.prefill(params_g, toks[:, :prompt].to(DEVICE), c_gpu)
         errs.append(float((lg.cpu() - lc).abs().max()))
-        for i in range(3):
-            pos = torch.full((2,), 128 + i, dtype=torch.int32)
-            lc, c_cpu = cpu.decode(params, toks[:, 128 + i:129 + i], c_cpu, pos)
-            lg, c_gpu = gpu.decode(params_g, toks[:, 128 + i:129 + i].to(DEVICE), c_gpu,
-                                   pos.to(DEVICE))
+        for i in range(steps):
+            pos = torch.full((2,), prompt + i, dtype=torch.int32)
+            lc, c_cpu = cpu.decode(params, toks[:, prompt + i:prompt + i + 1], c_cpu, pos)
+            lg, c_gpu = gpu.decode(params_g, toks[:, prompt + i:prompt + i + 1].to(DEVICE),
+                                   c_gpu, pos.to(DEVICE))
             errs.append(float((lg.cpu() - lc).abs().max()))
     counts = kernels.launch_counts()
-    if counts != {"flash_attention": 2, "decode_attention": 6}:
-        raise AssertionError(f"small model launches {counts}")
+    if counts != {k: want.get(k, 0) for k in kernels.KERNELS}:
+        raise AssertionError(f"small {arch} launches {counts}, expected {want}")
     tol = 1e-4
-    log(card, f"small f32 model (2 layers, head_dim 64) card vs CPU: max abs logit err "
-              f"{max(errs):.3e} (tol {tol}) over prefill + 3 decode steps")
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}) card vs CPU: max "
+              f"abs logit err {max(errs):.3e} (tol {tol}) over prefill {prompt} + {steps} "
+              f"decode steps; launches {counts}")
     if max(errs) > tol:
         raise AssertionError("the card disagrees with the CPU on a small model")
-    return dict(max_abs_err=max(errs), tol=tol)
+    return dict(arch=arch, max_abs_err=max(errs), tol=tol, launches=counts)
 
 
 def _to(tree, device):
@@ -413,7 +709,7 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    names = ["flash_attention", "decode_attention"]
+    names = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan"]
     logs = _build.build(names)
     log(card, f"built the kernels in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     for name, text in logs.items():
@@ -422,22 +718,33 @@ def main() -> int:
                 log(card, f"ptxas {name}: {line.strip()[:110]}")
 
     kern = phase_kernels(torch, card)        # phase 2
-    serve = phase_serve(torch, card)         # phase 3
-    small = phase_small_model(torch, card)   # phase 4
+    serve = {}
+    for path in PATHS:                       # phase 3
+        serve[path.arch] = phase_serve(torch, card, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    small = [phase_small_model(torch, card, *spec) for spec in SMALL]   # phase 4
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:35"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:30")}
-    kernels_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": serve["launches"][name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
-         "tol": kern[name]["tol"], "bound_share": kern[name]["bound_share"],
-         "shape": kern[name]["shape"], "card": card}
-        for name in ("flash_attention", "decode_attention")]}
+                                    "src/repro/kernels/decode_attention.py:30"),
+               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:34"),
+               "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                              "src/repro/kernels/rglru_scan.py:34")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "bound_share", "tol", "shape")
+    kernels_line = {"kernels": []}
+    for name in names:
+        by_path = {arch: r["launches"][name] for arch, r in serve.items()}
+        entry = {"name": name, "route": "cuda", "source": sources[name][0],
+                 "replaces": sources[name][1], "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
+                 "card": card}
+        if name == "decode_attention":
+            entry["head_dim_256"] = {k: kern["decode_attention_d256"][k] for k in keys}
+        kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")

@@ -11,15 +11,18 @@
 // only G = H/KV heads, ~4*G operations per 4 bytes of K and V, so decode is
 // bound by memory bytes. The design answer is to read each K/V row once for
 // the whole GQA group: one block per (b, KV head, group of up to 8 query
-// heads) stages 128-key tiles of K and V in shared memory, every thread
-// holds one key half (the two halves add by a shuffle) and scores it for
-// all the group's heads, one warp per head runs the online softmax on the
-// tile, and each thread accumulates a float4 slice of the output for all
-// heads over a strided subset of the tile's keys; the subsets are summed
-// through shared memory at the end. `cache_len` is read inside the block.
-// This version has B*KV*ceil(G/8) blocks (32 at qwen3-32b, batch 4), fewer
-// than the card's 132 SMs: splitting the keys across blocks and merging
-// the partial softmaxes is left to a later change.
+// heads) stages tiles of BK keys of K and V in shared memory (BK = 128 for
+// D = 64 and 128; BK = 64 for D = 256, where 128 f32 keys of K and V would
+// need ~279 KB, more than a block may have), NT/BK threads share a key
+// (their parts add by shuffles) and score it for all the group's heads, one
+// warp per head runs the online softmax on the tile, and each thread
+// accumulates a float4 slice of the output for all heads over a strided
+// subset of the tile's keys; the subsets are summed through shared memory
+// at the end. `cache_len` is read inside the block.
+// This version has B*KV*ceil(G/8) blocks (32 at qwen3-32b, batch 4; 8 at
+// recurrentgemma-9b's MQA, batch 4), fewer than the card's 132 SMs:
+// splitting the keys across blocks and merging the partial softmaxes is
+// left to a later change.
 //
 // NEG_INF is finite (-2e38), as in the TPU kernel, so that a fully masked
 // tile never produces NaN (see flash_attention.cu).
@@ -33,8 +36,10 @@ namespace {
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NT = 256;   // threads per block
-constexpr int BK = 128;   // keys per tile: two threads per key in the score step
 constexpr int GC = 8;     // query heads per block (one warp each in the softmax)
+
+// keys per tile: 128 (two threads a key in the score step), 64 at D = 256
+template <int D> constexpr int key_tile() { return D == 256 ? 64 : 128; }
 
 // 8 consecutive elements to f32; the pointer is 16-byte aligned
 __device__ __forceinline__ void load8(const float* p, float* out) {
@@ -62,14 +67,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-template <int D>
+template <int D, int BK>
 constexpr size_t smem_bytes() {
   // Q, K (rows padded by 8), V, P, and the running max / sum / rescale
   return sizeof(float) *
          (size_t(GC) * D + size_t(BK) * (D + 8) + size_t(BK) * D + size_t(GC) * BK + 3 * GC);
 }
 
-template <typename T, int D>
+template <typename T, int D, int BK>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
               const int32_t* __restrict__ cache_len, T* __restrict__ o, int Tk, int H, int KV,
@@ -77,7 +82,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   constexpr int KS = D + 8;          // padded K row: conflict-free float4 reads
   constexpr int NCH = D / 4;         // float4 chunks of an output row
   constexpr int NKS = NT / NCH;      // key subsets in the PV step
+  constexpr int TPK = NT / BK;       // threads sharing a key in the score step
   static_assert(NKS * GC * D <= BK * KS, "reduction buffer must fit in the K tile");
+  static_assert(BK % 32 == 0 && D % (4 * TPK) == 0, "tile shapes");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                  // [GC][D] pre-scaled
   float* Ks = Qs + GC * D;           // [BK][KS]
@@ -111,7 +118,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     lrow[tid] = 0.f;
   }
 
-  const int key = tid >> 1, half = tid & 1;      // score step
+  const int key = tid / TPK, part_id = tid % TPK;   // score step
   const int chunk = tid % NCH, ks = tid / NCH;   // PV step
   float acc[GC][4];
 #pragma unroll
@@ -140,13 +147,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     }
     __syncthreads();
 
-    // scores: this thread's key against every head, over its half of the dims
+    // scores: this thread's key against every head, over its share of the dims
     float part[GC];
 #pragma unroll
     for (int g = 0; g < GC; ++g) part[g] = 0.f;
 #pragma unroll 4
-    for (int i = 0; i < D / 8; ++i) {
-      const int c = (2 * i + half) * 4;
+    for (int i = 0; i < D / (4 * TPK); ++i) {
+      const int c = (TPK * i + part_id) * 4;
       const float4 k4 = *reinterpret_cast<const float4*>(&Ks[key * KS + c]);
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
@@ -159,8 +166,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     if (window >= 0) ok = ok && kpos > valid - 1 - window;
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
-      part[g] += __shfl_xor_sync(0xffffffffu, part[g], 1);
-      if (half == 0) Ps[g * BK + key] = ok ? part[g] : NEG_INF;
+#pragma unroll
+      for (int off = 1; off < TPK; off <<= 1)
+        part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
+      if (part_id == 0) Ps[g * BK + key] = ok ? part[g] : NEG_INF;
     }
     __syncthreads();
 
@@ -240,13 +249,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lens, void* o,
                    int B, int Tk, int H, int KV, int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, D>,
+  constexpr int BK = key_tile<D>();
+  constexpr size_t smem = smem_bytes<D, BK>();
+  static_assert(smem <= 232448, "shared memory of one block");
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, D, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int G = H / KV;
   const dim3 grid((G + GC - 1) / GC, KV, B);
-  decode_kernel<T, D><<<grid, NT, smem, stream>>>(
+  decode_kernel<T, D, BK><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(lens), static_cast<T*>(o), Tk, H, KV, window, scale * LOG2E);
   return cudaGetLastError();
@@ -272,6 +283,10 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, const void
     return launch<__nv_bfloat16, 64>(q, k, v, cache_len, o, B, Tk, H, KV, window, scale, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, cache_len, o, B, Tk, H, KV, window, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, cache_len, o, B, Tk, H, KV, window, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, cache_len, o, B, Tk, H, KV, window, scale, st);
   return int(cudaErrorInvalidValue);
 }
 

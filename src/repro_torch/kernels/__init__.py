@@ -3,14 +3,16 @@ its own module with its plain PyTorch version and a launch counter:
 
 * ``flash_attention``  — causal/SWA/GQA flash attention (prefill)
 * ``decode_attention`` — one token against the KV cache (decode)
+* ``ssd_scan``         — Mamba-2 SSD chunked scan (mamba2 prefill)
+* ``rglru_scan``       — RG-LRU linear recurrence (recurrentgemma prefill)
 
 The public entry points are in ``ops``; the submodule names stay free for
-the modules, so ``kernels.flash_attention.launches`` is the counter. The
-Mamba-2 and RG-LRU scans are not ported yet (see ROADMAP.md).
+the modules, so ``kernels.flash_attention.launches`` is the counter.
 """
-from . import decode_attention, flash_attention
+from . import decode_attention, flash_attention, rglru_scan, ssd_scan
 
-KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention}
+KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+           "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
 
 
 def reset_launches() -> None:

@@ -21,7 +21,7 @@ import torch
 from . import _build
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

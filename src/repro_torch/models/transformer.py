@@ -1,5 +1,5 @@
-"""Decoder-only language model, dense GQA path (PyTorch counterpart of
-``repro.models.transformer``).
+"""Decoder-only language model: dense GQA, Mamba-2 and RecurrentGemma
+paths (PyTorch counterpart of ``repro.models.transformer``).
 
 One ``LM`` object per ``ArchConfig`` exposes:
 
@@ -10,18 +10,23 @@ One ``LM`` object per ``ArchConfig`` exposes:
     decode(params, token, cache, pos)  → (logits, cache)
 
 Parameters and caches are nested dicts of tensors with the JAX package's
-tree layout, the layer stack included: ``params["stack"]["u0"][...]``
-leaves carry a leading ``(n_layers, ...)`` axis, and layer ``i`` runs on
-views ``leaf[i]``. Unlike the JAX package, prefill and decode write the
-KV cache in place (through those views) and return the same cache object,
-so serving holds one cache in device memory and never copies it.
+tree layout: layers are grouped into a repeated unit (``scan_groups``),
+whose ``params["stack"]["u0".."uk"]`` leaves carry a leading
+``(n_units, ...)`` axis, plus an unstacked remainder
+``params["tail"]["t0".."tm"]`` (RecurrentGemma's 2:1 pattern over 38
+layers). Layer ``i`` of the stack runs on views ``leaf[i]``. Unlike the
+JAX package, prefill and decode write the caches (KV rings, SSM and
+RG-LRU states, conv tails) in place through those views and return the
+same cache object, so serving holds one cache in device memory and never
+copies it.
 
-Only ``dense`` layers are ported; other layer kinds raise
+Layer kinds ported: ``dense``, ``ssm`` (Mamba-2), ``rec`` (RG-LRU) and
+``local_attn``; MoE, MLA, encoder-decoder and the VLM prefix raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -30,16 +35,14 @@ from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_devic
                      rms_norm, zeros)
 from .config import ArchConfig
 from .mlp import apply_mlp, init_mlp
+from .rglru import apply_rglru, init_rglru, rglru_state_shape
+from .ssm import apply_mamba2, apply_mamba2_decode, init_mamba2, mamba2_state_shape
 
 Params = Dict[str, Any]
 
 
 def unsupported(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` cannot run on the port yet, or None for a dense model."""
-    if cfg.ssm:
-        return "ssm layers (ROADMAP: Queue 1 'Mamba-2', Queue 2 'ssd_scan')"
-    if cfg.block_pattern:
-        return "rec / local_attn layers (ROADMAP: Queue 1 'RecurrentGemma', Queue 2 'rglru_scan')"
+    """Why ``cfg`` cannot run on the port yet, or None when it can."""
     if cfg.mla:
         return "MLA attention (ROADMAP: Queue 1 'MLA')"
     if cfg.n_experts:
@@ -69,12 +72,20 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, dtype,
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                lead: Tuple[int, ...] = ()) -> Params:
-    if kind != "dense":
+    """kind ∈ {dense, ssm, rec, local_attn}."""
+    p: Params = {"ln1": zeros(lead + (cfg.d_model,), gen.device)}
+    if kind == "ssm":
+        p["mixer"] = init_mamba2(gen, cfg, dtype, lead)
+        return p
+    if kind == "rec":
+        p["mixer"] = init_rglru(gen, cfg, dtype, lead)
+    elif kind in ("dense", "local_attn"):
+        p["mixer"] = init_attn(gen, cfg, dtype, lead)
+    else:
         raise NotImplementedError(f"layer kind {kind!r}: {unsupported(cfg)}")
-    return {"ln1": zeros(lead + (cfg.d_model,), gen.device),
-            "mixer": init_attn(gen, cfg, dtype, lead),
-            "ln2": zeros(lead + (cfg.d_model,), gen.device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, lead)}
+    p["ln2"] = zeros(lead + (cfg.d_model,), gen.device)
+    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, lead)
+    return p
 
 
 # ==============================================================================
@@ -146,14 +157,34 @@ def _fit_cache(cache: torch.Tensor, kv: torch.Tensor) -> None:
         cache.copy_(torch.roll(kv[:, -t_buf:], s % t_buf, dims=1))
 
 
+def _store(cache: Params, new: Dict[str, torch.Tensor]) -> None:
+    """Write a recurrent layer's new state into its cache views in place."""
+    for name, value in new.items():
+        cache[name].copy_(value)
+
+
 def apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 mode: str = "train", cache: Optional[Params] = None,
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if kind != "dense":
-        raise NotImplementedError(f"layer kind {kind!r}: {unsupported(cfg)}")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + apply_attn(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos,
-                       window=cfg.window)
+    if kind == "ssm":
+        if mode == "decode":
+            y, new = apply_mamba2_decode(p["mixer"], h, cfg, cache)
+        else:
+            y, new = apply_mamba2(p["mixer"], h, cfg, None)
+        if mode != "train":
+            _store(cache, new)
+        return x + y
+    if kind == "rec":
+        y, new = apply_rglru(p["mixer"], h, cfg, cache if mode == "decode" else None)
+        if mode != "train":
+            _store(cache, new)
+    elif kind in ("dense", "local_attn"):
+        window = (cfg.window or 2048) if kind == "local_attn" else cfg.window
+        y = apply_attn(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos, window=window)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r}: {unsupported(cfg)}")
+    x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + apply_mlp(p["mlp"], h2, cfg.act)
 
@@ -176,6 +207,39 @@ class LM:
         self.cfg = cfg
         self.device = resolve_device(device)
 
+    # -- structure ------------------------------------------------------------
+    def layer_kinds(self) -> Tuple[str, ...]:
+        cfg = self.cfg
+        if cfg.ssm:
+            return ("ssm",) * cfg.n_layers
+        if cfg.block_pattern:
+            pat = cfg.block_pattern
+            return tuple(pat[i % len(pat)] for i in range(cfg.n_layers))
+        return ("dense",) * cfg.n_layers
+
+    def scan_groups(self) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+        """(unit_pattern, n_units, tail_kinds): layers = unit×n + tail."""
+        kinds = self.layer_kinds()
+        cfg = self.cfg
+        if cfg.block_pattern:
+            u = len(cfg.block_pattern)
+            n_units = cfg.n_layers // u
+            return tuple(cfg.block_pattern), n_units, kinds[n_units * u:]
+        return (kinds[0],), cfg.n_layers, ()
+
+    def _layers(self, params: Params, cache: Optional[Params] = None
+                ) -> Iterator[Tuple[str, Params, Optional[Params]]]:
+        """(kind, layer params, layer cache) in execution order: the stacked
+        units (as views into the stacked tensors), then the tail."""
+        unit, n_units, tail = self.scan_groups()
+        for u in range(n_units):
+            for i, kind in enumerate(unit):
+                yield (kind, _layer(params["stack"][f"u{i}"], u),
+                       None if cache is None else _layer(cache["stack"][f"u{i}"], u))
+        for i, kind in enumerate(tail):
+            yield (kind, params["tail"][f"t{i}"],
+                   None if cache is None else cache["tail"][f"t{i}"])
+
     # -- init -------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
         """Random parameters on the model's device, drawn from ``gen``, a
@@ -184,23 +248,45 @@ class LM:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         cfg = self.cfg
         dtype = dtype_of(cfg.dtype)
+        unit, n_units, tail = self.scan_groups()
         params: Params = {
             "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype),
             "ln_f": zeros((cfg.d_model,), gen.device),
         }
         if not cfg.tie_embeddings:
             params["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
-        params["stack"] = {"u0": init_block(gen, cfg, "dense", dtype, lead=(cfg.n_layers,))}
+        params["stack"] = {f"u{i}": init_block(gen, cfg, kind, dtype, lead=(n_units,))
+                           for i, kind in enumerate(unit)}
+        if tail:
+            params["tail"] = {f"t{i}": init_block(gen, cfg, kind, dtype)
+                              for i, kind in enumerate(tail)}
         return params
 
     # -- caches -------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> Params:
+    def _block_cache_shape(self, kind: str, batch: int, max_len: int, dtype):
         cfg = self.cfg
-        cache_len = min(max_len, cfg.window) if cfg.window else max_len
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
-        dtype = dtype_of(cfg.dtype)
-        return {"stack": {"u0": {"k": zeros(shape, self.device, dtype),
-                                 "v": zeros(shape, self.device, dtype)}}}
+        if kind == "ssm":
+            return mamba2_state_shape(cfg, batch, dtype)
+        if kind == "rec":
+            return rglru_state_shape(cfg, batch, dtype)
+        cache_len = max_len
+        if kind == "local_attn" or (cfg.window and not cfg.block_pattern):
+            cache_len = min(max_len, (cfg.window or max_len))
+        return {"k": ((batch, cache_len, cfg.n_kv_heads, cfg.hd), dtype),
+                "v": ((batch, cache_len, cfg.n_kv_heads, cfg.hd), dtype)}
+
+    def init_cache(self, batch: int, max_len: int) -> Params:
+        dtype = dtype_of(self.cfg.dtype)
+        unit, n_units, tail = self.scan_groups()
+
+        def alloc(kind: str, lead: Tuple[int, ...]) -> Params:
+            return {name: zeros(lead + shape, self.device, dt) for name, (shape, dt)
+                    in self._block_cache_shape(kind, batch, max_len, dtype).items()}
+        cache: Params = {"stack": {f"u{i}": alloc(kind, (n_units,))
+                                   for i, kind in enumerate(unit)}}
+        if tail:
+            cache["tail"] = {f"t{i}": alloc(kind, ()) for i, kind in enumerate(tail)}
+        return cache
 
     # -- forward (train/eval) -------------------------------------------------------
     def apply(self, params: Params, tokens: torch.Tensor
@@ -208,8 +294,8 @@ class LM:
         """tokens (B, S) → (logits (B, S, V) f32, aux_loss)."""
         cfg = self.cfg
         x = params["embed"][tokens.long()]
-        for i in range(cfg.n_layers):
-            x = apply_block(_layer(params["stack"]["u0"], i), x, cfg, "dense", mode="train")
+        for kind, p, _ in self._layers(params):
+            x = apply_block(p, x, cfg, kind, mode="train")
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._head(params, x), torch.zeros((), device=x.device)
 
@@ -236,8 +322,7 @@ class LM:
                mode: str, pos: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Params]:
         cfg = self.cfg
         x = params["embed"][tokens.long()]
-        for i in range(cfg.n_layers):
-            x = apply_block(_layer(params["stack"]["u0"], i), x, cfg, "dense", mode=mode,
-                            cache=_layer(cache["stack"]["u0"], i), pos=pos)
+        for kind, p, c in self._layers(params, cache):
+            x = apply_block(p, x, cfg, kind, mode=mode, cache=c, pos=pos)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._head(params, x[:, -1:]), cache

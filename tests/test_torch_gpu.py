@@ -7,9 +7,11 @@ runs on a machine that has only PyTorch:
 Each kernel is held against its plain PyTorch version: float32 on the
 same inputs at atol/rtol 2e-5 (TF32 off); bfloat16 against the plain
 version run in float32 on the same values, elementwise within
-2**-5 * (|ref| + rms of ref's row over head_dim), which covers the
+2**-5 * (|ref| + rms of ref's row over its last axis), which covers the
 kernels' own roundings (P to bf16 in flash, the output to bf16) several
-times over and stays well below the size of a late output row.
+times over and stays well below the size of a late output row. The SSD
+scan's final state is float32 whatever the input type and is held to the
+float32 tolerance.
 """
 import pytest
 import torch
@@ -69,7 +71,9 @@ def test_decode_attention_kernel_matches_plain(dtype):
             ((4, 256, 4, 4, 64), [1, 17, 100, 256], None),
             ((3, 300, 8, 1, 128), [101, 300, 7], 96),
             ((2, 4128, 64, 8, 128), [4128, 3000], None),
-            ((1, 64, 48, 1, 128), [0], None)]:          # no live key: zeros
+            ((1, 64, 48, 1, 128), [0], None),           # no live key: zeros
+            ((4, 2048, 16, 1, 256), [2048, 1793, 256, 1], None),   # recurrentgemma MQA ring
+            ((3, 300, 8, 2, 256), [300, 101, 7], 96)]:
         q = torch.randn((B, 1, H, d), generator=gen, device="cuda").to(dtype)
         kc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
         vc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
@@ -86,6 +90,66 @@ def test_decode_attention_kernel_matches_plain(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(dtype):
+    gen = _card()
+    for B, S, H, P, G, N, chunk in [(2, 512, 4, 64, 1, 128, 128), (1, 256, 8, 32, 2, 64, 64),
+                                    (1, 300, 4, 64, 1, 32, 100), (2, 64, 8, 32, 1, 16, 32)]:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda") * 0.1
+        x, b, c = rand(B, S, H, P).to(dtype), rand(B, S, G, N).to(dtype), rand(B, S, G, N).to(dtype)
+        a = -rand(B, S, H).abs()
+        n0 = kernels.ssd_scan.launches
+        y, state = ops.ssd_scan(x, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        assert kernels.ssd_scan.launches == n0 + 1
+        assert y.dtype == dtype and state.dtype == torch.float32
+        _assert_matches_plain(y, lambda x, b, c: ref.ssd_scan_ref(x, a, b, c, chunk)[0], x, b, c)
+        torch.testing.assert_close(state, ref.ssd_scan_ref(x.float(), a, b.float(), c.float(),
+                                                           chunk)[1], **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_matches_plain():
+    gen = _card()
+    for B, S, W in [(2, 512, 256), (1, 384, 128), (3, 77, 96), (4, 2048, 4096)]:
+        a = -torch.randn((B, S, W), generator=gen, device="cuda").abs() * 0.5
+        b = torch.randn((B, S, W), generator=gen, device="cuda")
+        n0 = kernels.rglru_scan.launches
+        h, h_last = kernels.rglru_scan.rglru_scan(a, b)
+        torch.cuda.synchronize()
+        assert kernels.rglru_scan.launches == n0 + 1
+        he, hle = ref.rglru_scan_ref(a, b)
+        torch.testing.assert_close(h, he, **F32_TOL)
+        torch.testing.assert_close(h_last, hle, **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_rglru_prefill_launches_the_kernel_at_any_length():
+    """apply_rglru from zero state takes the kernel on the card at a length
+    and width off the TPU kernel's (256, 512) tiling (S = 300, W = 640), and
+    agrees with the same block on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import rglru
+
+    gen = _card()
+    cfg = dataclasses.replace(reduced_config("recurrentgemma_9b"), lru_width=640)
+    p = rglru.init_rglru(gen, cfg, torch.float32)
+    x = torch.randn((2, 300, cfg.d_model), generator=gen, device="cuda")
+    n0 = kernels.rglru_scan.launches
+    out, state = rglru.apply_rglru(p, x, cfg)
+    torch.cuda.synchronize()
+    assert kernels.rglru_scan.launches == n0 + 1
+    out_c, state_c = rglru.apply_rglru({k: v.cpu() for k, v in p.items()}, x.cpu(), cfg)
+    assert kernels.rglru_scan.launches == n0 + 1
+    torch.testing.assert_close(out.cpu(), out_c, atol=1e-4, rtol=1e-4)
+    for k in ("lru", "conv"):
+        torch.testing.assert_close(state[k].cpu(), state_c[k], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take():
     _card()
     q = torch.zeros((1, 16, 4, 80), device="cuda")             # head_dim 80
@@ -95,3 +159,13 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.flash_attention(q[..., :64].half(), q[..., :64].half(), q[..., :64].half())
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q[:, :1], q, q, torch.ones(1, dtype=torch.int32, device="cuda"))
+    x, a, bc = (torch.zeros((1, 96, 4, 64), device="cuda"), torch.zeros((1, 96, 4), device="cuda"),
+                torch.zeros((1, 96, 1, 32), device="cuda"))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.ssd_scan(x.half(), a, bc.half(), bc.half(), chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.ssd_scan(x, a, bc, bc, chunk=64)                   # 96 % 64 != 0
+    with pytest.raises(ValueError, match="P=80"):
+        ops.ssd_scan(torch.zeros((1, 96, 4, 80), device="cuda"), a, bc, bc, chunk=32)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.rglru_scan.rglru_scan(a.bfloat16(), a.bfloat16())

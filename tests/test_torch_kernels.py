@@ -11,6 +11,7 @@ weights in f32, the plain version casts them to q's type before PV).
 tests/test_torch_gpu.py holds each CUDA kernel against its plain version on
 the card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as jdecode_pallas
 from repro.kernels.flash_attention import flash_attention as jflash_pallas
+from repro.kernels.rglru_scan import rglru_scan as jrglru_pallas
+from repro.kernels.ssd_scan import ssd_scan as jssd_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
 
@@ -82,6 +85,7 @@ def test_flash_attention_plain_ragged_t(causal):
     (2, 512, 4, 2, 64),
     (3, 300, 8, 1, 128),      # T % block != 0
     (2, 512, 4, 4, 64),
+    (2, 300, 16, 1, 256),     # recurrentgemma's MQA head_dim
 ])
 @pytest.mark.parametrize("window", [None, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -112,15 +116,91 @@ def test_decode_attention_plain_per_batch_lengths():
     np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
 
 
+# ---------------------------------------------------------------- ssd
+def _ssd_inputs(rng, B, S, H, P, G, N, dtype, scale=0.1):
+    """tests/test_kernels.py's distributions: x, b, c ~ N(0, scale²) in
+    ``dtype``, a_log = -|N(0, 1)| * scale in float32."""
+    x = _pair(rng, (B, S, H, P), "float32")[0] * scale
+    a = -jnp.abs(_pair(rng, (B, S, H), "float32")[0]) * scale
+    b = _pair(rng, (B, S, G, N), "float32")[0] * scale
+    c = _pair(rng, (B, S, G, N), "float32")[0] * scale
+    jd, td = DTYPES[dtype]
+    jx, jb, jc = (t.astype(jd) for t in (x, b, c))
+    tx, tb, tc = (torch.from_numpy(np.array(t, np.float32)).to(td) for t in (x, b, c))
+    return (jx, a, jb, jc), (tx, torch.from_numpy(np.array(a)), tb, tc)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 512, 4, 64, 1, 128, 128),
+    (1, 256, 8, 32, 2, 64, 64),
+    (1, 128, 2, 64, 1, 32, 128),     # chunk > S → clamped
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_plain_matches_pallas(B, S, H, P, G, N, chunk, dtype):
+    jargs, targs = _ssd_inputs(np.random.default_rng(5), B, S, H, P, G, N, dtype)
+    y, hf = ops.ssd_scan(*targs, chunk=chunk)
+    ye, he = jssd_pallas(*jargs, chunk=min(chunk, S), interpret=True)
+    assert y.dtype == targs[0].dtype and hf.dtype == torch.float32
+    np.testing.assert_allclose(_np(y), _np(ye), **_tol(dtype))
+    np.testing.assert_allclose(_np(hf), _np(he), atol=1e-2 if dtype == "bfloat16" else 1e-4,
+                               rtol=1e-2)
+
+
+def test_ssd_scan_plain_matches_sequential_recurrence():
+    """The chunked plain version equals the O(S) sequential SSM recurrence
+    (tests/test_kernels.py's check of the Pallas kernel)."""
+    B, S, H, P, N = 1, 64, 2, 8, 16
+    _, (x, a, b, c) = _ssd_inputs(np.random.default_rng(6), B, S, H, P, 1, N, "float32",
+                                  scale=0.2)
+    y, hf = ops.ssd_scan(x, a, b, c, chunk=16)
+    x, a, b, c = (t.double().numpy() for t in (x, a, b, c))
+    h = np.zeros((B, H, P, N))
+    ys = np.zeros((B, S, H, P))
+    for t in range(S):
+        h = np.exp(a[:, t])[:, :, None, None] * h + np.einsum("bhp,bn->bhpn", x[:, t],
+                                                               b[:, t, 0])
+        ys[:, t] = np.einsum("bhpn,bn->bhp", h, c[:, t, 0])
+    np.testing.assert_allclose(_np(y), ys, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_np(hf), h, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- rglru
+@pytest.mark.parametrize("B,S,W,bt", [
+    (2, 512, 256, 128),
+    (1, 384, 128, 128),
+    (2, 256, 512, 256),
+])
+def test_rglru_scan_plain_matches_jax_oracle(B, S, W, bt):
+    """Against the JAX oracle and the Pallas kernel (interpret mode) at its
+    (bt, min(512, W)) tiling; the port's wrapper takes no tile size."""
+    rng = np.random.default_rng(7)
+    ja, ta = _pair(rng, (B, S, W), "float32")
+    jb, tb = _pair(rng, (B, S, W), "float32")
+    ja, ta = -jnp.abs(ja) * 0.5, -ta.abs() * 0.5
+    h, hl = ops.rglru_scan(ta, tb)
+    assert h.dtype == hl.dtype == torch.float32
+    for he, hle in (jax.jit(jref.rglru_scan_ref)(ja, jb),
+                    jrglru_pallas(ja, jb, block_t=bt, interpret=True)):
+        np.testing.assert_allclose(_np(h), _np(he), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(_np(hl), _np(hle), atol=2e-5, rtol=2e-5)
+
+
 # ---------------------------------------------------------------- dispatch
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 4, 64)).astype(np.float32))
                for _ in range(3))
     lens = torch.tensor([40], dtype=torch.int32)
+    a_log = -q[..., 0].abs()
+    bc = k[:, :, :1, :32]
     before = kernels.launch_counts()
     out_f = ops.flash_attention(q, k, v, window=16)
     out_d = ops.decode_attention(q[:, :1], k, v, lens, window=16)
+    out_s = ops.ssd_scan(q, a_log, bc, bc, chunk=16)
+    out_r = ops.rglru_scan(a_log, q[..., 1])
     assert kernels.launch_counts() == before
     assert torch.equal(out_f, ref.flash_attention_ref(q, k, v, window=16))
     assert torch.equal(out_d, ref.decode_attention_ref(q[:, :1], k, v, lens, window=16))
+    for got, exp in zip(out_s + out_r, ref.ssd_scan_ref(q, a_log, bc, bc, 16)
+                        + ref.rglru_scan_ref(a_log, q[..., 1])):
+        assert torch.equal(got, exp)

@@ -19,8 +19,9 @@ ARGS = ["--arch", "qwen3_32b", "--reduced", "--batch", "2", "--prompt-len", "12"
         "--gen-len", "5"]
 
 
-def test_serve_reduced_on_cpu_prints_latency(capsys):
-    out = serve.main(ARGS + ["--device", "cpu"])
+@pytest.mark.parametrize("arch", ["qwen3_32b", "mamba2_780m", "recurrentgemma_9b"])
+def test_serve_reduced_on_cpu_prints_latency(capsys, arch):
+    out = serve.main(["--arch", arch] + ARGS[2:] + ["--device", "cpu"])
     text = capsys.readouterr().out
     assert "prefill(12 tokens)" in text and "p50=" in text and "p99=" in text
     assert out["p50_ms"] > 0 and out["p99_ms"] >= out["p50_ms"]
