@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from csrc/ and runs these phases:
+Builds the hand-written CUDA kernels from csrc/ (one nvcc a source, all
+started together; each instance's registers, stack, spills and shared
+memory printed from ``ptxas -v``) and runs these phases:
 
 1. the device: name and power limit from nvidia-smi;
 2. each kernel against its plain PyTorch version at the serving paths'
    shapes (bf16 qwen3-32b attention, recurrentgemma-9b's head_dim-256
-   decode, mamba2-780m's SSD scan, recurrentgemma-9b's RG-LRU scan) plus
-   ragged, windowed, grouped and float32 cases, each error printed beside
-   its bound (see ``check``), with times of the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call as a
-   yardstick;
+   prefill above its window and decode, mamba2-780m's SSD scan,
+   recurrentgemma-9b's RG-LRU scan) plus ragged, windowed, grouped,
+   empty-split and float32 cases, each error printed beside its bound
+   (see ``check``), with times of the kernel, the plain version and,
+   where one PyTorch call computes the same function, that call as a
+   yardstick, timed in turns with the kernel (``paired_ms``; decode with
+   L2 flushed before each launch);
 3. three serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
    its kernels ran on every layer, a profiler window (device time by
@@ -41,6 +45,8 @@ import gc
 import json
 import math
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -78,6 +84,63 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _events_ms(torch, fn, reps: int, flush=None) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches; with ``flush``, the
+    L2 cache is flushed before each launch, outside the timed span, and a
+    ~0.1 ms spin kernel keeps the card busy while the host enqueues ``fn``,
+    so a wrapper's host time (tens of us, as long as a decode kernel) never
+    sits between the events."""
+    if flush is None:
+        return cuda_ms(torch, fn, reps, warmup=0)
+    spans = []
+    for _ in range(reps):
+        flush()
+        torch.cuda._sleep(200_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / reps
+
+
+def paired_ms(torch, kernel, library, reps: int, rounds: int = 5, warmup: int = 3,
+              flush=None):
+    """A kernel and its library yardstick timed in turns: ``rounds`` rounds
+    of kernel, library, library, kernel (``reps`` launches each), after
+    ``warmup`` calls of both. Returns the medians over the rounds and every
+    reading, so a drift of the card shows in both and not as a difference."""
+    for _ in range(warmup):
+        kernel()
+        library()
+    torch.cuda.synchronize()
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(_events_ms(torch, kernel, reps, flush))
+        ls.append(_events_ms(torch, library, reps, flush))
+        ls.append(_events_ms(torch, library, reps, flush))
+        ks.append(_events_ms(torch, kernel, reps, flush))
+    return statistics.median(ks), statistics.median(ls), dict(kernel_ms=ks, library_ms=ls)
+
+
+def l2_flush(torch):
+    """A callable that evicts the H100's 50 MB L2 by reading 128 MB. Reading
+    leaves clean lines, as a served step's weight reads do; writing would
+    leave ~50 MB of dirty lines that the timed kernel pays to write back."""
+    buf = torch.ones(64 << 20, dtype=torch.bfloat16, device=DEVICE)
+    return lambda: buf.amax()
+
+
+def live_pairs(S: int, T: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs that attention with this mask scores."""
+    import numpy as np
+    qpos = np.arange(S)
+    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def bound(ops: float, nbytes: float, dtype: str):
@@ -149,19 +212,30 @@ class KernelPhase:
 
 
 def kernels_flash(kp: KernelPhase) -> None:
-    """flash_attention at qwen3-32b's prefill shape, ragged, windowed, f32."""
+    """flash_attention at qwen3-32b's and recurrentgemma-9b's prefill
+    shapes, ragged, windowed, head_dim 64/128/256, float32."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
+    mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256"}
 
     for name, (B, S, T, h, kv, d), causal, window, dt in [
             ("main path", (BATCH, PROMPT, PROMPT, H, KV, D), True, None, "bfloat16"),
+            # recurrentgemma-9b prefill above its attn_chunk: MQA, head_dim 256, window 2048
+            ("d256 main path", (BATCH, PROMPT, PROMPT, RG_HEADS, 1, RG_HEAD_DIM), True,
+             RG_PROMPT, "bfloat16"),
             ("ragged S", (1, PROMPT + 1, PROMPT + 1, H, KV, D), True, None, "bfloat16"),
             ("window", (1, PROMPT // 2, PROMPT // 2, H, KV, D), True, PROMPT // 4, "bfloat16"),
             ("ragged short", (2, 200, 200, 8, 2, D), True, None, "bfloat16"),
             ("non-causal ragged d64", (2, 300, 777, 8, 2, 64), False, None, "bfloat16"),
+            # S, T off the 128-row query and 64/128-key tiles; windows under a query tile
+            ("ragged window 40 d256", (2, 300, 300, 4, 1, RG_HEAD_DIM), True, 40, "bfloat16"),
+            ("ragged window 100", (1, 1000, 1000, 8, 2, D), True, 100, "bfloat16"),
+            ("window 40 d64", (2, 257, 257, 8, 2, 64), True, 40, "bfloat16"),
+            ("non-causal ragged d256", (2, 200, 333, 4, 2, RG_HEAD_DIM), False, None,
+             "bfloat16"),
             ("f32 causal", (1, PROMPT // 4, PROMPT // 4, H, KV, D), True, None, "float32"),
             ("f32 non-causal ragged d64", (2, 300, 777, 8, 2, 64), False, None, "float32")]:
         q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, T, kv, d), dtypes[dt]), \
@@ -180,26 +254,45 @@ def kernels_flash(kp: KernelPhase) -> None:
         log(card, f"flash_attention {name}: B={B} S={S} T={T} H={h} KV={kv} d={d} {dt} "
                   f"window={window} causal={causal}: max abs err {err:.3e}, worst element "
                   f"at {share:.3f} of its bound ({TOL[dt]})")
-        if name == "main path":
-            live = S * (S + 1) // 2                      # causal pairs per (b, h)
+        if name in mains:
+            live = live_pairs(S, T, causal, window)      # scored pairs per (b, h)
             ops_n = 4.0 * B * h * d * live               # QK^T and PV, 2 ops per MAC
             nbytes = 2 * (2 * B * S * h * d + 2 * B * T * kv * d)
             bound_ms, bound_by = bound(ops_n, nbytes, dt)
-            ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, causal=True), reps=5)
-            plain_ms = cuda_ms(torch, plain, reps=2)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
-            rec["flash_attention"] = dict(
-                shape=dict(B=B, S=S, T=T, H=h, KV=kv, d=d, dtype=dt, causal=True),
+            if window is None:
+                def library():
+                    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                          enable_gqa=True)
+            else:
+                qpos = torch.arange(S, device=DEVICE)[:, None]
+                kpos = torch.arange(T, device=DEVICE)[None, :]
+                mask = kpos > qpos - window
+                if causal:
+                    mask = mask & (kpos <= qpos)
+
+                def library():
+                    return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          enable_gqa=True)
+            ms, lib_ms, readings = paired_ms(
+                torch, lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                library, reps=3, rounds=3, warmup=1)
+            plain_ms = cuda_ms(torch, plain, reps=2)
+            rec[mains[name]] = dict(
+                shape=dict(B=B, S=S, T=T, H=h, KV=kv, d=d, dtype=dt, causal=causal,
+                           window=window),
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err,
-                bound_share=share, tol=TOL[dt])
+                bound_share=share, tol=TOL[dt], timing=readings)
         del q, k, v, out, exp
-    r = rec["flash_attention"]
-    log(card, f"flash_attention at the main path's shape: kernel {r['ms']:.3f} ms, "
-              f"plain {r['plain_ms']:.3f} ms, scaled_dot_product_attention "
-              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    for key, what in (("flash_attention", "the main path's shape"),
+                      ("flash_attention_d256", "recurrentgemma-9b's d=256 prefill shape")):
+        r = rec[key]
+        log(card, f"flash_attention at {what}: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention "
+                  f"{r['library_ms']:.3f} ms (medians of turns), bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']})")
+    torch.cuda.empty_cache()
 
 
 def kernels_decode(kp: KernelPhase) -> None:
@@ -209,6 +302,7 @@ def kernels_decode(kp: KernelPhase) -> None:
     from repro_torch.kernels import ops, ref
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
+    flush = l2_flush(torch)      # a served step finds the cache cold
 
     def run_decode(key, main, cases):
         for name, (B, t, h, kv, d), lens, window, dt in cases:
@@ -218,36 +312,42 @@ def kernels_decode(kp: KernelPhase) -> None:
             out = launched(kernels.decode_attention,
                            lambda: ops.decode_attention(q, kc, vc, cl, window=window))
             exp = ref.decode_attention_ref(q.float(), kc.float(), vc.float(), cl, window=window)
+            exp[cl == 0] = 0.0    # no live key: the kernels write 0 (a softmax would average)
             err, share = check(torch, out, exp, dt)
+            split_len, n_splits = kernels.decode_attention.split_plan(t, B, kv, h // kv)
             cases_out.append(dict(kernel="decode_attention", case=name, dtype=dt,
-                                  max_abs_err=err, bound_share=share, tol=TOL[dt]))
+                                  max_abs_err=err, bound_share=share, tol=TOL[dt],
+                                  split_len=split_len, n_splits=n_splits))
             log(card, f"decode_attention {name}: B={B} T={t} H={h} KV={kv} d={d} {dt} "
-                      f"lens={lens} window={window}: max abs err {err:.3e}, worst element "
-                      f"at {share:.3f} of its bound ({TOL[dt]})")
+                      f"lens={lens} window={window}, {n_splits} splits of {split_len}: max abs "
+                      f"err {err:.3e}, worst element at {share:.3f} of its bound ({TOL[dt]})")
             if name == main:
                 live = sum(min(n, t) for n in lens)      # cache rows the lengths make live
                 elt = 2
                 nbytes = elt * (2 * live * kv * d + 2 * B * h * d) + 4 * B
                 ops_n = 4.0 * h * d * live
                 bound_ms, bound_by = bound(ops_n, nbytes, dt)
-                ms = cuda_ms(torch, lambda: ops.decode_attention(q, kc, vc, cl), reps=50,
-                             warmup=3)
-                plain_ms = cuda_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, cl),
-                                   reps=20)
                 mask = (torch.arange(t, device=DEVICE)[None, :] < cl[:, None])[:, None, None, :]
                 qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+                ms, lib_ms, readings = paired_ms(
+                    torch, lambda: ops.decode_attention(q, kc, vc, cl),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                           enable_gqa=True),
+                    reps=20, rounds=5, flush=flush)
+                plain_ms = cuda_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, cl),
+                                   reps=20)
                 rec[key] = dict(
-                    shape=dict(B=B, T=t, H=h, KV=kv, d=d, dtype=dt, cache_len=lens),
+                    shape=dict(B=B, T=t, H=h, KV=kv, d=d, dtype=dt, cache_len=lens,
+                               split_len=split_len, n_splits=n_splits),
                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                     bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err,
-                    bound_share=share, tol=TOL[dt])
+                    bound_share=share, tol=TOL[dt], timing=readings, l2="flushed")
             del q, kc, vc, out, exp
         r = rec[key]
         log(card, f"decode_attention at {main}'s shape: kernel {r['ms']:.4f} ms, "
                   f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                  f"{r['library_ms']:.4f} ms (medians of turns, L2 flushed before each "
+                  f"launch), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     T = PROMPT + GEN
     run_decode("decode_attention", "main path", [
@@ -255,8 +355,12 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("per-batch lengths", (4, T, H, KV, D), [T, PROMPT + 1, PROMPT // 4, 1], None,
          "bfloat16"),
         ("window", (4, T, H, KV, D), [T, 3 * T // 4, T // 8, 17], T // 4, "bfloat16"),
+        # most splits hold no live key (lengths 1 and 0); a row of length 0 is zeros
+        ("empty splits", (4, T, H, KV, D), [T, 1, 0, T - 1], None, "bfloat16"),
         ("T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "bfloat16"),
+        ("one split T=32", (3, 32, 8, 1, 64), [32, 5, 1], 8, "bfloat16"),
         ("f32", (2, T, H, KV, D), [T, PROMPT // 2 + 1], None, "float32"),
+        ("f32 empty splits", (4, T, H, KV, D), [T, 1, 0, T - 1], None, "float32"),
         ("f32 T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "float32")])
     # recurrentgemma-9b's local attention: a full 2048-slot ring, MQA, head_dim 256
     Tr, Hr, Dr = RG_PROMPT, RG_HEADS, RG_HEAD_DIM
@@ -266,6 +370,7 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("d256 window", (4, Tr, Hr, 1, Dr), [Tr, 3 * Tr // 4, 100, 17], Tr // 4, "bfloat16"),
         ("d256 GQA T=300", (3, 300, 8, 2, Dr), [300, 101, 7], 96, "bfloat16"),
         ("d256 f32", (2, Tr, Hr, 1, Dr), [Tr, Tr // 2 + 1], None, "float32")])
+    del flush
     torch.cuda.empty_cache()
 
 
@@ -684,6 +789,75 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_wgmma_kernel<256,64>`` from a mangled kernel name."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled) or re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    n, at = int(m.group(1)), m.end()
+    name, rest = mangled[at:at + n], mangled[at + n:]
+    args = []
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while rest and not rest.startswith("E"):
+            lit = re.match(r"Li(\d+)E", rest)
+            if lit:
+                args.append(lit.group(1))
+                rest = rest[lit.end():]
+            elif rest.startswith("13__nv_bfloat16"):
+                args.append("bf16")
+                rest = rest[15:]
+            elif rest.startswith("f"):
+                args.append("float")
+                rest = rest[1:]
+            else:
+                break
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_record(logs: Dict[str, str]) -> list:
+    """Registers, stack and spills of every compiled kernel (``nvcc -Xptxas
+    -v``), with the dynamic shared memory a block of the attention kernels
+    asks for."""
+    import ctypes
+    from repro_torch.kernels import _build
+    smem = {}
+    for src in ("flash_attention", "decode_attention"):
+        fn = getattr(ctypes.CDLL(str(_build._target(src))), f"{src}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        smem[src] = fn
+    out = []
+    for src, text in logs.items():
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)", line)
+            if m:
+                cur = dict(source=src, function=_kernel_name(m.group(1)))
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["static_smem"] = int(m.group(1))
+    for r in out:
+        fn = r["function"]
+        args = fn[fn.find("<") + 1:-1].split(",") if "<" in fn else []
+        dims = [int(a) for a in args if a.isdigit()]
+        if r["source"] in smem and dims and "combine" not in fn:
+            dtype = 0 if ("f32" in fn or "fwd_kernel" in fn) else 1
+            r["dynamic_smem"] = smem[r["source"]](dtype, dims[0])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -712,10 +886,12 @@ def main() -> int:
     names = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan"]
     logs = _build.build(names)
     log(card, f"built the kernels in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
-                log(card, f"ptxas {name}: {line.strip()[:110]}")
+    ptxas = ptxas_record(logs)
+    for r in ptxas:
+        log(card, f"ptxas {r['source']}.cu {r['function']}: {r.get('registers')} registers, "
+                  f"{r.get('stack', 0)} B stack, spill stores {r.get('spill_stores', 0)} B, "
+                  f"spill loads {r.get('spill_loads', 0)} B, dynamic shared memory "
+                  f"{r.get('dynamic_smem', 'none')}")
 
     kern = phase_kernels(torch, card)        # phase 2
     serve = {}
@@ -742,11 +918,11 @@ def main() -> int:
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
                  "card": card}
-        if name == "decode_attention":
-            entry["head_dim_256"] = {k: kern["decode_attention_d256"][k] for k in keys}
+        if name in ("flash_attention", "decode_attention"):
+            entry["head_dim_256"] = {k: kern[f"{name}_d256"][k] for k in keys}
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
-              "seconds": time.perf_counter() - t_start}
+              "ptxas": ptxas, "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

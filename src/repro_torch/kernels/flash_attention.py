@@ -21,7 +21,7 @@ import torch
 from . import _build
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (64, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -75,9 +75,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"flash_attention: dtype {q.dtype}/{k.dtype}/{v.dtype} "
                          "not supported (float32 or bfloat16, all alike)")
-    if d not in HEAD_DIMS or k.shape != (B, T, KV, d) or v.shape != k.shape:
+    if d not in HEAD_DIMS[q.dtype] or k.shape != (B, T, KV, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                         f"v{tuple(v.shape)} not supported (head_dim in {HEAD_DIMS})")
+                         f"v{tuple(v.shape)} not supported (head_dim in "
+                         f"{HEAD_DIMS[q.dtype]} for {q.dtype})")
     if KV == 0 or H % KV:
         raise ValueError(f"flash_attention: {H} heads not a multiple of {KV} KV heads")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

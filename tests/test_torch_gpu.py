@@ -64,6 +64,30 @@ def test_flash_attention_kernel_matches_plain(dtype):
 
 
 @pytest.mark.gpu
+def test_flash_attention_bf16_head_dim_256_ragged_and_small_windows():
+    """The wgmma path at head_dim 256 (recurrentgemma-9b), S and T off its
+    128-row query tiles and 64/128-key tiles, windows narrower than a query
+    tile, and non-causal at d = 256."""
+    gen = _card()
+    for (B, S, T, H, KV, d), causal, window in [
+            ((1, 300, 300, 4, 1, 256), True, 100),
+            ((2, 200, 333, 4, 2, 256), False, None),
+            ((1, 1000, 1000, 2, 1, 256), True, 40),
+            ((2, 333, 200, 4, 1, 128), False, None),
+            ((1, 257, 257, 8, 2, 64), True, 40),
+            ((1, 130, 130, 16, 4, 128), True, 100)]:
+        q = torch.randn((B, S, H, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, T, KV, d), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, T, KV, d), generator=gen, device="cuda").bfloat16()
+        n0 = kernels.flash_attention.launches
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert kernels.flash_attention.launches == n0 + 1
+        _assert_matches_plain(out, lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), q, k, v)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(dtype):
     gen = _card()
@@ -73,7 +97,11 @@ def test_decode_attention_kernel_matches_plain(dtype):
             ((2, 4128, 64, 8, 128), [4128, 3000], None),
             ((1, 64, 48, 1, 128), [0], None),           # no live key: zeros
             ((4, 2048, 16, 1, 256), [2048, 1793, 256, 1], None),   # recurrentgemma MQA ring
-            ((3, 300, 8, 2, 256), [300, 101, 7], 96)]:
+            ((3, 300, 8, 2, 256), [300, 101, 7], 96),
+            ((4, 4128, 16, 2, 128), [4128, 1, 0, 4127], None),    # most splits empty
+            ((3, 32, 8, 1, 64), [32, 5, 1], 8)]:                  # one split
+        if T == 32:
+            assert kernels.decode_attention.split_plan(T, B, KV, H // KV)[1] == 1
         q = torch.randn((B, 1, H, d), generator=gen, device="cuda").to(dtype)
         kc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
         vc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
@@ -82,11 +110,11 @@ def test_decode_attention_kernel_matches_plain(dtype):
         out = ops.decode_attention(q, kc, vc, cl, window=window)
         torch.cuda.synchronize()
         assert kernels.decode_attention.launches == n0 + 1
-        if lens == [0]:
-            assert not out.any()
-            continue
-        _assert_matches_plain(out, lambda q, kc, vc: ref.decode_attention_ref(
-            q, kc, vc, cl, window=window), q, kc, vc)
+        live = [i for i, n in enumerate(lens) if n > 0]
+        assert not out[[i for i, n in enumerate(lens) if n == 0]].any()   # no live key: zeros
+        if live:
+            _assert_matches_plain(out[live], lambda q, kc, vc: ref.decode_attention_ref(
+                q, kc, vc, cl[live], window=window), q[live], kc[live], vc[live])
 
 
 @pytest.mark.gpu
@@ -157,6 +185,9 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention(q[..., :64].half(), q[..., :64].half(), q[..., :64].half())
+    q256 = torch.zeros((1, 16, 4, 256), device="cuda")         # float32 takes 64 and 128 only
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q256, q256, q256)
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q[:, :1], q, q, torch.ones(1, dtype=torch.int32, device="cuda"))
     x, a, bc = (torch.zeros((1, 96, 4, 64), device="cuda"), torch.zeros((1, 96, 4), device="cuda"),

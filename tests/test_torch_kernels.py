@@ -24,6 +24,8 @@ from repro.kernels.rglru_scan import rglru_scan as jrglru_pallas
 from repro.kernels.ssd_scan import ssd_scan as jssd_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import (SPLIT_TILE, decode_attention_splits_ref,
+                                                  split_plan)
 
 # two CPU threads each: the suite runs test files side by side in workers
 torch.set_num_threads(2)
@@ -114,6 +116,82 @@ def test_decode_attention_plain_per_batch_lengths():
     out = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
     exp = jdecode_pallas(jq, jk, jv, jnp.asarray(lens), interpret=True)
     np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------- decode: split-KV
+@pytest.mark.parametrize("T,B,KV,G", [
+    (4128, 4, 8, 8),      # qwen3-32b decode, batch 4
+    (2048, 4, 1, 16),     # recurrentgemma-9b local attention, batch 4
+    (300, 3, 1, 8),
+    (32, 3, 1, 8),        # one split
+    (1, 1, 1, 1),
+    (65536, 1, 1, 8),
+    (4128, 64, 8, 8),     # enough blocks without splitting much
+])
+def test_split_plan_covers_every_key_once(T, B, KV, G):
+    split_len, n_splits = split_plan(T, B, KV, G)
+    assert split_len >= SPLIT_TILE and split_len % SPLIT_TILE == 0   # whole tiles, at least one
+    covered = np.zeros(T, np.int64)
+    for s in range(n_splits):
+        assert s * split_len < T                                       # no split past the cache
+        covered[s * split_len:min((s + 1) * split_len, T)] += 1
+    assert (covered == 1).all()
+
+
+def test_split_plan_fills_the_card_at_the_serving_shapes():
+    """qwen3-32b (B=4, T=4128, KV=8, G=8, one 16-head block a KV head):
+    at least two blocks on each of the H100's 132 SMs; recurrentgemma-9b
+    (B=4, T=2048, KV=1, G=16): at least one, where one-tile splits cap it."""
+    split_len, n = split_plan(4128, 4, 8, 8)
+    assert 4 * 8 * n >= 264
+    split_len, n = split_plan(2048, 4, 1, 16)
+    assert 4 * 1 * n >= 132 and (split_len, n) == (SPLIT_TILE, 2048 // SPLIT_TILE)
+
+
+# (B, T, H, KV, d), cache_len, window: the serving shapes with few heads; the
+# lengths leave whole splits empty (1 and 0), and 0 gives a row of zeros
+SPLIT_CASES = {
+    "qwen3": ((4, 4128, 8, 1, 64), [4128, 1, 0, 4127], None),
+    "qwen3 window": ((4, 4128, 8, 1, 64), [4128, 3001, 1, 0], 1000),
+    "recurrentgemma": ((4, 2048, 16, 1, 64), [2048, 1793, 256, 1], None),
+    "recurrentgemma window": ((3, 2048, 16, 1, 32), [2048, 0, 700], 512),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_combine_matches_plain_and_jax(case, dtype):
+    """The split-KV algorithm (per-split (m, l, acc), log-sum-exp combine)
+    at several split counts against the one-pass plain version and the JAX
+    package (the Pallas kernel in interpret mode for float32, its oracle
+    for bfloat16), within their tolerances."""
+    (B, T, H, KV, d), lens, window = SPLIT_CASES[case]
+    rng = np.random.default_rng(8)
+    jq, tq = _pair(rng, (B, 1, H, d), dtype)
+    jk, tk = _pair(rng, (B, T, KV, d), dtype)
+    jv, tv = _pair(rng, (B, T, KV, d), dtype)
+    cl = np.array(lens, np.int32)
+    empty = cl == 0                 # no live key: the kernels write 0, a softmax would not
+    exp_t = _np(ref.decode_attention_ref(tq, tk, tv, torch.from_numpy(cl), window=window))
+    if dtype == "float32":
+        # key tiles that divide T (the Pallas kernel reads a ragged tail as padding)
+        bk = max(n for n in range(1, 1025) if T % n == 0)
+        exp_j = np.array(_np(jdecode_pallas(jq, jk, jv, jnp.asarray(cl), window=window,
+                                            block_k=bk, interpret=True)))
+        assert not exp_j[empty].any()
+    else:
+        exp_j = np.array(_np(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(cl),
+                                                       window=window)))
+    exp_t[empty] = 0.0
+    exp_j[empty] = 0.0
+    plans = {split_plan(T, B, KV, H // KV), (SPLIT_TILE, -(-T // SPLIT_TILE)),
+             (-(-T // SPLIT_TILE) * SPLIT_TILE, 1), (3 * SPLIT_TILE, -(-T // (3 * SPLIT_TILE)))}
+    for split_len, n_splits in sorted(plans):
+        out = decode_attention_splits_ref(tq, tk, tv, torch.from_numpy(cl), window=window,
+                                          split_len=split_len, n_splits=n_splits)
+        assert out.dtype == tq.dtype and out.shape == (B, 1, H, d)
+        np.testing.assert_allclose(_np(out), exp_t, **_tol(dtype))
+        np.testing.assert_allclose(_np(out), exp_j, **_tol(dtype))
 
 
 # ---------------------------------------------------------------- ssd
