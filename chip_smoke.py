@@ -5,13 +5,15 @@
 
 Builds the hand-written CUDA kernels from csrc/ (one nvcc a source, all
 started together; each instance's registers, stack, spills and shared
-memory printed from ``ptxas -v``) and runs these phases:
+memory printed from ``ptxas -v``, and the HMMA count of each SSD stage
+from ``cuobjdump -sass``) and runs these phases:
 
 1. the device: name and power limit from nvidia-smi;
 2. each kernel against its plain PyTorch version at the serving paths'
    shapes (bf16 qwen3-32b attention, recurrentgemma-9b's head_dim-256
-   prefill above its window and decode, mamba2-780m's SSD scan,
-   recurrentgemma-9b's RG-LRU scan) plus ragged, windowed, grouped,
+   prefill above its window and decode, mamba2-780m's SSD scan with each
+   of its four bf16 stages timed by the profiler, recurrentgemma-9b's
+   RG-LRU scan) plus ragged, windowed, grouped,
    empty-split and float32 cases, each error printed beside its bound
    (see ``check``), with times of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call as a
@@ -374,10 +376,32 @@ def kernels_decode(kp: KernelPhase) -> None:
     torch.cuda.empty_cache()
 
 
+SSD_STAGES = ("ssd_cb_kernel", "ssd_chunk_state_kernel", "ssd_state_passing_kernel",
+              "ssd_chunk_scan_kernel")
+
+
+def ssd_stage_bytes(B: int, S: int, H: int, P: int, G: int, N: int, L: int) -> Dict[str, int]:
+    """Device-memory bytes each bf16 stage must move (each input read once,
+    each output written once): the decomposition's own traffic, with its
+    scratch (cb's lower 64x64 tiles in f32, a_cum, the f32 chunk states,
+    prev in bf16) written by one stage and read by the next."""
+    nc, nt = S // L, -(-L // 64)
+    xb, bcb, ab = 2 * B * S * H * P, 2 * B * S * G * N, 4 * B * S * H
+    cb = 4 * B * nc * G * (nt * (nt + 1) // 2) * 64 * 64
+    states, prev, final = 4 * B * nc * H * P * N, 2 * B * nc * H * P * N, 4 * B * H * P * N
+    return {"ssd_cb_kernel": 2 * bcb + cb,
+            "ssd_chunk_state_kernel": xb + bcb + ab + states + ab,
+            "ssd_state_passing_kernel": states + 4 * B * H * nc + prev + final,
+            "ssd_chunk_scan_kernel": xb + ab + bcb + cb + prev + xb}
+
+
 def kernels_ssd(kp: KernelPhase) -> None:
-    """ssd_scan at mamba2-780m's prefill shape, grouped, ragged chunk."""
+    """ssd_scan at mamba2-780m's prefill shape, grouped, ragged chunk. bf16
+    runs the four chunk-parallel stages (cb, chunk_state, state_passing,
+    chunk_scan), float32 the CUDA-core kernel."""
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
+    from torch.profiler import ProfilerActivity, profile as tprofile
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
 
     # inputs as tests/test_kernels.py draws them: x, b, c ~ N(0, 0.01), a_log = -0.1 |N(0, 1)|
@@ -385,7 +409,8 @@ def kernels_ssd(kp: KernelPhase) -> None:
             ("main path", (BATCH, PROMPT, SSD_HEADS, SSD_P, 1, SSD_N, SSD_CHUNK), "bfloat16"),
             ("grouped f32", (2, 512, 8, 32, 2, 64, 128), "float32"),
             ("chunk 100 f32", (1, 300, 4, 64, 1, 32, 100), "float32"),
-            ("chunk 100 bf16", (1, 300, 4, 64, 1, 32, 100), "bfloat16")]:
+            ("chunk 100 bf16", (1, 300, 4, 64, 1, 32, 100), "bfloat16"),
+            ("grouped bf16 P48 N80", (2, 192, 8, 48, 2, 80, 48), "bfloat16")]:
         x = (rand((B, S, h, P), torch.float32) * 0.1).to(dtypes[dt])
         a = -rand((B, S, h), torch.float32).abs() * 0.1
         b = (rand((B, S, G, N), torch.float32) * 0.1).to(dtypes[dt])
@@ -405,21 +430,64 @@ def kernels_ssd(kp: KernelPhase) -> None:
             elt = 2
             nbytes = elt * (2 * B * S * h * P + 2 * B * S * G * N) + 4 * B * S * h \
                 + 4 * B * h * P * N
-            # the TPU kernel's work per (b, h, chunk): C B^T, (L o CB) X, C state^T, X^T B
-            ops_n = 2.0 * B * h * (S // L) * (L * L * N + L * L * P + 2 * L * N * P)
-            bound_ms, bound_by = bound(ops_n, nbytes, dt)
-            ms = cuda_ms(torch, lambda: ops.ssd_scan(x, a, b, c, chunk=L), reps=5)
-            plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(x, a, b, c, L), reps=2)
+            # the least work of the function per chunk: C B^T once per group over the
+            # causal (query, key) pairs; per head the masked, decayed scores times X over
+            # the same pairs, C prev^T and the chunk's state X^T B (bf16 products); the
+            # decays of the scores (exp, multiply) and the state recurrence in f32
+            nc, pairs = S // L, L * (L + 1) // 2
+            ops_n = 2.0 * B * nc * (G * pairs * N + h * (pairs * P + 2 * L * N * P))
+            ops_f32 = 2.0 * B * nc * h * (pairs + P * N)
+            t_ops = ops_n / PEAK_OPS[dt] + ops_f32 / PEAK_OPS["float32"]
+            t_bytes = nbytes / HBM_BYTES_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            # for comparison with earlier rows: the TPU kernel's count per (b, h, chunk)
+            # (C B^T for every head, full L x L products), which bounded PR 12's kernel
+            tpu_ops = 2.0 * B * h * nc * (L * L * N + L * L * P + 2 * L * N * P)
+            stage_bytes = ssd_stage_bytes(B, S, h, P, G, N, L)
+            design_traffic_ms = sum(stage_bytes.values()) / HBM_BYTES_S * 1e3
+
+            def plain():
+                return ref.ssd_scan_ref(x, a, b, c, L)
+            ms, plain_ms, readings = paired_ms(
+                torch, lambda: ops.ssd_scan(x, a, b, c, chunk=L), plain, reps=10, rounds=3,
+                warmup=1)
+            # each stage's device time, from the profiler over 5 calls
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    ops.ssd_scan(x, a, b, c, chunk=L)
+                torch.cuda.synchronize()
+            stages = {k: 0.0 for k in SSD_STAGES}
+            for e in prof.key_averages():
+                for k in SSD_STAGES:
+                    if f"{k}(" in e.key:
+                        stages[k] += e.self_device_time_total / 1e3 / 5
+            if not all(v > 0 for v in stages.values()):
+                raise AssertionError(f"the profiler saw no device time for a stage: {stages}")
             rec["ssd_scan"] = dict(
                 shape=dict(B=B, S=S, H=h, P=P, G=G, N=N, chunk=L, dtype=dt),
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=max(err, err_s),
-                bound_share=max(share, share_s), tol=f"y: {TOL[dt]}; state: {TOL['float32']}")
+                bound_by=bound_by, ops=ops_n, ops_f32=ops_f32, bytes=nbytes,
+                max_abs_err=max(err, err_s), bound_share=max(share, share_s),
+                tol=f"y: {TOL[dt]}; state: {TOL['float32']}",
+                timing=dict(kernel_ms=readings["kernel_ms"], plain_ms=readings["library_ms"]),
+                stages_ms=stages, tpu_ops=tpu_ops, tpu_ops_ms=tpu_ops / PEAK_OPS[dt] * 1e3,
+                stage_bytes=stage_bytes, design_bytes=sum(stage_bytes.values()),
+                design_traffic_ms=design_traffic_ms)
+            for k in SSD_STAGES:
+                log(card, f"ssd_scan stage {k}: {stages[k]:.4f} ms on the device (profiler, mean "
+                          f"of 5 calls); it moves {stage_bytes[k] / 1e6:.1f} MB, "
+                          f"{stage_bytes[k] / HBM_BYTES_S * 1e3:.4f} ms at the HBM rate")
         del x, a, b, c, y, st, ye, se
     r = rec["ssd_scan"]
-    log(card, f"ssd_scan at the main path's shape: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, no single PyTorch call computes it, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(card, f"ssd_scan at the main path's shape (bf16): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms (medians of turns), no single PyTorch call computes it, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB in and "
+              f"out; {r['ops'] / 1e9:.2f} GFLOP bf16 + {r['ops_f32'] / 1e9:.3f} GFLOP f32); the "
+              f"TPU kernel's count, {r['tpu_ops'] / 1e9:.1f} GFLOP, would take "
+              f"{r['tpu_ops_ms']:.4f} ms; the four stages' own traffic, scratch included, "
+              f"{r['design_bytes'] / 1e9:.3f} GB, would take {r['design_traffic_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
 
@@ -815,10 +883,31 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}<{','.join(args)}>" if args else name
 
 
+def sass_hmma(source: str) -> Dict[str, int]:
+    """HMMA (tensor-core) instructions in each kernel's SASS (``cuobjdump
+    -sass`` of the built library); raises where the toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise FileNotFoundError("cuobjdump not found: the SSD stages' HMMA check cannot run")
+    sass = subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def ptxas_record(logs: Dict[str, str]) -> list:
     """Registers, stack and spills of every compiled kernel (``nvcc -Xptxas
     -v``), with the dynamic shared memory a block of the attention kernels
-    asks for."""
+    and the SSD stages asks for."""
     import ctypes
     from repro_torch.kernels import _build
     smem = {}
@@ -826,6 +915,9 @@ def ptxas_record(logs: Dict[str, str]) -> list:
         fn = getattr(ctypes.CDLL(str(_build._target(src))), f"{src}_smem_bytes")
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
         smem[src] = fn
+    ssd_smem = ctypes.CDLL(str(_build._target("ssd_scan"))).ssd_scan_smem_bytes
+    ssd_smem.argtypes, ssd_smem.restype = [ctypes.c_int], ctypes.c_int
+    ssd_stage = {"ssd_kernel": 0, **{k: i + 1 for i, k in enumerate(SSD_STAGES)}}
     out = []
     for src, text in logs.items():
         cur = None
@@ -855,6 +947,12 @@ def ptxas_record(logs: Dict[str, str]) -> list:
         if r["source"] in smem and dims and "combine" not in fn:
             dtype = 0 if ("f32" in fn or "fwd_kernel" in fn) else 1
             r["dynamic_smem"] = smem[r["source"]](dtype, dims[0])
+        if r["source"] == "ssd_scan":
+            r["dynamic_smem"] = ssd_smem(ssd_stage[fn.split("<")[0]])
+    hmma = sass_hmma("ssd_scan")
+    for r in out:
+        if r["source"] == "ssd_scan" and r["function"] in hmma:
+            r["hmma"] = hmma[r["function"]]
     return out
 
 
@@ -891,7 +989,13 @@ def main() -> int:
         log(card, f"ptxas {r['source']}.cu {r['function']}: {r.get('registers')} registers, "
                   f"{r.get('stack', 0)} B stack, spill stores {r.get('spill_stores', 0)} B, "
                   f"spill loads {r.get('spill_loads', 0)} B, dynamic shared memory "
-                  f"{r.get('dynamic_smem', 'none')}")
+                  f"{r.get('dynamic_smem', 'none')}"
+                  + (f", {r['hmma']} HMMA in its SASS" if "hmma" in r else ""))
+    # the bf16 SSD stages that multiply run on the tensor cores
+    hmma = {r["function"]: r.get("hmma", 0) for r in ptxas if r["source"] == "ssd_scan"}
+    no_hmma = [k for k in SSD_STAGES if k != "ssd_state_passing_kernel" and not hmma.get(k)]
+    if no_hmma:
+        raise AssertionError(f"no HMMA in the SASS of {no_hmma} (found {hmma})")
 
     kern = phase_kernels(torch, card)        # phase 2
     serve = {}
@@ -920,6 +1024,8 @@ def main() -> int:
                  "card": card}
         if name in ("flash_attention", "decode_attention"):
             entry["head_dim_256"] = {k: kern[f"{name}_d256"][k] for k in keys}
+        if name == "ssd_scan":
+            entry["stages_ms"] = kern[name]["stages_ms"]
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
               "ptxas": ptxas, "seconds": time.perf_counter() - t_start}

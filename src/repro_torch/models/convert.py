@@ -24,8 +24,9 @@ def _leaf(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_numpy(tree: Any, device="cpu") -> Any:
-    """Nested dicts of numpy arrays → the same nested dicts of tensors."""
+def from_numpy(tree: Any, device="cuda") -> Any:
+    """Nested dicts of numpy arrays → the same nested dicts of tensors, on
+    the card unless ``device`` says otherwise (the port's default)."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
     return _leaf(tree, device)

@@ -8,16 +8,17 @@ Each kernel is held against its plain PyTorch version: float32 on the
 same inputs at atol/rtol 2e-5 (TF32 off); bfloat16 against the plain
 version run in float32 on the same values, elementwise within
 2**-5 * (|ref| + rms of ref's row over its last axis), which covers the
-kernels' own roundings (P to bf16 in flash, the output to bf16) several
-times over and stays well below the size of a late output row. The SSD
-scan's final state is float32 whatever the input type and is held to the
-float32 tolerance.
+kernels' own roundings (P to bf16 in flash, the SSD scan's scores and
+carried states, the output to bf16) several times over and stays well
+below the size of a late output row. The SSD scan's final state is float32
+whatever the input type and is held to the float32 tolerance.
 """
 import pytest
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_RTOL = 2.0 ** -5
@@ -27,7 +28,10 @@ def _assert_matches_plain(out, plain, *tensors):
     if out.dtype == torch.float32:
         torch.testing.assert_close(out, plain(*tensors), **F32_TOL)
         return
-    exp = plain(*(t.float() for t in tensors))
+    _assert_within_bf16_bound(out, plain(*(t.float() for t in tensors)))
+
+
+def _assert_within_bf16_bound(out, exp):
     err = (out.float() - exp).abs()
     bound = BF16_RTOL * (exp.abs() + exp.pow(2).mean(dim=-1, keepdim=True).sqrt())
     assert bool((err <= bound).all()), (
@@ -135,6 +139,68 @@ def test_ssd_scan_kernel_matches_plain(dtype):
         _assert_matches_plain(y, lambda x, b, c: ref.ssd_scan_ref(x, a, b, c, chunk)[0], x, b, c)
         torch.testing.assert_close(state, ref.ssd_scan_ref(x.float(), a, b.float(), c.float(),
                                                            chunk)[1], **F32_TOL)
+
+
+def _ssd_inputs(gen, B, S, H, P, G, N, dtype):
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.1
+    x, b, c = rand(B, S, H, P).to(dtype), rand(B, S, G, N).to(dtype), rand(B, S, G, N).to(dtype)
+    return x, -rand(B, S, H).abs(), b, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 512, 4, 64, 1, 128, 256),     # mamba2-780m's head and state sizes
+    (1, 256, 8, 32, 2, 64, 64),       # two groups
+    (1, 300, 4, 64, 1, 32, 100),      # a chunk off the 64-row tiles
+    (2, 64, 8, 16, 1, 16, 32),        # the smallest P and N
+    (1, 96, 2, 48, 1, 80, 48)])       # P and N that leave some warp tiles part empty
+def test_ssd_bf16_stage_kernels_match_their_plain_stages(B, S, H, P, G, N, chunk):
+    """Each bf16 stage kernel against its plain stage function on the same
+    inputs (the plain stages' outputs feed the next kernel): cb, the chunk
+    states, a_cum and the final state at the float32 tolerance; prev (bf16)
+    and y at the bf16 bound."""
+    gen = _card()
+    x, a, b, c = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
+    nc, lp = S // chunk, -(-chunk // 64) * 64
+    cb_exp = ssd.ssd_cb(b, c, chunk)
+    tile = torch.arange(chunk, device="cuda") // 64
+    lower = tile[None, :] <= tile[:, None]               # the 64x64 tiles the kernel writes
+    cb = ssd.cb_kernel(b, c, chunk)
+    assert cb.shape == (B, nc, G, lp, lp)
+    torch.testing.assert_close(cb[..., :chunk, :chunk][..., lower], cb_exp[..., lower],
+                               **F32_TOL)
+    states, a_cum = ssd.chunk_state_kernel(x, a, b, chunk)
+    states_exp, a_cum_exp = ssd.ssd_chunk_state(x, a, b, chunk)
+    torch.testing.assert_close(a_cum, a_cum_exp, **F32_TOL)
+    torch.testing.assert_close(states, states_exp, **F32_TOL)
+    prev, final = ssd.state_passing_kernel(states_exp, a_cum_exp)
+    prev_exp, final_exp = ssd.ssd_state_passing(states_exp, a_cum_exp)
+    assert prev.dtype == torch.bfloat16 and final.dtype == torch.float32
+    _assert_within_bf16_bound(prev, prev_exp)
+    torch.testing.assert_close(final, final_exp, **F32_TOL)
+    cb_pad = torch.zeros((B, nc, G, lp, lp), device="cuda")
+    cb_pad[..., :chunk, :chunk] = cb_exp
+    prev_bf = prev_exp.bfloat16()
+    y = ssd.chunk_scan_kernel(x, a_cum_exp, c, cb_pad, prev_bf)
+    assert y.dtype == torch.bfloat16
+    _assert_within_bf16_bound(y, ssd.ssd_chunk_scan(x.float(), a_cum_exp, c, cb_exp, prev_bf))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bf16_at_mamba2_prefill_shape():
+    """The bf16 path at mamba2-780m's prefill shape with B = 1: y at the bf16
+    bound, the final state at the float32 tolerance."""
+    gen = _card()
+    x, a, b, c = _ssd_inputs(gen, 1, 4096, 48, 64, 1, 128, torch.bfloat16)
+    n0 = kernels.ssd_scan.launches
+    y, state = ops.ssd_scan(x, a, b, c, chunk=256)
+    torch.cuda.synchronize()
+    assert kernels.ssd_scan.launches == n0 + 1
+    y_exp, state_exp = ref.ssd_scan_ref(x.float(), a, b.float(), c.float(), 256)
+    _assert_within_bf16_bound(y, y_exp)
+    torch.testing.assert_close(state, state_exp, **F32_TOL)
 
 
 @pytest.mark.gpu

@@ -22,8 +22,10 @@ from repro.kernels.decode_attention import decode_attention as jdecode_pallas
 from repro.kernels.flash_attention import flash_attention as jflash_pallas
 from repro.kernels.rglru_scan import rglru_scan as jrglru_pallas
 from repro.kernels.ssd_scan import ssd_scan as jssd_pallas
+from repro.models.ssm import ssd_chunked as jssd_chunked
 from repro_torch import kernels
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.kernels.decode_attention import (SPLIT_TILE, decode_attention_splits_ref,
                                                   split_plan)
 
@@ -240,6 +242,49 @@ def test_ssd_scan_plain_matches_sequential_recurrence():
         ys[:, t] = np.einsum("bhpn,bn->bhp", h, c[:, t, 0])
     np.testing.assert_allclose(_np(y), ys, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(_np(hf), h, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 256, 4, 32, 1, 64, 64),       # one group
+    (1, 256, 8, 32, 2, 32, 64),       # two groups, H = 8
+    (1, 300, 4, 32, 1, 32, 100),      # chunk 100 over S = 300
+])
+def test_ssd_stages_compose_to_jax_ssd_chunked_and_pallas(B, S, H, P, G, N, chunk):
+    """The four plain stages (the card's bf16 path, stage by stage) composed
+    by hand give the JAX package's ``ssd_chunked`` and the Pallas kernel in
+    interpret mode, in float32 at 2e-5."""
+    jargs, (x, a, b, c) = _ssd_inputs(np.random.default_rng(8), B, S, H, P, G, N, "float32")
+    cb = tssd.ssd_cb(b, c, chunk)
+    states, a_cum = tssd.ssd_chunk_state(x, a, b, chunk)
+    prev, final = tssd.ssd_state_passing(states, a_cum)
+    y = tssd.ssd_chunk_scan(x, a_cum, c, cb, prev)
+    nc = S // chunk
+    assert cb.shape == (B, nc, G, chunk, chunk) and states.shape == (B, nc, H, P, N)
+    assert a_cum.shape == (B, H, nc, chunk) and prev.shape == states.shape
+    for ye, he in (jax.jit(jssd_chunked, static_argnums=4)(*jargs, chunk),
+                   jssd_pallas(*jargs, chunk=chunk, interpret=True)):
+        np.testing.assert_allclose(_np(y), _np(ye), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(_np(final), _np(he), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_state_passing_matches_a_step_by_step_loop(with_h0):
+    """``ssd_state_passing`` against h_{c+1} = exp(a_cum_c[-1]) h_c + states_c
+    stepped chunk by chunk in float64: prev[c] is the state entering chunk c,
+    the result the state after the last."""
+    rng = np.random.default_rng(9)
+    B, nc, H, P, N, L = 2, 5, 3, 16, 8, 7
+    states = rng.standard_normal((B, nc, H, P, N)).astype(np.float32)
+    a_cum = np.cumsum(-np.abs(rng.standard_normal((B, H, nc, L))) * 0.3, axis=-1,
+                      dtype=np.float32)
+    h0 = rng.standard_normal((B, H, P, N)).astype(np.float32) if with_h0 else None
+    prev, final = tssd.ssd_state_passing(torch.from_numpy(states), torch.from_numpy(a_cum),
+                                         None if h0 is None else torch.from_numpy(h0))
+    h = np.zeros((B, H, P, N)) if h0 is None else h0.astype(np.float64)
+    for ci in range(nc):
+        np.testing.assert_allclose(_np(prev[:, ci]), h, atol=2e-5, rtol=2e-5)
+        h = np.exp(a_cum[:, :, ci, -1].astype(np.float64))[..., None, None] * h + states[:, ci]
+    np.testing.assert_allclose(_np(final), h, atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------- rglru

@@ -127,7 +127,7 @@ def _block_weights(init, arch, dtype=jnp.float32):
     same numbers as torch tensors."""
     cfg = j_reduced(arch)
     w = jax.tree.map(np.asarray, init(jax.random.PRNGKey(1), cfg, dtype))
-    return cfg, reduced_config(arch), jax.tree.map(jnp.asarray, w), from_numpy(w)
+    return cfg, reduced_config(arch), jax.tree.map(jnp.asarray, w), from_numpy(w, device="cpu")
 
 
 def _as(x: np.ndarray, dtype: str):
@@ -258,7 +258,7 @@ def _models(arch, **overrides):
                     w = block["mixer"][name]
                     block["mixer"][name] = (w * np.float32(0.3)).astype(w.dtype)
     tm = build_model(tcfg, device="cpu")
-    return jm, jax.tree.map(jnp.asarray, weights), tm, from_numpy(weights)
+    return jm, jax.tree.map(jnp.asarray, weights), tm, from_numpy(weights, device="cpu")
 
 
 @pytest.mark.parametrize("arch,prompt,overrides", [
