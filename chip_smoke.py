@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels from csrc/ (one nvcc a source, all
 started together; each instance's registers, stack, spills and shared
-memory printed from ``ptxas -v``, and the HMMA count of each SSD stage
-from ``cuobjdump -sass``) and runs these phases:
+memory printed from ``ptxas -v``, the HMMA count of each SSD stage from
+``cuobjdump -sass``; a spill in the flash backward fails) and runs these
+phases:
 
 1. the device: name and power limit from nvidia-smi;
 2. each kernel against its plain PyTorch version at the serving paths'
@@ -18,7 +19,10 @@ from ``cuobjdump -sass``) and runs these phases:
    (see ``check``), with times of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call as a
    yardstick, timed in turns with the kernel (``paired_ms``; decode with
-   L2 flushed before each launch);
+   L2 flushed before each launch); the flash backward (dq, dk, dv) at
+   qwen3-32b's training shape (B=2, S=4096) and at head_dim 64, G = 1, a
+   2048 window, ragged S and float32, each of its three kernels timed by
+   the profiler, against scaled_dot_product_attention's backward;
 3. three serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
    its kernels ran on every layer, a profiler window (device time by
@@ -30,7 +34,19 @@ from ``cuobjdump -sass``) and runs these phases:
    2048-slot local-attention ring wrapping from the first step);
 4. small float32 models of the three families on the card against the
    same models on the CPU, the recurrentgemma one decoding past its
-   window so the ring wraps on both devices.
+   window so the ring wraps on both devices; and one float32 train step
+   of a small qwen3-family model (head_dim 64, attn_chunk 64 < S = 256, so
+   the flash forward and backward kernels run) on the card against the
+   CPU: loss, grad norm and every gradient;
+5. training qwen3-32b at full width (depth cut to 4 layers, bf16, batch
+   2 x 4096, remat="full") for 10 steps through ``make_train_step`` and
+   ``TokenPipeline``: each step's loss (the last below the first), its
+   launches checked exactly (8 flash forwards, forward and recompute on
+   each layer, and 4 backwards), the median step time, tokens/s, the
+   model-FLOP share of 989 TFLOP/s, peak memory, a profiler window over one
+   step with the flash forward's and backward's shares; then a
+   Checkpointer round trip of the trained parameters and AdamW state,
+   restored onto the card bit for bit.
 
 Each phase frees its parameters and caches before the next. Every number
 printed carries the card's name and power limit. The second-to-last line
@@ -68,6 +84,8 @@ HEADS, KV_HEADS, HEAD_DIM = 64, 8, 128
 RG_PROMPT, RG_HEADS, RG_HEAD_DIM, RG_WIDTH = 2048, 16, 256, 4096
 # mamba2-780m's SSD scan at prefill: 48 heads of 64, one group, state 128, chunk 256
 SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK = 48, 64, 128, 256
+# qwen3-32b's training path: depth cut to 4 layers, batch 2, sequence 4096, 10 steps
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 4096, 10
 
 
 def log(card: str, msg: str) -> None:
@@ -162,18 +180,25 @@ def bound(ops: float, nbytes: float, dtype: str):
 # are held to the plain version on the same inputs within 2e-5 + 2e-5 |ref|.
 BF16_RTOL = 2.0 ** -5
 F32_TOL = 2e-5
+# The backward's bf16 outputs also get a floor of one bf16 step at the
+# output's rms: an exact cancellation makes some rows exactly 0 (causal row
+# 0 of dq: P = 1 on its one key and O = V there, so dP - D = 0), where the
+# kernel's dP (tensor cores) and D (CUDA cores) sum the same products in
+# another order and leave f32 noise (~1e-6) against a row bound of 0.
+BWD_FLOOR = 2.0 ** -9
 
 
-def check(torch, out, exp, dt: str):
+def check(torch, out, exp, dt: str, floor: float = 0.0):
     """Max abs error of ``out`` against ``exp`` and the largest share of its
-    bound that any element uses (over 1 means a failure)."""
+    bound that any element uses (over 1 means a failure); ``floor`` adds
+    that share of ``exp``'s rms to every bf16 element's bound."""
     out, exp = out.float(), exp.float()
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("kernel output is not finite")
     err = (out - exp).abs()
     if dt == "bfloat16":
         row_rms = exp.pow(2).mean(dim=-1, keepdim=True).sqrt()
-        bound = BF16_RTOL * (exp.abs() + row_rms)
+        bound = BF16_RTOL * (exp.abs() + row_rms) + floor * exp.pow(2).mean().sqrt()
     else:
         bound = F32_TOL + F32_TOL * exp.abs()
     share = float((err / bound).nan_to_num(nan=0.0, posinf=float("inf")).max())
@@ -184,7 +209,9 @@ def check(torch, out, exp, dt: str):
 
 
 TOL = {"bfloat16": "|err| <= 2**-5 (|ref| + rms_row(ref)) against float32 plain",
-       "float32": "|err| <= 2e-5 + 2e-5 |ref|"}
+       "float32": "|err| <= 2e-5 + 2e-5 |ref|",
+       "bfloat16 grad": "|err| <= 2**-5 (|ref| + rms_row(ref)) + 2**-9 rms(ref) against "
+                        "float32 plain"}
 
 
 class KernelPhase:
@@ -200,13 +227,15 @@ class KernelPhase:
     def rand(self, shape, dtype):
         return self.torch.randn(shape, generator=self.gen, device=DEVICE).to(dtype)
 
-    def launched(self, mod, fn):
-        """Run ``fn`` once, check that it launched ``mod``'s kernel, synchronise."""
-        n0 = mod.launches
+    def launched(self, mod, fn, counter: str = "launches"):
+        """Run ``fn`` once, check that it launched ``mod``'s kernel (the one
+        counted by ``counter``), synchronise."""
+        n0 = getattr(mod, counter)
         out = fn()
         self.torch.cuda.synchronize()
-        if mod.launches != n0 + 1:
-            raise AssertionError(f"{mod.__name__} launched {mod.launches - n0} kernels")
+        if getattr(mod, counter) != n0 + 1:
+            raise AssertionError(f"{mod.__name__}.{counter} went up by "
+                                 f"{getattr(mod, counter) - n0}, not 1")
         return out
 
     def unpack(self):
@@ -533,17 +562,134 @@ def kernels_rglru(kp: KernelPhase) -> None:
     torch.cuda.empty_cache()
 
 
+BWD_STAGES = ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# (name, (B, S, H, KV, d), window, dtype); the first is the training path's shape
+BWD_CASES = [
+    ("train path", (TRAIN_BATCH, TRAIN_SEQ, HEADS, KV_HEADS, HEAD_DIM), None, "bfloat16"),
+    ("d64", (1, 2048, 16, 2, 64), None, "bfloat16"),
+    ("G=1", (1, 2048, 16, 16, HEAD_DIM), None, "bfloat16"),
+    ("window 2048", (1, TRAIN_SEQ, HEADS, KV_HEADS, HEAD_DIM), 2048, "bfloat16"),
+    ("ragged S", (2, 1000, 16, 2, HEAD_DIM), None, "bfloat16"),
+    ("ragged window d64 MQA", (1, 333, 8, 1, 64), 100, "bfloat16"),
+    ("f32", (1, 1024, HEADS, KV_HEADS, HEAD_DIM), None, "float32"),
+    ("f32 ragged window d64", (2, 300, 8, 2, 64), 40, "float32")]
+
+
+def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
+    """flash_attention_bwd_ref a (batch row, KV head) at a time: all rows'
+    (S, T) f32 scores, probabilities and their gradients do not fit."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=DEVICE) for t in (q, k, v))
+    for b in range(B):
+        for j in range(KV):
+            hs = slice(j * G, (j + 1) * G)
+            g = ref.flash_attention_bwd_ref(
+                q[b:b + 1, :, hs].float(), k[b:b + 1, :, j:j + 1].float(),
+                v[b:b + 1, :, j:j + 1].float(), out[b:b + 1, :, hs].float(), lse[b:b + 1, hs],
+                dout[b:b + 1, :, hs].float(), causal=True, window=window)
+            dq[b:b + 1, :, hs], dk[b:b + 1, :, j:j + 1], dv[b:b + 1, :, j:j + 1] = g
+    return dq, dk, dv
+
+
+def kernels_flash_bwd(kp: KernelPhase) -> None:
+    """flash_attention_bwd at qwen3-32b's training shape, head_dim 64, G = 1
+    and 8, a window at S = 4096, ragged S, float32; each against its plain
+    version on the same inputs (the forward kernel's output and log-sum-exp,
+    which is itself held against the plain log-sum-exp)."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
+    mod = kernels.flash_attention
+    for name, (B, S, h, kv, d), window, dt in BWD_CASES:
+        q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, S, kv, d), dtypes[dt]), \
+            rand((B, S, kv, d), dtypes[dt])
+        dout = rand((B, S, h, d), dtypes[dt])
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        lse_plain = torch.cat([ref.flash_attention_lse_ref(q[i:i + 1].float(), k[i:i + 1].float(),
+                                                           causal=True, window=window)
+                               for i in range(B)])
+        err_l, share_l = check(torch, lse, lse_plain, "float32")
+        got = launched(mod, lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                                            window=window), "bwd_launches")
+        exp = flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window)
+        tol = TOL["bfloat16 grad" if dt == "bfloat16" else dt]
+        errs = {n: check(torch, g, e, dt, BWD_FLOOR) for n, g, e in zip(("dq", "dk", "dv"), got, exp)}
+        err, share = max(e for e, _ in errs.values()), max(sh for _, sh in errs.values())
+        cases_out.append(dict(kernel="flash_attention_bwd", case=name, dtype=dt, max_abs_err=err,
+                              bound_share=share, tol=tol,
+                              by_output={n: dict(max_abs_err=e, bound_share=sh)
+                                         for n, (e, sh) in errs.items()},
+                              lse_max_abs_err=err_l, lse_bound_share=share_l))
+        log(card, f"flash_attention_bwd {name}: B={B} S={S} H={h} KV={kv} d={d} {dt} window="
+                  f"{window}: " + ", ".join(f"{n} max abs err {e:.3e} at {sh:.3f} of its bound"
+                                            for n, (e, sh) in errs.items())
+                  + f" ({tol}); the forward's lse {err_l:.3e}, {share_l:.3f} of "
+                    f"{TOL['float32']}")
+        if name == "train path":
+            live = live_pairs(S, S, True, window)
+            # the least work: the S recompute, dP, dV, dK and dQ, 2 d each per live pair
+            ops_n = 10.0 * B * h * d * live
+            elt = 2
+            nbytes = elt * (4 * B * S * h * d + 4 * B * S * kv * d) + 4 * B * h * S
+            bound_ms, bound_by = bound(ops_n, nbytes, dt)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            do_t = dout.transpose(1, 2)
+
+            def library():
+                return torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True)
+            ms, lib_ms, readings = paired_ms(
+                torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True),
+                library, reps=3, rounds=3, warmup=1)
+            plain_ms = cuda_ms(torch, lambda: flash_bwd_plain(torch, ref, q, k, v, out, lse, dout,
+                                                              window), reps=1)
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+                torch.cuda.synchronize()
+            stages = {k_: 0.0 for k_ in BWD_STAGES}
+            for e in prof.key_averages():
+                for k_ in BWD_STAGES:
+                    if f"{k_}<" in e.key or f"{k_}(" in e.key:
+                        stages[k_] += e.self_device_time_total / 1e3 / 3
+            if not all(t > 0 for t in stages.values()):
+                raise AssertionError(f"the profiler saw no device time for a stage: {stages}")
+            rec["flash_attention_bwd"] = dict(
+                shape=dict(B=B, S=S, T=S, H=h, KV=kv, d=d, dtype=dt, causal=True, window=window),
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share,
+                tol=tol, timing=readings, stages_ms=stages)
+            for k_ in BWD_STAGES:
+                log(card, f"flash_attention_bwd stage {k_}: {stages[k_]:.4f} ms on the device "
+                          f"(profiler, mean of 3 calls)")
+            del qt, kt, vt, o_lib, do_t
+        del q, k, v, dout, out, lse, lse_plain, got, exp
+    r = rec["flash_attention_bwd"]
+    log(card, f"flash_attention_bwd at the training shape: kernels {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention's backward "
+              f"{r['library_ms']:.3f} ms (medians of turns), bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}: {r['ops'] / 1e12:.3f} TFLOP, {r['bytes'] / 1e9:.3f} GB)")
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, card: str) -> dict:
     kp = KernelPhase(torch, card)
-    for run in (kernels_flash, kernels_decode, kernels_ssd, kernels_rglru):
+    for run in (kernels_flash, kernels_flash_bwd, kernels_decode, kernels_ssd, kernels_rglru):
         run(kp)
     kp.rec["cases"] = kp.cases
     return kp.rec
 
 
-def profile(torch, fn, card: str, what: str) -> dict:
+def profile(torch, fn, card: str, what: str, groups: Optional[Dict[str, str]] = None) -> dict:
     """Device time by kernel and the device's busy share over one call of
-    ``fn``, from torch.profiler (CUPTI)."""
+    ``fn``, from torch.profiler (CUPTI); with ``groups`` ({label: kernel
+    name prefix}) also each group's device time and share of the busy time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -561,7 +707,19 @@ def profile(torch, fn, card: str, what: str) -> dict:
               f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev)} kernel launches")
     for row in rows:
         log(card, f"  {row['ms']:9.3f} ms {row['calls']:5d}x  {row['kernel']}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, top=rows)
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, top=rows)
+    for label, prefix in (groups or {}).items():
+        ms = sum(e.self_device_time_total for e in dev if _kernel_key(e.key).startswith(prefix))
+        out[label] = dict(ms=ms / 1e3, share=ms / 1e3 / busy_ms)
+        log(card, f"  {label}: {ms / 1e3:.3f} ms of device time, {100 * ms / 1e3 / busy_ms:.2f}% "
+                  f"of the busy time")
+    return out
+
+
+def _kernel_key(name: str) -> str:
+    """``flash_bwd_dq_kernel<128>(...)`` from a profiler row's demangled name."""
+    name = re.sub(r"^void ", "", name)
+    return re.sub(r"^\(anonymous namespace\)::", "", name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -851,10 +1009,217 @@ def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int,
     return dict(arch=arch, max_abs_err=max(errs), tol=tol, launches=counts)
 
 
+def _grads(torch, model, params, batch):
+    """(loss, gradients) of ``model.loss`` by autograd, for a copy of ``params``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in _leaves(params)]
+    it = iter(leaves)
+    loss, _ = model.loss(_rebuild(params, it), batch, remat="full")
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def phase_small_train(torch, card: str) -> dict:
+    """One float32 train step of a small qwen3-family model on the card
+    against the same step on the CPU (the plain path). head_dim 64 and
+    attn_chunk 64 < S = 256, so the flash forward and backward kernels run:
+    loss and grad_norm within 1e-4 relative, every gradient within 1e-4 of
+    its leaf's largest magnitude (post-Adam parameters are not compared:
+    Adam turns rounding noise on tiny gradients into lr-sized differences),
+    and the launches of the step checked exactly."""
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(reduced_config("qwen3_32b"), head_dim=64, attn_chunk=64)
+    S, tol = 256, 1e-4
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_c, grads_c = _grads(torch, build_model(cfg, device="cpu"), params, batch)
+    loss_g, grads_g = _grads(torch, build_model(cfg, device=DEVICE), _to(params, DEVICE),
+                             _to(batch, DEVICE))
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                   for g, c in zip(grads_g, grads_c))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        _, step = make_train_step(cfg, peak_lr=1e-3, warmup=2, total=10, device=dev)
+        p = _to(params, dev)
+        kernels.reset_launches()
+        _, _, m = step(p, adamw_init(p), _to(batch, dev), 1)
+        out[dev] = dict(m, launches=kernels.launch_counts())
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    if out[DEVICE]["launches"] != want:
+        raise AssertionError(f"small train step launches {out[DEVICE]['launches']}, "
+                             f"expected {want}")
+    step_err = {k: abs(float(out[DEVICE][k]) - float(out["cpu"][k])) / abs(float(out["cpu"][k]))
+                for k in ("loss", "grad_norm")}
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, head_dim 64, attn_chunk 64, "
+              f"S={S}) train step, card vs CPU: loss rel err {loss_err:.3e}, worst gradient "
+              f"{grad_err:.3e} of its leaf's max, train-step loss {step_err['loss']:.3e} and "
+              f"grad_norm {step_err['grad_norm']:.3e} relative (tol {tol}); launches "
+              f"{out[DEVICE]['launches']}")
+    if max(loss_err, grad_err, *step_err.values()) > tol:
+        raise AssertionError("the card's train step disagrees with the CPU's")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, step_rel_err=step_err, tol=tol,
+                launches=out[DEVICE]["launches"])
+
+
+def _fill_like(tree, value: float):
+    """Tensors like ``tree``'s leaves, filled with ``value``."""
+    if isinstance(tree, dict):
+        return {k: _fill_like(v, value) for k, v in tree.items()}
+    return tree.detach().new_full(tree.shape, value)
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x (parameters in matrix
+    products: the layers' projections and MLP and the head; the embedding is
+    a lookup) x tokens, plus attention's scores and P V (4 d operations a
+    live pair and head) three times (forward and backward); the
+    recomputation of remat="full" is not counted."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_layer = 2 * d * h * hd + 2 * d * kv * hd + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    matmul = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    attn = 3 * 4 * hd * h * batch * live_pairs(seq, seq, True, cfg.window) * cfg.n_layers
+    return 6.0 * matmul * batch * seq + attn
+
+
+def phase_train(torch, card: str) -> dict:
+    """qwen3-32b at full width, depth cut to TRAIN_LAYERS, trained on the card
+    through the user's entry points (``make_train_step`` with remat="full",
+    fed by ``TokenPipeline``), then a Checkpointer round trip of the trained
+    state (parameters and optimizer state) that must restore bit for bit."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    full = get_config("qwen3_32b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    model, train_step = make_train_step(cfg, peak_lr=3e-4, warmup=2, total=TRAIN_STEPS,
+                                        remat="full", device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    opt = adamw_init(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves({"p": params, "o": opt}))
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                    seed=0), device=DEVICE)
+    log(card, f"training {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads on "
+              f"{cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+              f"{cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
+              f"parameters, {state_bytes / 1e9:.2f} GB with the AdamW state; batch {B} x {S}, "
+              f"remat='full', {TRAIN_STEPS} steps, peak lr 3e-4, warmup 2")
+    per_step = {k: 0 for k in kernels.KERNELS}
+    per_step.update(flash_attention=2 * TRAIN_LAYERS, flash_attention_bwd=TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, step_ms, metrics = [], [], []
+    for step in range(TRAIN_STEPS):
+        batch = next(data)
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = train_step(params, opt, batch, step)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = kernels.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if got != per_step:
+            raise AssertionError(f"train step {step} launched {got}, expected {per_step}")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train step {step}: {m}")
+        losses.append(m["loss"])
+        metrics.append(m)
+        log(card, f"{cfg.name} train step {step}: loss {m['loss']:.4f} (nll {m['nll']:.4f}), "
+                  f"grad_norm {m['grad_norm']:.3f}, clip {m['clip_scale']:.4f}, lr "
+                  f"{m['lr']:.3e}, {step_ms[-1]:.1f} ms")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    alloc = torch.cuda.memory_stats()
+    retries, reserved = alloc.get("num_alloc_retries", 0), alloc.get("reserved_bytes.all.peak", 0)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    med = statistics.median(step_ms[2:])
+    flops = train_flops(cfg, B, S)
+    tok_s = B * S / med * 1e3
+    mfu = flops / (med / 1e3) / PEAK_OPS["bfloat16"]
+    log(card, f"{cfg.name} training: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {med:.1f} ms "
+              f"(median of steps 2-{TRAIN_STEPS - 1}), {tok_s:.0f} tokens/s, model FLOPs "
+              f"{flops / 1e12:.2f} TFLOP a step (6 x matmul parameters x tokens + 3 x attention's "
+              f"forward; remat's recompute not counted), {100 * mfu:.1f}% of 989 TFLOP/s; peak memory "
+              f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), {reserved / 2**30:.2f} "
+              f"GiB reserved, {retries} allocation retries (the caching allocator freed its "
+              f"cache and synchronised); launches over {TRAIN_STEPS} steps {counts}")
+    batch = next(data)
+    prof = profile(torch, lambda: train_step(params, opt, batch, TRAIN_STEPS), card,
+                   f"one {cfg.name} train step ({B}x{S})",
+                   groups={"flash_attention forward": "flash_wgmma_kernel",
+                           "flash_attention backward": "flash_bwd_"})
+    data.close()
+    del batch
+
+    # the trained state through the checkpointer and back onto the card, in
+    # three parts so the card holds at most one part twice
+    state = {"params": params, "opt": opt}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp, async_save=True)
+        t0 = time.perf_counter()
+        ckpt.save(TRAIN_STEPS, state)
+        ckpt.wait()
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(tmp)
+                      for f in files)
+        t0 = time.perf_counter()
+        for part in ({"params": params}, {"opt": {"m": opt["m"]}},
+                     {"opt": {"v": opt["v"], "count": opt["count"]}}):
+            back = ckpt.restore(TRAIN_STEPS, part)
+            for a, b in zip(_leaves(part), _leaves(back)):
+                if not (b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)):
+                    raise AssertionError("a restored leaf differs from the trained state")
+            del back
+        restore_s = time.perf_counter() - t0
+    log(card, f"{cfg.name} checkpoint round trip: {written / 1e9:.2f} GB written in {save_s:.1f} s "
+              f"(async save, then wait), restored onto the card and equal bit for bit in "
+              f"{restore_s:.1f} s")
+
+    # the optimizer's share of a step: one AdamW update of the trained state alone
+    from repro_torch.optim import adamw_update
+    grads = _fill_like(params, 1e-3)
+    prof_opt = profile(torch, lambda: adamw_update(grads, opt, params, 1e-5), card,
+                       f"one AdamW update of the {n_params / 1e9:.3f} B parameters")
+    del grads
+    return dict(config=full.name, n_layers=TRAIN_LAYERS, full_layers=full.n_layers,
+                params=n_params, state_bytes=state_bytes, batch=B, seq=S, steps=TRAIN_STEPS,
+                losses=losses, metrics=metrics, step_ms=step_ms, step_ms_median=med,
+                tokens_s=tok_s, model_flops=flops, mfu=mfu, peak_bytes=peak, launches=counts,
+                launches_per_step=per_step, profile=prof, profile_adamw=prof_opt,
+                alloc_retries=retries, reserved_peak_bytes=reserved,
+                checkpoint=dict(bytes=written, save_s=save_s, restore_s=restore_s))
+
+
 def _to(tree, device):
+    """A copy of ``tree`` on ``device`` (a copy on the same device too: the
+    train step updates its parameters in place)."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -917,6 +1282,8 @@ def ptxas_record(logs: Dict[str, str]) -> list:
         smem[src] = fn
     ssd_smem = ctypes.CDLL(str(_build._target("ssd_scan"))).ssd_scan_smem_bytes
     ssd_smem.argtypes, ssd_smem.restype = [ctypes.c_int], ctypes.c_int
+    bwd_smem = ctypes.CDLL(str(_build._target("flash_attention_bwd"))).flash_attention_bwd_smem_bytes
+    bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int] * 3, ctypes.c_int
     ssd_stage = {"ssd_kernel": 0, **{k: i + 1 for i, k in enumerate(SSD_STAGES)}}
     out = []
     for src, text in logs.items():
@@ -949,6 +1316,9 @@ def ptxas_record(logs: Dict[str, str]) -> list:
             r["dynamic_smem"] = smem[r["source"]](dtype, dims[0])
         if r["source"] == "ssd_scan":
             r["dynamic_smem"] = ssd_smem(ssd_stage[fn.split("<")[0]])
+        if r["source"] == "flash_attention_bwd" and dims:      # dk/dv (0) and dq (1)
+            r["dynamic_smem"] = bwd_smem(0 if "f32" in fn else 1, dims[0],
+                                         0 if "dkdv" in fn else 1)
     hmma = sass_hmma("ssd_scan")
     for r in out:
         if r["source"] == "ssd_scan" and r["function"] in hmma:
@@ -981,7 +1351,8 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    names = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan"]
+    names = ["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+             "rglru_scan"]
     logs = _build.build(names)
     log(card, f"built the kernels in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     ptxas = ptxas_record(logs)
@@ -996,6 +1367,10 @@ def main() -> int:
     no_hmma = [k for k in SSD_STAGES if k != "ssd_state_passing_kernel" and not hmma.get(k)]
     if no_hmma:
         raise AssertionError(f"no HMMA in the SASS of {no_hmma} (found {hmma})")
+    spills = [r["function"] for r in ptxas if r["source"] == "flash_attention_bwd"
+              and (r.get("spill_stores", 0) or r.get("spill_loads", 0))]
+    if spills:
+        raise AssertionError(f"the flash backward kernels spill: {spills}")
 
     kern = phase_kernels(torch, card)        # phase 2
     serve = {}
@@ -1004,9 +1379,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     small = [phase_small_model(torch, card, *spec) for spec in SMALL]   # phase 4
+    small_train = phase_small_train(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(torch, card)         # phase 5
 
+    # the backward has no Pallas kernel: it replaces the gradient the JAX
+    # package takes through its rematerialised query-chunked attention
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:35"),
+               "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                       "src/repro/models/attention.py:84"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:30"),
                "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -1018,17 +1401,19 @@ def main() -> int:
     kernels_line = {"kernels": []}
     for name in names:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
+        by_path[f"{train['config']} train"] = train["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
                  "card": card}
         if name in ("flash_attention", "decode_attention"):
             entry["head_dim_256"] = {k: kern[f"{name}_d256"][k] for k in keys}
-        if name == "ssd_scan":
+        if name in ("ssd_scan", "flash_attention_bwd"):
             entry["stages_ms"] = kern[name]["stages_ms"]
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
-              "ptxas": ptxas, "seconds": time.perf_counter() - t_start}
+              "small_train": small_train, "train": train, "ptxas": ptxas,
+              "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -60,7 +60,10 @@
 // score tile and a 4x(D/8) output tile in registers.
 //
 // Scores are kept in base-2 units (scale * log2 e) so the exponentials
-// are exp2.
+// are exp2. When the caller asks for it (training), each row's natural-log
+// log-sum-exp, m ln 2 + ln l, is written to a (B,H,S) f32 array for the
+// backward (csrc/flash_attention_bwd.cu); serving passes null and writes
+// nothing more.
 //
 // NEG_INF is finite (-2e38), as in the TPU kernel. The f32 path lets a
 // fully masked tile seen before the first live one add exp2(0) = 1 per key
@@ -89,6 +92,14 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
+// a row's natural-log log-sum-exp from its running max m (base-2 units of the
+// scaled scores) and sum l; +inf for a row with no live key (its backward
+// weights exp(s - lse) are then 0)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m > 0.5f * NEG_INF && l > 0.f ? m * 0.6931471805599453f + logf(l)
+                                       : __int_as_float(0x7f800000);
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t(D) * QP + size_t(D) * KP + size_t(BK) * D + size_t(BK) * QP);
@@ -97,8 +108,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int S, int Tk, int H, int KV, int causal, int window,
-                 float scale2) {
+                 T* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H, int KV,
+                 int causal, int window, float scale2) {
   constexpr int DV = D / 32;   // float4 output chunks per thread (dims tx*4 + 32*j)
   extern __shared__ __align__(16) float smem[];
   float* QsT = smem;             // [D][QP]  Q tile transposed, pre-scaled
@@ -240,6 +251,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int r = 0; r < RM; ++r) {
     const int s = q0 + ty * RM + r;
     if (s >= S) continue;
+    if (lse != nullptr && tx == 0) lse[(size_t(b) * H + h) * S + s] = row_lse(m[r], l[r]);
     const float denom = l[r] > 0.f ? l[r] : 1.f;
 #pragma unroll
     for (int j = 0; j < DV; ++j)
@@ -464,8 +476,9 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
 template <int D, int BK>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int S,
-                   int Tk, int H, int KV, int causal, int window, float scale2, int n_qt, int B) {
+                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int S, int Tk, int H, int KV, int causal, int window,
+                   float scale2, int n_qt, int B) {
   using L = WgSmem<D, BK>;
   constexpr int NSLAB = L::NSLAB;
   constexpr uint32_t TILE_BYTES = BK * D * 2;
@@ -641,6 +654,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
+    if (lse != nullptr && (lane & 3) == 0) lse[(size_t(b) * H + h) * S + row] = row_lse(m_r[r], l_r[r]);
     const float inv = l_r[r] > 0.f ? 1.f / l_r[r] : 0.f;
     __nv_bfloat16* orow = o + ((size_t(b) * S + row) * H + h) * D + c2;
 #pragma unroll
@@ -683,7 +697,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int hea
 }
 
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                          int Tk, int H, int KV, int causal, int window, float scale,
                          cudaStream_t stream) {
   constexpr int BK = D == 256 ? 64 : 128;
@@ -702,7 +716,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   flash_wgmma_kernel<D, BK><<<unsigned(blocks), WG_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, H, KV, causal, window, scale * LOG2E,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, KV, causal, window, scale * LOG2E,
       n_qt, B);
   return cudaGetLastError();
 }
@@ -711,7 +725,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int Tk,
                    int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
@@ -720,7 +734,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Tk, H, KV, causal, window, scale * LOG2E);
+      static_cast<T*>(o), lse, S, Tk, H, KV, causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -730,22 +744,25 @@ extern "C" {
 
 // dtype: 0 = float32 (D = 64, 128), 1 = bfloat16 (D = 64, 128, 256).
 // window < 0 means no window. All tensors contiguous and 16-byte aligned:
-// q/o (B,S,H,D), k/v (B,T,KV,D). Returns a cudaError_t.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int Tk, int H, int KV, int D, int dtype, int causal, int window,
-                        float scale, void* stream) {
+// q/o (B,S,H,D), k/v (B,T,KV,D). lse, if not null, receives each row's
+// natural-log log-sum-exp of its scaled scores, (B,H,S) float32 (+inf for
+// a row with no live key); the backward reads it. Returns a cudaError_t.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse_out,
+                        int B, int S, int Tk, int H, int KV, int D, int dtype, int causal,
+                        int window, float scale, void* stream) {
   if (S <= 0 || B <= 0) return int(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale, st);
+    return launch<float, 64>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale, st);
+    return launch<float, 128>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 64)
-    return launch_wgmma<64>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale, st);
+    return launch_wgmma<64>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 128)
-    return launch_wgmma<128>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale, st);
+    return launch_wgmma<128>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 256)
-    return launch_wgmma<256>(q, k, v, o, B, S, Tk, H, KV, causal, window, scale, st);
+    return launch_wgmma<256>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   return int(cudaErrorInvalidValue);
 }
 

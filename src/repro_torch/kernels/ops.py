@@ -10,8 +10,9 @@ which the CUDA kernels do not share.
 from __future__ import annotations
 
 from .decode_attention import decode_attention
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_fwd
 from .rglru_scan import rglru_scan
 from .ssd_scan import ssd_scan
 
-__all__ = ["flash_attention", "decode_attention", "ssd_scan", "rglru_scan"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "decode_attention",
+           "ssd_scan", "rglru_scan"]

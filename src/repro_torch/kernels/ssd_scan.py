@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._guard import require_no_grad
 
 MAX_CHUNK, MAX_P, MAX_N = 256, 64, 128
 TILE = 64                     # rows of a cb tile and of a chunk_scan query tile
@@ -216,6 +217,7 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Ten
     chunk = min(chunk, S)
     if not x.is_cuda:
         return ssd_chunked(x, a_log, b, c, chunk)
+    require_no_grad("ssd_scan", "Queue 2 item 7, 'Backward kernels'", x, a_log, b, c)
     G, N = b.shape[2], b.shape[3]
     if not all(t.is_cuda and t.device == x.device for t in (a_log, b, c)):
         raise ValueError("ssd_scan: x, a_log, b and c must lie on one CUDA device")

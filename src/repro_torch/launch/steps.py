@@ -1,6 +1,7 @@
-"""Serving step builders (PyTorch counterpart of
-``repro.launch.steps.make_prefill_step`` / ``make_serve_step``): greedy
-argmax to int32 tokens of shape (B, 1)."""
+"""Step builders (PyTorch counterpart of ``repro.launch.steps``):
+``make_train_step`` (loss, gradients, AdamW), and the serving steps
+``make_prefill_step`` / ``make_serve_step`` (greedy argmax to int32 tokens
+of shape (B, 1))."""
 from __future__ import annotations
 
 from typing import Callable, Tuple
@@ -9,6 +10,37 @@ import torch
 
 from ..models import Model, build_model
 from ..models.config import ArchConfig
+from ..optim import AdamWConfig, adamw_update, warmup_cosine
+from ..optim.adamw import tree_leaves, tree_map
+
+
+def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total: int = 10000, remat: str = "full", opt: AdamWConfig = AdamWConfig(),
+                    device="cuda") -> Tuple[Model, Callable]:
+    """``train_step(params, opt_state, batch, step)`` →
+    ``(params, opt_state, {"loss", "lr", "nll", "aux", "grad_norm", "clip_scale"})``.
+
+    The gradients of ``model.loss`` come from autograd (the flash kernel's
+    backward on the card); AdamW then updates ``params`` and the moments in
+    place (``optim.adamw``). The metrics stay 0-d tensors (``lr`` on
+    ``step``'s device, the CPU for a Python int): a step never waits on the
+    card."""
+    model = build_model(cfg, device=device)
+
+    def train_step(params, opt_state, batch, step):
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, metrics = model.loss(params, batch, remat=remat)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(grads), params)
+        lr = warmup_cosine(step, peak_lr=peak_lr, warmup=warmup, total=total)
+        params, opt_state, om = adamw_update(grads, opt_state, params, lr, opt)
+        out = {"loss": loss.detach(), "lr": lr,
+               **{k: v.detach() for k, v in metrics.items()}, **om}
+        return params, opt_state, out
+
+    return model, train_step
 
 
 def make_prefill_step(cfg: ArchConfig, device="cuda") -> Tuple[Model, Callable]:

@@ -1,0 +1,90 @@
+"""End-to-end training driver (PyTorch counterpart of ``repro.launch.train``):
+model, AdamW, token pipeline and async checkpointing with restart.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_32b \
+        --reduced --steps 200 --global-batch 8 --seq 128 [--device cuda]
+
+The flags are the JAX driver's plus ``--device`` (the card unless asked
+otherwise). With ``--ckpt-dir`` it restores the latest committed step and
+saves every ``--ckpt-every`` steps and at the end. The JAX driver's mesh,
+heartbeat and Dora plan wait for their ports (ROADMAP).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import Checkpointer, latest_step
+from ..configs import get_config, reduced_config
+from ..data import DataConfig, TokenPipeline
+from ..optim import adamw_init
+from .steps import make_train_step
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    model, train_step = make_train_step(cfg, peak_lr=args.lr,
+                                        warmup=max(args.steps // 20, 5),
+                                        total=args.steps, remat="none", device=args.device)
+    dev = model.device
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    opt = adamw_init(params)
+    step0 = 0
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = Checkpointer(args.ckpt_dir)
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            tree = ckpt.restore(last, {"params": params, "opt": opt})
+            params, opt = tree["params"], tree["opt"]
+            step0 = last
+            print(f"restored checkpoint step {last}")
+
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                    global_batch=args.global_batch, seed=args.seed),
+                         device=dev)
+    losses = []
+    t0 = time.time()
+    for step in range(step0, args.steps):
+        batch = next(data)
+        params, opt, metrics = train_step(params, opt, batch, step)
+        losses.append(float(metrics["loss"]))
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"lr {float(metrics['lr']):.2e} ({time.time() - t0:.1f}s)", flush=True)
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(step + 1, {"params": params, "opt": opt})
+    if ckpt:
+        ckpt.save(args.steps, {"params": params, "opt": opt}, wait=True)
+    data.close()
+    if not losses:
+        print(f"nothing to train: the checkpoint is at step {step0} of {args.steps}")
+        return {"losses": losses, "step0": step0}
+    first, final = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"loss {first:.4f} -> {final:.4f} "
+          f"({'improved' if final < first else 'NOT improved'})")
+    return {"losses": losses, "step0": step0, "first": first, "final": final}
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@ paths (PyTorch counterpart of ``repro.models.transformer``).
 One ``LM`` object per ``ArchConfig`` exposes:
 
     init(gen)                          → params
-    apply(params, tokens)              → (logits, aux)   (train / eval)
+    apply(params, tokens, remat=)      → (logits, aux)   (train / eval)
+    loss(params, batch, remat=)        → (loss, {"nll", "aux"})
     init_cache(batch, max_len)         → cache
     prefill(params, tokens, cache)     → (logits, cache)
     decode(params, token, cache, pos)  → (logits, cache)
@@ -29,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_lib
 from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_device,
@@ -196,6 +198,16 @@ def _layer(tree: Union[Params, torch.Tensor], i: int):
     return tree[i]
 
 
+def _unbind(tree: Union[Params, torch.Tensor], n: int):
+    """The ``n`` layers of a stacked tree, one ``unbind`` a leaf: its
+    backward stacks the layers' gradients once, where ``n`` selects would
+    each add a full-size zero gradient."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 # ==============================================================================
 # the LM
 # ==============================================================================
@@ -289,15 +301,56 @@ class LM:
         return cache
 
     # -- forward (train/eval) -------------------------------------------------------
-    def apply(self, params: Params, tokens: torch.Tensor
+    def apply(self, params: Params, tokens: torch.Tensor, *, remat: str = "full"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) → (logits (B, S, V) f32, aux_loss)."""
+        """tokens (B, S) → (logits (B, S, V) f32, aux_loss).
+
+        ``remat="full"`` recomputes each stacked unit in the backward
+        (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
+        each scanned unit in ``jax.remat``; ``"none"`` keeps every
+        activation. The JAX ``"dots"`` policy (keep the products without
+        batch dimensions) has no one-line torch counterpart and raises."""
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (jax.checkpoint_dots_with_no_batch_dims) is not ported "
+                "(ROADMAP: Queue 1 item 1, 'Training'); use 'full' or 'none'")
+        if remat not in ("full", "none"):
+            raise ValueError(f"remat={remat!r}: 'full' or 'none'")
         cfg = self.cfg
         x = params["embed"][tokens.long()]
-        for kind, p, _ in self._layers(params):
-            x = apply_block(p, x, cfg, kind, mode="train")
+        unit, n_units, tail = self.scan_groups()
+        for unit_params in _unbind(params["stack"], n_units):
+            if remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(self._unit_apply, x, unit_params, use_reentrant=False)
+            else:
+                x = self._unit_apply(x, unit_params)
+        for i, kind in enumerate(tail):
+            x = apply_block(params["tail"][f"t{i}"], x, cfg, kind, mode="train")
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._head(params, x), torch.zeros((), device=x.device)
+
+    def _unit_apply(self, x: torch.Tensor, unit_params: Params) -> torch.Tensor:
+        unit = self.scan_groups()[0]
+        for i, kind in enumerate(unit):
+            x = apply_block(unit_params[f"u{i}"], x, self.cfg, kind, mode="train")
+        return x
+
+    # -- loss ----------------------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor], *, remat: str = "full"
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token NLL over the ``mask``ed label positions (all when
+        no ``mask``) plus the aux loss: ``(loss, {"nll", "aux"})``."""
+        logits, aux = self.apply(params, batch["tokens"], remat=remat)
+        labels = batch["labels"].long()
+        if logits.shape[1] != labels.shape[1]:      # prefix rows carry no loss
+            logits = logits[:, -labels.shape[1]:]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(labels, dtype=torch.float32)
+        nll = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return nll + aux, {"nll": nll, "aux": aux}
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -13,6 +13,8 @@ carried states, the output to bf16) several times over and stays well
 below the size of a late output row. The SSD scan's final state is float32
 whatever the input type and is held to the float32 tolerance.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -22,6 +24,11 @@ from repro_torch.kernels import ssd_scan as ssd
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_RTOL = 2.0 ** -5
+# The flash backward's bf16 outputs also get a floor of one bf16 step at the
+# output's rms: causal row 0 of dq is exactly 0 (P = 1 on its one key and
+# O = V there, so dP - D = 0), and the kernel's dP and D sum the same
+# products in another order, leaving f32 noise against a row bound of 0.
+BWD_FLOOR = 2.0 ** -9
 
 
 def _assert_matches_plain(out, plain, *tensors):
@@ -31,9 +38,10 @@ def _assert_matches_plain(out, plain, *tensors):
     _assert_within_bf16_bound(out, plain(*(t.float() for t in tensors)))
 
 
-def _assert_within_bf16_bound(out, exp):
+def _assert_within_bf16_bound(out, exp, floor=0.0):
     err = (out.float() - exp).abs()
-    bound = BF16_RTOL * (exp.abs() + exp.pow(2).mean(dim=-1, keepdim=True).sqrt())
+    bound = BF16_RTOL * (exp.abs() + exp.pow(2).mean(dim=-1, keepdim=True).sqrt()) \
+        + floor * exp.pow(2).mean().sqrt()
     assert bool((err <= bound).all()), (
         f"max abs err {float(err.max()):.3e}, worst element "
         f"{float((err / bound).nan_to_num(nan=0.0).max()):.3g} x its bound")
@@ -223,8 +231,6 @@ def test_rglru_prefill_launches_the_kernel_at_any_length():
     """apply_rglru from zero state takes the kernel on the card at a length
     and width off the TPU kernel's (256, 512) tiling (S = 300, W = 640), and
     agrees with the same block on the CPU."""
-    import dataclasses
-
     from repro_torch.configs import reduced_config
     from repro_torch.models import rglru
 
@@ -266,3 +272,116 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.ssd_scan(torch.zeros((1, 96, 4, 80), device="cuda"), a, bc, bc, chunk=32)
     with pytest.raises(ValueError, match="dtype"):
         kernels.rglru_scan.rglru_scan(a.bfloat16(), a.bfloat16())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(dtype):
+    """The backward kernels against flash_attention_bwd_ref on the same
+    inputs (the forward kernel's output and log-sum-exp): causal and
+    windowed, G = 1, 4, 8, ragged S, head_dim 64 and 128; the forward's
+    log-sum-exp against the plain one."""
+    gen = _card()
+    for (B, S, H, KV, d), window in [((2, 256, 4, 4, 64), None), ((1, 300, 8, 2, 128), None),
+                                     ((1, 333, 8, 1, 64), 100), ((2, 130, 16, 2, 128), 40)]:
+        q, k, v = (torch.randn((B, S, n, d), generator=gen, device="cuda").to(dtype)
+                   for n in (H, KV, KV))
+        dout = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
+        n0 = kernels.flash_attention.launches
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+        exp_lse = ref.flash_attention_lse_ref(q.float(), k.float(), causal=True, window=window)
+        torch.testing.assert_close(lse, exp_lse, atol=1e-4 if dtype == torch.bfloat16 else 2e-5,
+                                   rtol=2e-5)
+        b0 = kernels.flash_attention.bwd_launches
+        got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert kernels.flash_attention.launches == n0 + 1
+        assert kernels.flash_attention.bwd_launches == b0 + 1
+        plain = [t.float() for t in (q, k, v, out)] + [lse, dout.float()]
+        exp = ref.flash_attention_bwd_ref(*plain, causal=True, window=window)
+        for g, e in zip(got, exp):
+            assert g.dtype == dtype
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, e, **F32_TOL)
+            else:     # plus a floor of one bf16 step at the output's rms (see BWD_FLOOR)
+                _assert_within_bf16_bound(g, e, BWD_FLOOR)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_on_card_runs_both_kernels():
+    gen = _card()
+    q, k, v = (torch.randn((1, 200, n, 64), generator=gen, device="cuda").requires_grad_(True)
+               for n in (8, 2, 2))
+    n0, b0 = kernels.flash_attention.launches, kernels.flash_attention.bwd_launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert kernels.flash_attention.launches == n0 + 1
+    assert kernels.flash_attention.bwd_launches == b0 + 1
+    qc, kc, vc = (t.detach().cpu().requires_grad_(True) for t in (q, k, v))
+    exp = torch.autograd.grad(ref.flash_attention_ref(qc, kc, vc).square().sum(), (qc, kc, vc))
+    for g, e in zip(grads, exp):
+        torch.testing.assert_close(g.cpu(), e, atol=1e-4, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):     # no backward at d = 256
+        q256 = torch.zeros((1, 16, 2, 256), device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+        ops.flash_attention(q256, q256.detach(), q256.detach())
+
+
+@pytest.mark.gpu
+def test_kernels_without_backward_refuse_grad():
+    """decode_attention, ssd_scan and rglru_scan have no backward on the
+    card: a call that needs a gradient raises instead of dropping it."""
+    _card()
+    q = torch.zeros((1, 1, 4, 64), device="cuda", requires_grad=True)
+    kc = torch.zeros((1, 32, 4, 64), device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.decode_attention(q, kc, kc, lens)
+    x = torch.zeros((1, 64, 4, 32), device="cuda", requires_grad=True)
+    a, bc = torch.zeros((1, 64, 4), device="cuda"), torch.zeros((1, 64, 1, 32), device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd_scan(x, a, bc, bc, chunk=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.rglru_scan(a.requires_grad_(True), a.detach())
+    with torch.no_grad():                              # without grad they run
+        ops.decode_attention(q, kc, kc, lens)
+
+
+@pytest.mark.gpu
+def test_small_train_step_card_matches_cpu():
+    """One float32 train step of a small qwen3-family model (head_dim 64,
+    attn_chunk 64 < S = 256, so the flash forward and backward kernels run)
+    on the card against the same step on the CPU: loss and grad_norm within
+    1e-4 relative, and the flash kernels launched on every layer."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    _card()
+    cfg = dataclasses.replace(reduced_config("qwen3_32b"), head_dim=64, n_layers=2,
+                              attn_chunk=64)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, step = make_train_step(cfg, peak_lr=1e-3, warmup=2, total=10, device=dev)
+        p = _to(params, dev)
+        kernels.reset_launches()
+        _, _, out[dev] = step(p, adamw_init(p), _to(batch, dev), 1)
+        out[dev + "_launches"] = kernels.launch_counts()
+    for key in ("loss", "grad_norm"):
+        assert float(out["cuda"][key]) == pytest.approx(float(out["cpu"][key]), rel=1e-4)
+    assert out["cpu_launches"]["flash_attention"] == 0
+    assert out["cuda_launches"]["flash_attention"] == 4       # forward + recompute, 2 layers
+    assert out["cuda_launches"]["flash_attention_bwd"] == 2
+
+
+def _to(tree, device):
+    """A copy on ``device``, also on the same device: the train step
+    updates its parameters in place."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)

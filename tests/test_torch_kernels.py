@@ -84,6 +84,67 @@ def test_flash_attention_plain_ragged_t(causal):
     np.testing.assert_allclose(_np(out), _np(exp), atol=2e-5, rtol=2e-5)
 
 
+# ---------------------------------------------------------------- flash backward
+@pytest.mark.parametrize("B,S,H,KV,d,window", [
+    (2, 96, 4, 4, 64, None),      # G = 1
+    (1, 128, 8, 2, 32, None),     # G = 4
+    (1, 100, 8, 1, 64, 24),       # G = 8, ragged S, window
+    (2, 64, 4, 1, 16, 16),        # G = 4, window
+])
+def test_flash_attention_bwd_plain_matches_jax_vjp(B, S, H, KV, d, window):
+    """flash_attention_bwd_ref (FlashAttention-2's formulas, no autograd)
+    against jax.vjp of the JAX package's reference, and the plain
+    log-sum-exp against jax.nn.logsumexp of its masked scores."""
+    rng = np.random.default_rng(5)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, (B, S, n, d), "float32") for n in (H, KV, KV, H))
+    jout, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, causal=True,
+                                                                 window=window), jq, jk, jv)
+    jdq, jdk, jdv = vjp(jdo)
+    out = ref.flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    lse = ref.flash_attention_lse_ref(tq, tk, causal=True, window=window)
+    dq, dk, dv = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True,
+                                             window=window)
+    for got, exp in ((out, jout), (dq, jdq), (dk, jdk), (dv, jdv)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), _np(exp), atol=2e-5, rtol=2e-5)
+    qpos, kpos = np.arange(S)[:, None], np.arange(S)[None, :]
+    live = (kpos <= qpos) & ((kpos > qpos - window) if window else True)
+    scores = jnp.einsum("bshd,bthd->bhst", jq, jnp.repeat(jk, H // KV, axis=2)) * d ** -0.5
+    jlse = jax.nn.logsumexp(jnp.where(live, scores, -jnp.inf), axis=-1)
+    np.testing.assert_allclose(_np(lse), _np(jlse), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_flash_attention_autograd_on_cpu_equals_plain_bwd(window):
+    """On CPU tensors autograd differentiates the plain forward; it agrees
+    with the plain backward the card's kernel is held to, and launches
+    nothing."""
+    rng = np.random.default_rng(6)
+    B, S, H, KV, d = 2, 72, 8, 2, 32
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, d)).astype(np.float32))
+               .requires_grad_(True) for n in (H, KV, KV))
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, d)).astype(np.float32))
+    before = kernels.launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert kernels.launch_counts() == before
+    with torch.no_grad():
+        lse = ref.flash_attention_lse_ref(q, k, causal=True, window=window)
+        exp = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+    for got, want in zip(grads, exp):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_lse_ref_row_without_live_key_is_inf():
+    q = torch.randn(1, 4, 2, 16)
+    k = torch.randn(1, 6, 2, 16)
+    lse = ref.flash_attention_lse_ref(q, k, causal=True, window=None)
+    assert torch.isfinite(lse).all()
+    # causally row s sees keys 0..s (T > S here); a window of 0 sees no key
+    assert torch.isinf(ref.flash_attention_lse_ref(q, k, causal=True, window=0)).all()
+
+
 # ---------------------------------------------------------------- decode
 @pytest.mark.parametrize("B,T,H,KV,d", [
     (2, 512, 4, 2, 64),

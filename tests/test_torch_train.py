@@ -1,0 +1,177 @@
+"""The port's training path (``LM.loss``, ``launch/steps.make_train_step``,
+``launch/train.py``) against the JAX package's.
+
+Both packages start from one set of weights (the JAX init, through numpy,
+with wq and wk scaled by 0.3 as in tests/test_torch_models.py, which keeps
+these narrow float32 models well conditioned). Tolerances: the loss at
+2e-5 relative and every gradient within 2e-5 of its leaf's largest
+magnitude (float32 sums in another order through four layers and their
+backward); a train step's loss, lr and grad_norm at 1e-4 relative. The
+train steps are compared from one state each (the port's state reset to
+the JAX package's after each step): Adam divides by the root of the second
+moment, so a rounding-level difference of a tiny gradient becomes an
+lr-sized difference of its parameter, and post-Adam parameters are not a
+fair comparison. attn_chunk below S sends attention down the chunked path
+(the flash kernel's plain version in the port, the query-chunked remat
+attention in the JAX package), above S the plain GQA path.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as j_reduced
+from repro.data import DataConfig as JDataConfig, synthetic_stream as jsynthetic_stream
+from repro.launch.steps import make_train_step as jmake_train_step
+from repro.models.transformer import LM as JLM
+from repro.optim import adamw_init as jadamw_init
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import launch_counts
+from repro_torch.launch import train as ttrain
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import build_model
+from repro_torch.models.convert import from_numpy
+
+# two CPU threads each: the suite runs test files side by side in workers
+torch.set_num_threads(2)
+
+B, S = 2, 32
+
+
+def _weights(arch, **overrides):
+    """The JAX package's init as numpy, wq and wk scaled by 0.3."""
+    jm = JLM(dataclasses.replace(j_reduced(arch), **overrides))
+    weights = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    for block in weights["stack"].values():
+        for name in ("wq", "wk"):
+            w = block["mixer"][name]
+            block["mixer"][name] = (w * np.float32(0.3)).astype(w.dtype)
+    return jm, weights
+
+
+def _batch(vocab, seed=0, mask=False):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if mask:
+        batch["mask"] = (rng.random((B, S)) < 0.7).astype(np.float32)
+    return batch
+
+
+def _grad_close(t, j):
+    j = np.asarray(j, np.float32)
+    np.testing.assert_allclose(t.detach().numpy(), j, rtol=0,
+                               atol=2e-5 * max(float(np.abs(j).max()), 1e-30))
+
+
+def _walk(t, j, fn):
+    if isinstance(t, dict):
+        assert t.keys() == j.keys()
+        for key in t:
+            _walk(t[key], j[key], fn)
+    else:
+        assert tuple(t.shape) == j.shape
+        fn(t, j)
+
+
+@pytest.mark.parametrize("arch,attn_chunk,remat,mask", [
+    ("qwen3_32b", 64, "full", False),
+    ("qwen3_32b", 8, "full", False),       # chunked: the flash kernel's plain version
+    ("qwen3_32b", 64, "none", False),
+    ("qwen3_32b", 8, "none", False),
+    ("granite_8b", 64, "full", False),
+    ("granite_8b", 8, "full", False),
+    ("granite_8b", 64, "none", False),
+    ("granite_8b", 8, "none", False),
+    ("qwen3_32b", 8, "full", True),
+    ("granite_8b", 64, "none", True),
+])
+def test_loss_and_grads_match_jax(arch, attn_chunk, remat, mask):
+    jm, weights = _weights(arch, attn_chunk=attn_chunk)
+    tm = build_model(dataclasses.replace(reduced_config(arch), attn_chunk=attn_chunk),
+                     device="cpu")
+    batch = _batch(tm.cfg.vocab_size, mask=mask)
+
+    def jloss(p):
+        return jm.loss(p, jax.tree.map(jnp.asarray, batch), remat=remat)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        jax.tree.map(jnp.asarray, weights))
+
+    params = from_numpy(weights, device="cpu")
+    leaves = []
+    _walk(params, weights, lambda t, _: leaves.append(t.requires_grad_(True)))
+    before = launch_counts()
+    loss, met = tm.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                        remat=remat)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    assert launch_counts() == before          # CPU tensors launch no kernel
+
+    assert float(loss.detach()) == pytest.approx(float(jl), rel=2e-5)
+    assert float(met["nll"].detach()) == pytest.approx(float(jmet["nll"]), rel=2e-5)
+    assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+    _walk(params, jax.tree.map(np.asarray, jg), lambda t, j: _grad_close(next(grads), j))
+
+
+def test_remat_dots_names_its_roadmap_item():
+    tm = build_model(reduced_config("qwen3_32b"), device="cpu")
+    params = tm.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.apply(params, torch.zeros((1, 4), dtype=torch.int32), remat="dots")
+
+
+@pytest.mark.parametrize("arch,attn_chunk,remat", [("qwen3_32b", 8, "full"),
+                                                   ("granite_8b", 64, "none")])
+def test_train_step_matches_jax(arch, attn_chunk, remat):
+    kw = dict(peak_lr=1e-3, warmup=2, total=10, remat=remat)
+    jm, weights = _weights(arch, attn_chunk=attn_chunk)
+    cfg = dataclasses.replace(reduced_config(arch), attn_chunk=attn_chunk)
+    _, jstep = jmake_train_step(dataclasses.replace(j_reduced(arch), attn_chunk=attn_chunk),
+                                **kw)
+    jstep = jax.jit(jstep)
+    _, tstep = make_train_step(cfg, device="cpu", **kw)
+    jparams = jax.tree.map(jnp.asarray, weights)
+    jopt = jadamw_init(jparams)
+    stream = jsynthetic_stream(JDataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                           global_batch=B, seed=1))
+    for step in range(3):
+        block = next(stream)
+        batch = {"tokens": block[:, :-1], "labels": block[:, 1:]}
+        params = from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+        opt = from_numpy(jax.tree.map(np.asarray, jopt), device="cpu")
+        params, opt, tout = tstep(params, opt,
+                                  {k: torch.from_numpy(v) for k, v in batch.items()}, step)
+        jparams, jopt, jout = jstep(jparams, jopt, jax.tree.map(jnp.asarray, batch),
+                                    jnp.asarray(step))
+        for key in ("loss", "lr", "grad_norm", "nll", "clip_scale"):
+            assert float(tout[key]) == pytest.approx(float(jout[key]), rel=1e-4), (step, key)
+        assert int(opt["count"]) == int(jopt["count"]) == step + 1
+    assert set(tout) == {"loss", "lr", "nll", "aux", "grad_norm", "clip_scale"}
+
+
+def test_train_launcher_improves_and_resumes(tmp_path, capsys):
+    ckpt = str(tmp_path / "ckpt")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3_32b", "--reduced",
+           "--device", "cpu", "--steps", "20", "--ckpt-dir", ckpt]
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "2"})
+    assert res.returncode == 0, res.stderr
+    assert "(improved)" in res.stdout, res.stdout
+    out = ttrain.main(["--arch", "qwen3_32b", "--reduced", "--device", "cpu", "--steps", "25",
+                       "--ckpt-dir", ckpt, "--log-every", "1"])
+    printed = capsys.readouterr().out
+    assert "restored checkpoint step 20" in printed
+    assert out["step0"] == 20 and len(out["losses"]) == 5
+    assert "step    20 loss" in printed
+
+
+def test_train_launcher_stubs_raise():
+    for arch in ("whisper_small", "paligemma_3b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttrain.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1"])
