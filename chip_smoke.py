@@ -12,18 +12,22 @@ phases:
 1. the device: name and power limit from nvidia-smi;
 2. each kernel against its plain PyTorch version at the serving paths'
    shapes (bf16 qwen3-32b attention, recurrentgemma-9b's head_dim-256
-   prefill above its window and decode, mamba2-780m's SSD scan with each
-   of its four bf16 stages timed by the profiler, recurrentgemma-9b's
-   RG-LRU scan) plus ragged, windowed, grouped,
+   prefill above its window and decode, h2o-danube-1.8b's head_dim-80
+   prefill (also at 8192 tokens, where its 4096 window binds) and decode,
+   granite-20b's 48 query heads on one KV head, mamba2-780m's SSD scan
+   with each of its four bf16 stages timed by the profiler,
+   recurrentgemma-9b's RG-LRU scan) plus ragged, windowed, grouped,
    empty-split and float32 cases, each error printed beside its bound
    (see ``check``), with times of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call as a
    yardstick, timed in turns with the kernel (``paired_ms``; decode with
    L2 flushed before each launch); the flash backward (dq, dk, dv) at
-   qwen3-32b's training shape (B=2, S=4096) and at head_dim 64, G = 1, a
-   2048 window, ragged S and float32, each of its three kernels timed by
-   the profiler, against scaled_dot_product_attention's backward;
-3. three serving paths, each at full width, bf16, batch 4, with launch
+   qwen3-32b's training shape (B=2, S=4096), h2o-danube-1.8b's (B=2,
+   S=8192, head_dim 80, window 4096) and granite-20b's group (G = 48),
+   and at head_dim 64, G = 1, a 2048 window, ragged S and float32, each
+   of its three kernels timed by the profiler, against
+   scaled_dot_product_attention's backward;
+3. four serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
    its kernels ran on every layer, a profiler window (device time by
    kernel, busy share) over one prefill and three decode steps, and a
@@ -31,24 +35,32 @@ phases:
    qwen3-32b (depth cut to 8 layers; prefill 4096, 32 decode steps),
    mamba2-780m (all 48 layers; prefill 4096, 32 steps) and
    recurrentgemma-9b (all 38 layers; prefill 2048, 32 steps, the
-   2048-slot local-attention ring wrapping from the first step);
-4. small float32 models of the three families on the card against the
-   same models on the CPU, the recurrentgemma one decoding past its
-   window so the ring wraps on both devices; and one float32 train step
-   of a small qwen3-family model (head_dim 64, attn_chunk 64 < S = 256, so
-   the flash forward and backward kernels run) on the card against the
-   CPU: loss, grad norm and every gradient;
-5. training qwen3-32b at full width (depth cut to 4 layers, bf16, batch
-   2 x 4096, remat="full") for 10 steps through ``make_train_step`` and
-   ``TokenPipeline``: each step's loss (the last below the first), its
-   launches checked exactly (8 flash forwards, forward and recompute on
-   each layer, and 4 backwards), the median step time, tokens/s, the
-   model-FLOP share of 989 TFLOP/s, peak memory, a profiler window over one
-   step with the flash forward's and backward's shares; then a
-   Checkpointer round trip of the trained parameters and AdamW state,
-   restored onto the card bit for bit.
+   2048-slot local-attention ring wrapping from the first step) and
+   h2o-danube-1.8b (all 24 layers, head_dim 80; prefill 4096, 32 steps,
+   the 4096-slot window ring wrapping from the first step);
+4. small float32 models of four families on the card against the same
+   models on the CPU, the recurrentgemma and h2o (head_dim 80) ones
+   decoding past their windows so the rings wrap on both devices; and a
+   float32 train step of a small qwen3-family model (head_dim 64) and of a
+   small h2o-family model (head_dim 80, a window below S), each with
+   attn_chunk 64 < S = 256 so the flash forward and backward kernels run,
+   on the card against the CPU: loss, grad norm and every gradient;
+5. training through ``make_train_step`` and ``TokenPipeline`` (bf16,
+   remat="full", 10 steps each): qwen3-32b at full width (depth cut to 4
+   layers, batch 2 x 4096), then h2o-danube-1.8b at full width and depth
+   (24 layers, batch 2 x 8192, above its 4096 window): each step's loss
+   (the last below the first), its launches checked exactly (two flash
+   forwards a layer, forward and recompute, and one backward), the median
+   step time, tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory,
+   a profiler window over one step with the flash forward's and
+   backward's shares; after qwen3's steps a Checkpointer round trip of the
+   trained parameters and AdamW state, restored onto the card bit for
+   bit.
 
-Each phase frees its parameters and caches before the next. Every number
+The h2o paths draw wq and wk at the fan-in of d_model (``fan_in_qk``):
+with the reference init's the random model is chaotic and its gradients
+explode with depth, and phases 3 and 5 print those figures beside their
+own. Each phase frees its parameters and caches before the next. Every number
 printed carries the card's name and power limit. The second-to-last line
 is the kernels record (JSON); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -86,6 +98,12 @@ RG_PROMPT, RG_HEADS, RG_HEAD_DIM, RG_WIDTH = 2048, 16, 256, 4096
 SSD_HEADS, SSD_P, SSD_N, SSD_CHUNK = 48, 64, 128, 256
 # qwen3-32b's training path: depth cut to 4 layers, batch 2, sequence 4096, 10 steps
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 4096, 10
+# h2o-danube-1.8b's: head_dim 80, 32 heads on 8 KV heads, window 4096; it trains
+# at batch 2 x 8192, above its window
+H2O_HEADS, H2O_KV, H2O_HEAD_DIM, H2O_WINDOW = 32, 8, 80, 4096
+H2O_TRAIN_BATCH, H2O_TRAIN_SEQ = 2, 8192
+# granite-20b's group: 48 query heads on one KV head of 128
+G48_HEADS = 48
 
 
 def log(card: str, msg: str) -> None:
@@ -243,14 +261,16 @@ class KernelPhase:
 
 
 def kernels_flash(kp: KernelPhase) -> None:
-    """flash_attention at qwen3-32b's and recurrentgemma-9b's prefill
-    shapes, ragged, windowed, head_dim 64/128/256, float32."""
+    """flash_attention at qwen3-32b's, recurrentgemma-9b's,
+    h2o-danube-1.8b's and granite-20b's prefill shapes, ragged, windowed,
+    head_dim 64/80/128/256, float32."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
-    mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256"}
+    mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256",
+             "d80 main path": "flash_attention_d80", "G=48 main path": "flash_attention_g48"}
 
     for name, (B, S, T, h, kv, d), causal, window, dt in [
             ("main path", (BATCH, PROMPT, PROMPT, H, KV, D), True, None, "bfloat16"),
@@ -268,7 +288,19 @@ def kernels_flash(kp: KernelPhase) -> None:
             ("non-causal ragged d256", (2, 200, 333, 4, 2, RG_HEAD_DIM), False, None,
              "bfloat16"),
             ("f32 causal", (1, PROMPT // 4, PROMPT // 4, H, KV, D), True, None, "float32"),
-            ("f32 non-causal ragged d64", (2, 300, 777, 8, 2, 64), False, None, "float32")]:
+            ("f32 non-causal ragged d64", (2, 300, 777, 8, 2, 64), False, None, "float32"),
+            # h2o-danube-1.8b's prefill: head_dim 80 (the D = 128 instance, its zero
+            # columns filled by the TMA), window 4096; at 8192 tokens the window binds
+            ("d80 main path", (BATCH, PROMPT, PROMPT, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), True,
+             H2O_WINDOW, "bfloat16"),
+            ("d80 window binds", (1, 2 * PROMPT, 2 * PROMPT, H2O_HEADS, H2O_KV, H2O_HEAD_DIM),
+             True, H2O_WINDOW, "bfloat16"),
+            ("ragged non-causal d80", (2, 300, 777, 8, 2, H2O_HEAD_DIM), False, None,
+             "bfloat16"),
+            ("f32 ragged window d80", (2, 300, 300, 8, 2, H2O_HEAD_DIM), True, 100, "float32"),
+            # granite-20b's group: 48 query heads on one KV head
+            ("G=48 main path", (BATCH, PROMPT, PROMPT, G48_HEADS, 1, D), True, None,
+             "bfloat16")]:
         q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, T, kv, d), dtypes[dt]), \
             rand((B, T, kv, d), dtypes[dt])
         out = launched(kernels.flash_attention,
@@ -291,7 +323,7 @@ def kernels_flash(kp: KernelPhase) -> None:
             nbytes = 2 * (2 * B * S * h * d + 2 * B * T * kv * d)
             bound_ms, bound_by = bound(ops_n, nbytes, dt)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            if window is None:
+            if window is None or window >= S:     # a window as long as S masks no key
                 def library():
                     return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                           enable_gqa=True)
@@ -317,7 +349,9 @@ def kernels_flash(kp: KernelPhase) -> None:
                 bound_share=share, tol=TOL[dt], timing=readings)
         del q, k, v, out, exp
     for key, what in (("flash_attention", "the main path's shape"),
-                      ("flash_attention_d256", "recurrentgemma-9b's d=256 prefill shape")):
+                      ("flash_attention_d256", "recurrentgemma-9b's d=256 prefill shape"),
+                      ("flash_attention_d80", "h2o-danube-1.8b's d=80 prefill shape"),
+                      ("flash_attention_g48", "granite-20b's G=48 prefill shape")):
         r = rec[key]
         log(card, f"flash_attention at {what}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention "
@@ -327,7 +361,8 @@ def kernels_flash(kp: KernelPhase) -> None:
 
 
 def kernels_decode(kp: KernelPhase) -> None:
-    """decode_attention at qwen3-32b's and recurrentgemma-9b's decode shapes."""
+    """decode_attention at qwen3-32b's, recurrentgemma-9b's,
+    h2o-danube-1.8b's (head_dim 80) and granite-20b's (G = 48) decode shapes."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
@@ -401,6 +436,18 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("d256 window", (4, Tr, Hr, 1, Dr), [Tr, 3 * Tr // 4, 100, 17], Tr // 4, "bfloat16"),
         ("d256 GQA T=300", (3, 300, 8, 2, Dr), [300, 101, 7], 96, "bfloat16"),
         ("d256 f32", (2, Tr, Hr, 1, Dr), [Tr, Tr // 2 + 1], None, "float32")])
+    # h2o-danube-1.8b's: head_dim 80, 32 heads on 8 KV heads
+    Hh, KVh, Dh = H2O_HEADS, H2O_KV, H2O_HEAD_DIM
+    run_decode("decode_attention_d80", "d80 main path", [
+        ("d80 main path", (BATCH, T, Hh, KVh, Dh), [T] * BATCH, None, "bfloat16"),
+        ("d80 window", (4, T, Hh, KVh, Dh), [T, 3 * T // 4, 100, 0], T // 4, "bfloat16"),
+        ("d80 T=300 MQA", (3, 300, 8, 1, Dh), [300, 101, 7], 96, "bfloat16"),
+        ("d80 f32", (2, T, Hh, KVh, Dh), [T, PROMPT // 2 + 1], None, "float32"),
+        ("d80 f32 empty splits", (4, T, Hh, KVh, Dh), [T, 1, 0, T - 1], None, "float32")])
+    # granite-20b's group: 48 query heads on one KV head of 128
+    run_decode("decode_attention_g48", "G=48 main path", [
+        ("G=48 main path", (BATCH, T, G48_HEADS, 1, D), [T] * BATCH, None, "bfloat16"),
+        ("G=48 f32", (2, T, G48_HEADS, 1, D), [T, 17], None, "float32")])
     del flush
     torch.cuda.empty_cache()
 
@@ -572,7 +619,16 @@ BWD_CASES = [
     ("ragged S", (2, 1000, 16, 2, HEAD_DIM), None, "bfloat16"),
     ("ragged window d64 MQA", (1, 333, 8, 1, 64), 100, "bfloat16"),
     ("f32", (1, 1024, HEADS, KV_HEADS, HEAD_DIM), None, "float32"),
-    ("f32 ragged window d64", (2, 300, 8, 2, 64), 40, "float32")]
+    ("f32 ragged window d64", (2, 300, 8, 2, 64), 40, "float32"),
+    # h2o-danube-1.8b's training shape: head_dim 80, S = 8192 above its 4096 window
+    ("d80 train path", (H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM),
+     H2O_WINDOW, "bfloat16"),
+    ("f32 ragged window d80", (2, 300, 8, 2, H2O_HEAD_DIM), 100, "float32"),
+    # granite-20b's group: 48 query heads on one KV head
+    ("G=48", (1, TRAIN_SEQ, G48_HEADS, 1, HEAD_DIM), None, "bfloat16")]
+# the cases timed against their bound and the library, by record key
+BWD_MAINS = {"train path": "flash_attention_bwd", "d80 train path": "flash_attention_bwd_d80",
+             "G=48": "flash_attention_bwd_g48"}
 
 
 def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
@@ -594,10 +650,11 @@ def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
 
 
 def kernels_flash_bwd(kp: KernelPhase) -> None:
-    """flash_attention_bwd at qwen3-32b's training shape, head_dim 64, G = 1
-    and 8, a window at S = 4096, ragged S, float32; each against its plain
-    version on the same inputs (the forward kernel's output and log-sum-exp,
-    which is itself held against the plain log-sum-exp)."""
+    """flash_attention_bwd at qwen3-32b's and h2o-danube-1.8b's training
+    shapes, head_dim 64 and 80, G = 1, 8 and 48, windows at S = 4096 and
+    8192, ragged S, float32; each against its plain version on the same
+    inputs (the forward kernel's output and log-sum-exp, which is itself
+    held against the plain log-sum-exp)."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
@@ -630,28 +687,42 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                                             for n, (e, sh) in errs.items())
                   + f" ({tol}); the forward's lse {err_l:.3e}, {share_l:.3f} of "
                     f"{TOL['float32']}")
-        if name == "train path":
+        if name in BWD_MAINS:
             live = live_pairs(S, S, True, window)
             # the least work: the S recompute, dP, dV, dK and dQ, 2 d each per live pair
             ops_n = 10.0 * B * h * d * live
             elt = 2
             nbytes = elt * (4 * B * S * h * d + 4 * B * S * kv * d) + 4 * B * h * S
             bound_ms, bound_by = bound(ops_n, nbytes, dt)
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            if window is None or window >= S:     # causal GQA: the flash backend
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                              for x in (q, k, v))
+                o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True)
+            else:
+                # a window needs a mask, which the flash backend and GQA (flash and math
+                # only) do not take together: K and V repeated to every query head
+                # beforehand and a boolean mask, for the memory-efficient backend
+                qt = q.transpose(1, 2).detach().requires_grad_(True)
+                kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1).detach()
+                          .requires_grad_(True) for x in (k, v))
+                pos = torch.arange(S, device=DEVICE)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
             do_t = dout.transpose(1, 2)
 
             def library():
                 return torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True)
             ms, lib_ms, readings = paired_ms(
-                torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True),
+                torch, lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                                       window=window),
                 library, reps=3, rounds=3, warmup=1)
             plain_ms = cuda_ms(torch, lambda: flash_bwd_plain(torch, ref, q, k, v, out, lse, dout,
                                                               window), reps=1)
             torch.cuda.synchronize()
             with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
-                    ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+                    ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
                 torch.cuda.synchronize()
             stages = {k_: 0.0 for k_ in BWD_STAGES}
             for e in prof.key_averages():
@@ -660,21 +731,23 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                         stages[k_] += e.self_device_time_total / 1e3 / 3
             if not all(t > 0 for t in stages.values()):
                 raise AssertionError(f"the profiler saw no device time for a stage: {stages}")
-            rec["flash_attention_bwd"] = dict(
+            rec[BWD_MAINS[name]] = dict(
                 shape=dict(B=B, S=S, T=S, H=h, KV=kv, d=d, dtype=dt, causal=True, window=window),
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share,
                 tol=tol, timing=readings, stages_ms=stages)
             for k_ in BWD_STAGES:
-                log(card, f"flash_attention_bwd stage {k_}: {stages[k_]:.4f} ms on the device "
-                          f"(profiler, mean of 3 calls)")
+                log(card, f"flash_attention_bwd {name} stage {k_}: {stages[k_]:.4f} ms on the "
+                          f"device (profiler, mean of 3 calls)")
             del qt, kt, vt, o_lib, do_t
         del q, k, v, dout, out, lse, lse_plain, got, exp
-    r = rec["flash_attention_bwd"]
-    log(card, f"flash_attention_bwd at the training shape: kernels {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention's backward "
-              f"{r['library_ms']:.3f} ms (medians of turns), bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}: {r['ops'] / 1e12:.3f} TFLOP, {r['bytes'] / 1e9:.3f} GB)")
+        torch.cuda.empty_cache()
+    for name, key in BWD_MAINS.items():
+        r = rec[key]
+        log(card, f"flash_attention_bwd at the {name} shape: kernels {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention's backward "
+                  f"{r['library_ms']:.3f} ms (medians of turns), bound {r['bound_ms']:.3f} ms "
+                  f"({r['bound_by']}: {r['ops'] / 1e12:.3f} TFLOP, {r['bytes'] / 1e9:.3f} GB)")
     torch.cuda.empty_cache()
 
 
@@ -740,6 +813,7 @@ class ServePath:
     check_dtype: str
     check_layers: Optional[int]    # None: the path's depth
     warm_len: int          # a warm-up prefill at batch 1 that reaches the path's kernels
+    qk_fan_in: bool = False   # wq and wk at the fan-in of d_model (see fan_in_qk)
 
 
 PATHS = [
@@ -764,6 +838,14 @@ PATHS = [
     # moves its logits by O(1) (printed beside the check)
     ServePath("recurrentgemma_9b", None, RG_PROMPT, {"rglru_scan": 26},
               {"decode_attention": 12}, RG_PROMPT - 256, 256, "float32", 8, 256),
+    # all 24 layers, head_dim 80, window 4096: the decode ring holds
+    # min(max_len, window) = 4096 slots, as the JAX package sizes it, so it
+    # wraps from the first decode step; the check's fresh prefill of 4097
+    # tokens drops key 0 for its last query, where the window binds. wq and
+    # wk at the fan-in of d_model (the reference init's figure is printed
+    # beside the check)
+    ServePath("h2o_danube_1_8b", None, PROMPT, {"flash_attention": 24},
+              {"decode_attention": 24}, PROMPT, 1, "bfloat16", None, PROMPT + 1, True),
 ]
 
 
@@ -819,7 +901,8 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
     prompt = path.prompt
     model, prefill_step = make_prefill_step(cfg, device=DEVICE)
     _, serve_step = make_serve_step(cfg, device=DEVICE)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    params_ref = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    params = fan_in_qk(cfg, params_ref, path.qk_fan_in)
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     analytic = cfg.param_count()     # the JAX package's formula (PERF.md: wrong for rec layers)
@@ -902,6 +985,15 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                             device=DEVICE)
     check = {}
     served = decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra)
+    if path.qk_fan_in:      # the same check with the reference init's wq and wk
+        check["reference_init"] = decode_vs_prefill(torch, model, params_ref, tokens[:1, :p0],
+                                                    extra)
+        log(card, f"{cfg.name} decode vs fresh prefill with the reference init's wq and wk "
+                  f"(fan-in read from the head axis; without qk-norm the attention is a hard "
+                  f"max and the random model chaotic): relative L2 "
+                  f"{check['reference_init']['rel_l2']:.3e}, argmax "
+                  f"{check['reference_init']['argmax']} (reported, not checked)")
+    del params_ref
     if path.check_dtype == cfg.dtype:
         check = served
     else:
@@ -913,7 +1005,8 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(cfg, dtype=path.check_dtype)   # the same seed's weights
         model = build_model(cfg, device=DEVICE)
-        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        params = fan_in_qk(cfg, model.init(torch.Generator(device=DEVICE).manual_seed(0)),
+                           path.qk_fan_in)
         # how far a 1e-7 relative change of the embedding moves the last logits
         seq = torch.cat([tokens[:1, :p0], extra[:, :1], extra], dim=1)[:, :p0 + n]
         with torch.no_grad():
@@ -966,47 +1059,106 @@ SMALL = [
     # every decode step wraps it; prompt 300, off the TPU kernel's 256-step
     # tiles, still takes rglru_scan on every rec layer
     ("recurrentgemma_9b", dict(head_dim=64), 300, 6, {"rglru_scan": 4, "decode_attention": 6}),
+    # head_dim 80; attn_chunk 64 < prompt 128, so prefill takes the flash kernel,
+    # whose window 96 binds; the decode ring of 96 slots wraps on every step.
+    # wq and wk at the fan-in of d_model
+    ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 128, 6,
+     {"flash_attention": 2, "decode_attention": 12}, True),
+]
+# (arch, overrides, S, wq and wk at the fan-in of d_model) of the small float32
+# train steps, card against CPU: attn_chunk 64 < S, so the flash forward and
+# backward kernels run
+SMALL_TRAIN = [
+    ("qwen3_32b", dict(head_dim=64, attn_chunk=64), 256, False),
+    # head_dim 80, and a window below S that binds in both kernels
+    ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 256, True),
 ]
 
 
+# The reference init (``dense_init``, as the JAX package's) reads the fan-in
+# of the (d_model, heads, head_dim) projections from the head axis, so wq
+# and wk have std heads**-0.5 and, without qk-norm, h2o's attention logits
+# come out with a std of ~d_model / heads (80 at full width): the softmax is
+# a hard max, the random model is chaotic and its gradients explode with
+# depth (phases 3 and 5 print the reference init's figures). Its h2o paths
+# here multiply the reference init's wq and wk by sqrt(heads / d_model),
+# the std a fan-in of d_model gives wq; each small check prints how far a
+# 1e-7 change of the embedding moves its CPU result, the floor under any
+# card-vs-CPU difference.
+def fan_in_qk(cfg, params, on: bool = True):
+    """``params`` with every layer's wq and wk multiplied by
+    sqrt(heads / d_model) (``params`` itself when ``on`` is false)."""
+    if not on:
+        return params
+    scale = (cfg.n_heads / cfg.d_model) ** 0.5
+    out = dict(params)
+    for group in ("stack", "tail"):
+        if group in params:
+            out[group] = {u: dict(block, mixer={k: (w * scale if k in ("wq", "wk") else w)
+                                                for k, w in block["mixer"].items()})
+                          for u, block in params[group].items()}
+    return out
+
+
+def _nudged(torch, params):
+    """``params`` (on the CPU) with the embedding changed by 1e-7 relative:
+    how far that moves a result on the CPU alone is the conditioning of a
+    card-vs-CPU check of it."""
+    e = params["embed"]
+    noise = torch.randn(e.shape, generator=torch.Generator().manual_seed(3))
+    return dict(params, embed=e * (1 + 1e-7 * noise))
+
+
+def _serve_logits(torch, model, params, toks, prompt: int, steps: int) -> list:
+    """The logits of a prefill of ``prompt`` tokens and ``steps`` decode steps."""
+    dev = model.device
+    out = []
+    with torch.no_grad():
+        cache = model.init_cache(2, prompt + steps + 5)
+        logits, cache = model.prefill(params, toks[:, :prompt].to(dev), cache)
+        out.append(logits.cpu())
+        for i in range(steps):
+            pos = torch.full((2,), prompt + i, dtype=torch.int32, device=dev)
+            logits, cache = model.decode(params, toks[:, prompt + i:prompt + i + 1].to(dev),
+                                         cache, pos)
+            out.append(logits.cpu())
+    return out
+
+
 def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int, steps: int,
-                      want: Dict[str, int]) -> dict:
+                      want: Dict[str, int], qk_fan_in: bool = False) -> dict:
     """A small float32 model on the card against the same weights on the
-    CPU, where the plain versions run."""
+    CPU, where the plain versions run; the check's conditioning (how far a
+    1e-7 change of the embedding moves the CPU's logits) printed beside it."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(reduced_config(arch), **overrides)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=DEVICE)
-    params = cpu.init(torch.Generator().manual_seed(1))
-    params_g = _to(params, DEVICE)
+    params = fan_in_qk(cfg, cpu.init(torch.Generator().manual_seed(1)), qk_fan_in)
     g = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (2, prompt + steps), generator=g,
                          dtype=torch.int32)
     kernels.reset_launches()
-    errs = []
-    with torch.no_grad():
-        c_cpu, c_gpu = cpu.init_cache(2, prompt + steps + 5), gpu.init_cache(2, prompt + steps + 5)
-        lc, c_cpu = cpu.prefill(params, toks[:, :prompt], c_cpu)
-        lg, c_gpu = gpu.prefill(params_g, toks[:, :prompt].to(DEVICE), c_gpu)
-        errs.append(float((lg.cpu() - lc).abs().max()))
-        for i in range(steps):
-            pos = torch.full((2,), prompt + i, dtype=torch.int32)
-            lc, c_cpu = cpu.decode(params, toks[:, prompt + i:prompt + i + 1], c_cpu, pos)
-            lg, c_gpu = gpu.decode(params_g, toks[:, prompt + i:prompt + i + 1].to(DEVICE),
-                                   c_gpu, pos.to(DEVICE))
-            errs.append(float((lg.cpu() - lc).abs().max()))
+    want_l = _serve_logits(torch, cpu, params, toks, prompt, steps)
+    got_l = _serve_logits(torch, gpu, _to(params, DEVICE), toks, prompt, steps)
     counts = kernels.launch_counts()
     if counts != {k: want.get(k, 0) for k in kernels.KERNELS}:
         raise AssertionError(f"small {arch} launches {counts}, expected {want}")
+    err = max(float((a - b).abs().max()) for a, b in zip(got_l, want_l))
+    nudged = _serve_logits(torch, cpu, _nudged(torch, params), toks, prompt, steps)
+    cond = max(float((a - b).abs().max()) for a, b in zip(nudged, want_l))
     tol = 1e-4
-    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}) card vs CPU: max "
-              f"abs logit err {max(errs):.3e} (tol {tol}) over prefill {prompt} + {steps} "
-              f"decode steps; launches {counts}")
-    if max(errs) > tol:
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}, wq/wk fan-in "
+              f"{'d_model' if qk_fan_in else 'heads'}) "
+              f"card vs CPU: max abs logit err {err:.3e} (tol {tol}) over prefill {prompt} + "
+              f"{steps} decode steps; a 1e-7 change of the embedding moves the CPU's logits by "
+              f"{cond:.3e}; launches {counts}")
+    if err > tol:
         raise AssertionError("the card disagrees with the CPU on a small model")
-    return dict(arch=arch, max_abs_err=max(errs), tol=tol, launches=counts)
+    return dict(arch=arch, max_abs_err=err, tol=tol, conditioning=cond, qk_fan_in=qk_fan_in,
+                launches=counts)
 
 
 def _grads(torch, model, params, batch):
@@ -1023,11 +1175,12 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def phase_small_train(torch, card: str) -> dict:
-    """One float32 train step of a small qwen3-family model on the card
-    against the same step on the CPU (the plain path). head_dim 64 and
-    attn_chunk 64 < S = 256, so the flash forward and backward kernels run:
-    loss and grad_norm within 1e-4 relative, every gradient within 1e-4 of
+def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
+                      qk_fan_in: bool) -> dict:
+    """One float32 train step of a small model on the card against the same
+    step on the CPU (the plain path). attn_chunk < S, so the flash forward
+    and backward kernels run: loss and grad_norm within 1e-4 relative,
+    every gradient within 1e-4 of
     its leaf's largest magnitude (post-Adam parameters are not compared:
     Adam turns rounding noise on tiny gradients into lr-sized differences),
     and the launches of the step checked exactly."""
@@ -1037,9 +1190,10 @@ def phase_small_train(torch, card: str) -> dict:
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
 
-    cfg = dataclasses.replace(reduced_config("qwen3_32b"), head_dim=64, attn_chunk=64)
-    S, tol = 256, 1e-4
-    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    cfg = dataclasses.replace(reduced_config(arch), **overrides)
+    tol = 1e-4
+    params = fan_in_qk(cfg, build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1)),
+                       qk_fan_in)
     toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=torch.Generator().manual_seed(2),
                          dtype=torch.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -1049,6 +1203,9 @@ def phase_small_train(torch, card: str) -> dict:
     loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     grad_err = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
                    for g, c in zip(grads_g, grads_c))
+    _, grads_n = _grads(torch, build_model(cfg, device="cpu"), _nudged(torch, params), batch)
+    cond = max(float((n - c).abs().max() / c.abs().max().clamp(min=1e-30))
+               for n, c in zip(grads_n, grads_c))
     out = {}
     for dev in ("cpu", DEVICE):
         _, step = make_train_step(cfg, peak_lr=1e-3, warmup=2, total=10, device=dev)
@@ -1063,14 +1220,18 @@ def phase_small_train(torch, card: str) -> dict:
                              f"expected {want}")
     step_err = {k: abs(float(out[DEVICE][k]) - float(out["cpu"][k])) / abs(float(out["cpu"][k]))
                 for k in ("loss", "grad_norm")}
-    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, head_dim 64, attn_chunk 64, "
-              f"S={S}) train step, card vs CPU: loss rel err {loss_err:.3e}, worst gradient "
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}, wq/wk fan-in "
+              f"{'d_model' if qk_fan_in else 'heads'}, "
+              f"S={S}) train step, card vs CPU: loss rel err {loss_err:.3e}; a 1e-7 change of "
+              f"the embedding moves the CPU's gradients by up to {cond:.3e} of a leaf's max; "
+              f"worst gradient "
               f"{grad_err:.3e} of its leaf's max, train-step loss {step_err['loss']:.3e} and "
               f"grad_norm {step_err['grad_norm']:.3e} relative (tol {tol}); launches "
               f"{out[DEVICE]['launches']}")
     if max(loss_err, grad_err, *step_err.values()) > tol:
         raise AssertionError("the card's train step disagrees with the CPU's")
-    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, step_rel_err=step_err, tol=tol,
+    return dict(arch=arch, overrides=overrides, qk_fan_in=qk_fan_in, loss_rel_err=loss_err,
+                grad_rel_err=grad_err, conditioning=cond, step_rel_err=step_err, tol=tol,
                 launches=out[DEVICE]["launches"])
 
 
@@ -1094,26 +1255,49 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     return 6.0 * matmul * batch * seq + attn
 
 
-def phase_train(torch, card: str) -> dict:
-    """qwen3-32b at full width, depth cut to TRAIN_LAYERS, trained on the card
-    through the user's entry points (``make_train_step`` with remat="full",
-    fed by ``TokenPipeline``), then a Checkpointer round trip of the trained
-    state (parameters and optimizer state) that must restore bit for bit."""
-    import tempfile
+@dataclasses.dataclass(frozen=True)
+class TrainPath:
+    """One training path: the arch at full width, its depth (None: full),
+    batch x sequence, steps, and whether a Checkpointer round trip of the
+    trained state follows."""
+    arch: str
+    layers: Optional[int]
+    batch: int
+    seq: int
+    steps: int
+    checkpoint: bool
+    qk_fan_in: bool = False   # wq and wk at the fan-in of d_model (see fan_in_qk)
 
+
+TRAIN_PATHS = [
+    TrainPath("qwen3_32b", TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, True),
+    # full depth; S = 8192 above the 4096 window, which binds in both kernels;
+    # wq and wk at the fan-in of d_model (the reference init's first grad norm
+    # is printed beside the run)
+    TrainPath("h2o_danube_1_8b", None, H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, TRAIN_STEPS, False,
+              True),
+]
+
+
+def phase_train(torch, card: str, path: TrainPath) -> dict:
+    """An arch at full width trained on the card through the user's entry
+    points (``make_train_step`` with remat="full", fed by ``TokenPipeline``),
+    then, where the path asks for it, a Checkpointer round trip of the
+    trained state (parameters and optimizer state) that must restore bit
+    for bit."""
     from repro_torch import kernels
-    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
 
-    full = get_config("qwen3_32b")
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
-    B, S = TRAIN_BATCH, TRAIN_SEQ
-    model, train_step = make_train_step(cfg, peak_lr=3e-4, warmup=2, total=TRAIN_STEPS,
+    full = get_config(path.arch)
+    cfg = dataclasses.replace(full, n_layers=path.layers or full.n_layers)
+    B, S, steps = path.batch, path.seq, path.steps
+    model, train_step = make_train_step(cfg, peak_lr=3e-4, warmup=2, total=steps,
                                         remat="full", device=DEVICE)
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    params = fan_in_qk(cfg, model.init(torch.Generator(device=DEVICE).manual_seed(0)),
+                       path.qk_fan_in)
     opt = adamw_init(params)
     n_params = sum(t.numel() for t in _leaves(params))
     state_bytes = sum(t.numel() * t.element_size() for t in _leaves({"p": params, "o": opt}))
@@ -1123,14 +1307,15 @@ def phase_train(torch, card: str) -> dict:
               f"{cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
               f"{cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
               f"parameters, {state_bytes / 1e9:.2f} GB with the AdamW state; batch {B} x {S}, "
-              f"remat='full', {TRAIN_STEPS} steps, peak lr 3e-4, warmup 2")
+              f"window {cfg.window}, remat='full', {steps} steps, peak lr 3e-4, warmup 2, wq/wk "
+              f"fan-in {'d_model' if path.qk_fan_in else 'heads (the reference init)'}")
     per_step = {k: 0 for k in kernels.KERNELS}
-    per_step.update(flash_attention=2 * TRAIN_LAYERS, flash_attention_bwd=TRAIN_LAYERS)
+    per_step.update(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses, step_ms, metrics = [], [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         batch = next(data)
         torch.cuda.synchronize()
         before = kernels.launch_counts()
@@ -1161,27 +1346,64 @@ def phase_train(torch, card: str) -> dict:
     tok_s = B * S / med * 1e3
     mfu = flops / (med / 1e3) / PEAK_OPS["bfloat16"]
     log(card, f"{cfg.name} training: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {med:.1f} ms "
-              f"(median of steps 2-{TRAIN_STEPS - 1}), {tok_s:.0f} tokens/s, model FLOPs "
+              f"(median of steps 2-{steps - 1}), {tok_s:.0f} tokens/s, model FLOPs "
               f"{flops / 1e12:.2f} TFLOP a step (6 x matmul parameters x tokens + 3 x attention's "
               f"forward; remat's recompute not counted), {100 * mfu:.1f}% of 989 TFLOP/s; peak memory "
               f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), {reserved / 2**30:.2f} "
               f"GiB reserved, {retries} allocation retries (the caching allocator freed its "
-              f"cache and synchronised); launches over {TRAIN_STEPS} steps {counts}")
+              f"cache and synchronised); launches over {steps} steps {counts}")
     batch = next(data)
-    prof = profile(torch, lambda: train_step(params, opt, batch, TRAIN_STEPS), card,
+    prof = profile(torch, lambda: train_step(params, opt, batch, steps), card,
                    f"one {cfg.name} train step ({B}x{S})",
                    groups={"flash_attention forward": "flash_wgmma_kernel",
                            "flash_attention backward": "flash_bwd_"})
     data.close()
     del batch
+    out = dict(config=full.name, n_layers=cfg.n_layers, full_layers=full.n_layers,
+               params=n_params, state_bytes=state_bytes, batch=B, seq=S, window=cfg.window,
+               steps=steps, losses=losses, metrics=metrics, step_ms=step_ms, step_ms_median=med,
+               tokens_s=tok_s, model_flops=flops, mfu=mfu, peak_bytes=peak, launches=counts,
+               launches_per_step=per_step, profile=prof, alloc_retries=retries,
+               reserved_peak_bytes=reserved)
 
-    # the trained state through the checkpointer and back onto the card, in
-    # three parts so the card holds at most one part twice
+    if path.checkpoint:
+        out["checkpoint"] = checkpoint_round_trip(torch, card, cfg.name, steps, params, opt)
+
+    # the optimizer's share of a step: one AdamW update of the trained state alone
+    from repro_torch.optim import adamw_update
+    grads = _fill_like(params, 1e-3)
+    out["profile_adamw"] = profile(torch, lambda: adamw_update(grads, opt, params, 1e-5), card,
+                                   f"one AdamW update of the {n_params / 1e9:.3f} B parameters")
+    del grads
+    if path.qk_fan_in:      # the first batch's gradient with the reference init's wq and wk
+        data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                        seed=0), device=DEVICE)
+        batch = next(data)
+        data.close()
+        ref_params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        loss_ref, grads_ref = _grads(torch, model, ref_params, batch)
+        norm = float(torch.sqrt(sum(g.float().pow(2).sum() for g in grads_ref)))
+        out["reference_init"] = dict(loss=float(loss_ref), grad_norm=norm)
+        log(card, f"{cfg.name} with the reference init's wq and wk (fan-in read from the head "
+                  f"axis): the first batch's loss {float(loss_ref):.4f}, grad_norm {norm:.4g} "
+                  f"(against {metrics[0]['grad_norm']:.4g} above; the clip to 1 then leaves "
+                  f"updates of ~{1 / norm:.1g} of the gradient)")
+        del ref_params, grads_ref, batch
+    return out
+
+
+def checkpoint_round_trip(torch, card: str, name: str, step: int, params, opt) -> dict:
+    """The trained state through the checkpointer and back onto the card, in
+    three parts so the card holds at most one part twice; every restored
+    leaf must equal the trained one bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
     state = {"params": params, "opt": opt}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = Checkpointer(tmp, async_save=True)
         t0 = time.perf_counter()
-        ckpt.save(TRAIN_STEPS, state)
+        ckpt.save(step, state)
         ckpt.wait()
         save_s = time.perf_counter() - t0
         written = sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(tmp)
@@ -1189,29 +1411,16 @@ def phase_train(torch, card: str) -> dict:
         t0 = time.perf_counter()
         for part in ({"params": params}, {"opt": {"m": opt["m"]}},
                      {"opt": {"v": opt["v"], "count": opt["count"]}}):
-            back = ckpt.restore(TRAIN_STEPS, part)
+            back = ckpt.restore(step, part)
             for a, b in zip(_leaves(part), _leaves(back)):
                 if not (b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)):
                     raise AssertionError("a restored leaf differs from the trained state")
             del back
         restore_s = time.perf_counter() - t0
-    log(card, f"{cfg.name} checkpoint round trip: {written / 1e9:.2f} GB written in {save_s:.1f} s "
+    log(card, f"{name} checkpoint round trip: {written / 1e9:.2f} GB written in {save_s:.1f} s "
               f"(async save, then wait), restored onto the card and equal bit for bit in "
               f"{restore_s:.1f} s")
-
-    # the optimizer's share of a step: one AdamW update of the trained state alone
-    from repro_torch.optim import adamw_update
-    grads = _fill_like(params, 1e-3)
-    prof_opt = profile(torch, lambda: adamw_update(grads, opt, params, 1e-5), card,
-                       f"one AdamW update of the {n_params / 1e9:.3f} B parameters")
-    del grads
-    return dict(config=full.name, n_layers=TRAIN_LAYERS, full_layers=full.n_layers,
-                params=n_params, state_bytes=state_bytes, batch=B, seq=S, steps=TRAIN_STEPS,
-                losses=losses, metrics=metrics, step_ms=step_ms, step_ms_median=med,
-                tokens_s=tok_s, model_flops=flops, mfu=mfu, peak_bytes=peak, launches=counts,
-                launches_per_step=per_step, profile=prof, profile_adamw=prof_opt,
-                alloc_retries=retries, reserved_peak_bytes=reserved,
-                checkpoint=dict(bytes=written, save_s=save_s, restore_s=restore_s))
+    return dict(bytes=written, save_s=save_s, restore_s=restore_s)
 
 
 def _to(tree, device):
@@ -1379,10 +1588,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     small = [phase_small_model(torch, card, *spec) for spec in SMALL]   # phase 4
-    small_train = phase_small_train(torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(torch, card)         # phase 5
+    small_train = [phase_small_train(torch, card, *spec) for spec in SMALL_TRAIN]
+    train = {}
+    for tpath in TRAIN_PATHS:                # phase 5
+        gc.collect()
+        torch.cuda.empty_cache()
+        train[tpath.arch] = phase_train(torch, card, tpath)
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -1399,15 +1610,20 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
             "bound_share", "tol", "shape")
     kernels_line = {"kernels": []}
+    # the main entry is each kernel's qwen3-32b (or only) shape; the other
+    # timed shapes ride beside it, each with the same keys
+    extra = {"flash_attention": ("d256", "d80", "g48"),
+             "decode_attention": ("d256", "d80", "g48"), "flash_attention_bwd": ("d80", "g48")}
+    extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48"}
     for name in names:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
-        by_path[f"{train['config']} train"] = train["launches"][name]
+        by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
                  "card": card}
-        if name in ("flash_attention", "decode_attention"):
-            entry["head_dim_256"] = {k: kern[f"{name}_d256"][k] for k in keys}
+        for x in extra.get(name, ()):
+            entry[extra_key[x]] = {k: kern[f"{name}_{x}"][k] for k in keys}
         if name in ("ssd_scan", "flash_attention_bwd"):
             entry["stages_ms"] = kern[name]["stages_ms"]
         kernels_line["kernels"].append(entry)

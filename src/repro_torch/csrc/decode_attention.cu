@@ -44,15 +44,20 @@
 // the JAX reference rounds its weights) straight from registers into the
 // P V mma, reading V with ldmatrix.trans. No S or P passes through
 // shared memory; the two warps merge their (m, l, acc) there once, at the
-// end. ptxas -v (nvcc 12.8, sm_90a), D = 64 / 128 / 256: 79 / 124 / 180
-// registers, 0 bytes of spills, 29952 / 56576 / 109824 bytes of dynamic
-// shared memory, so up to four blocks fit on an SM at D = 128 and two at
-// D = 256.
+// end. head_dim 80 (h2o-danube-1.8b) is five k-steps of 16 and ten n8
+// tiles of the same products, with rows padded to 88 elements (176 bytes,
+// conflict-free for ldmatrix). ptxas -v (nvcc 12.8, sm_90a), D = 64 / 80 /
+// 128 / 256: 79 / 118 / 124 / 180 registers, 0 bytes of spills, 29952 /
+// 36608 / 56576 / 109824 bytes of dynamic shared memory, so up to four
+// blocks fit on an SM at D <= 128 and two at D = 256.
 //
 // float32 keeps f32 arithmetic on the CUDA cores (tensor cores would round
 // to TF32): one block per (split, KV head, group of 8 heads), K and V tiles
 // widened to f32 in shared memory, over the block's key range, writing the
-// same partials.
+// same partials. At D = 80 the P V step's 20 float4 columns leave 16 of
+// its 256 threads without a key subset (12 subsets of 20 threads); those
+// threads idle there, and the combine kernel's 20 columns leave 16 threads
+// idle the same way.
 //
 // NEG_INF is finite (-2e38), as in the TPU kernel, and masked keys get a
 // weight of exactly 0, so no row ever produces NaN.
@@ -366,7 +371,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                   int KV, int window, int split_len, int n_splits, float scale2) {
   constexpr int KS = D + 8;          // padded K row: conflict-free float4 reads
   constexpr int NCH = D / 4;         // float4 chunks of an output row
-  constexpr int NKS = NT32 / NCH;    // key subsets in the PV step
+  constexpr int NKS = NT32 / NCH;    // key subsets in the PV step (threads past NKS * NCH idle)
   constexpr int TPK = NT32 / BK;     // threads sharing a key in the score step
   static_assert(NKS * GC * D <= BK * KS, "reduction buffer must fit in the K tile");
   static_assert(BK % 32 == 0 && D % (4 * TPK) == 0, "tile shapes");
@@ -504,7 +509,7 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
         for (int e = 0; e < 4; ++e) acc[g][e] *= a;
       }
     }
-    for (int t = ks; t < BK; t += NKS) {
+    for (int t = ks; t < BK && ks < NKS; t += NKS) {
       const float4 v4 = *reinterpret_cast<const float4*>(&Vs[t * D + chunk * 4]);
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
@@ -522,10 +527,12 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   // sum the key subsets through shared memory (reusing the K tile), write the partials
   __syncthreads();
   float* red = Ks;   // [NKS][GC][D]
+  if (ks < NKS) {
 #pragma unroll
-  for (int g = 0; g < GC; ++g)
-    *reinterpret_cast<float4*>(&red[(ks * GC + g) * D + chunk * 4]) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    for (int g = 0; g < GC; ++g)
+      *reinterpret_cast<float4*>(&red[(ks * GC + g) * D + chunk * 4]) =
+          make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  }
   __syncthreads();
   for (int i = tid; i < gc * D; i += NT32) {
     const int g = i / D, d = i % D;
@@ -550,6 +557,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 constexpr int NTC = 256;    // combine threads: CB float4 columns x NTC/CB split groups
+                            // (threads past that idle: 16 at D = 80, where CB = 20)
 template <int D> __host__ __device__ constexpr int comb_cols() { return D / 4 < 32 ? D / 4 : 32; }
 
 template <typename T, int D>
@@ -581,20 +589,22 @@ decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict
   const float4* acc = reinterpret_cast<const float4*>(part_acc) + bh * n_splits * NC + c;
   float l = 0.f;
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g < NG) {
 #pragma unroll 4
-  for (int s = g; s < n_splits; s += NG) {
-    const float2 ms = ml[s];
-    const float4 a = acc[size_t(s) * NC];
-    const bool live = ms.y > 0.f;
-    const float w = live ? exp2f(ms.x - m) : 0.f;
-    l += w * ms.y;
-    sum.x += live ? w * a.x : 0.f;
-    sum.y += live ? w * a.y : 0.f;
-    sum.z += live ? w * a.z : 0.f;
-    sum.w += live ? w * a.w : 0.f;
+    for (int s = g; s < n_splits; s += NG) {
+      const float2 ms = ml[s];
+      const float4 a = acc[size_t(s) * NC];
+      const bool live = ms.y > 0.f;
+      const float w = live ? exp2f(ms.x - m) : 0.f;
+      l += w * ms.y;
+      sum.x += live ? w * a.x : 0.f;
+      sum.y += live ? w * a.y : 0.f;
+      sum.z += live ? w * a.z : 0.f;
+      sum.w += live ? w * a.w : 0.f;
+    }
+    red[g][tid % CB] = sum;
+    if (tid % CB == 0) red_l[g] = l;
   }
-  red[g][tid % CB] = sum;
-  if (tid % CB == 0) red_l[g] = l;
   __syncthreads();
   if (g > 0) return;
   for (int i = 1; i < NG; ++i) {
@@ -681,9 +691,11 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, const void
   float* acc = static_cast<float*>(part_acc);
 #define DECODE_ARGS q, k, v, cache_len, ml, acc, o, B, Tk, H, KV, window, split_len, n_splits, scale, st
   if (dtype == 1 && D == 64) return launch_bf16<64>(DECODE_ARGS);
+  if (dtype == 1 && D == 80) return launch_bf16<80>(DECODE_ARGS);
   if (dtype == 1 && D == 128) return launch_bf16<128>(DECODE_ARGS);
   if (dtype == 1 && D == 256) return launch_bf16<256>(DECODE_ARGS);
   if (dtype == 0 && D == 64) return launch_f32<64>(DECODE_ARGS);
+  if (dtype == 0 && D == 80) return launch_f32<80>(DECODE_ARGS);
   if (dtype == 0 && D == 128) return launch_f32<128>(DECODE_ARGS);
   if (dtype == 0 && D == 256) return launch_f32<256>(DECODE_ARGS);
 #undef DECODE_ARGS
@@ -693,9 +705,11 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, const void
 // Dynamic shared memory of one block of the partial kernel for (dtype, D), in bytes.
 int decode_attention_smem_bytes(int dtype, int D) {
   if (dtype == 1 && D == 64) return int(MmaSmem<64>::bytes);
+  if (dtype == 1 && D == 80) return int(MmaSmem<80>::bytes);
   if (dtype == 1 && D == 128) return int(MmaSmem<128>::bytes);
   if (dtype == 1 && D == 256) return int(MmaSmem<256>::bytes);
   if (dtype == 0 && D == 64) return int(smem_bytes<64, key_tile<64>()>());
+  if (dtype == 0 && D == 80) return int(smem_bytes<80, key_tile<80>()>());
   if (dtype == 0 && D == 128) return int(smem_bytes<128, key_tile<128>()>());
   if (dtype == 0 && D == 256) return int(smem_bytes<256, key_tile<256>()>());
   return -1;

@@ -13,7 +13,7 @@
 // arithmetic, and the arithmetic has to run on the tensor cores at the
 // rate only `wgmma` reaches.
 //
-// bfloat16 (the serving path), `flash_wgmma_kernel`, D = 64, 128, 256:
+// bfloat16 (the serving path), `flash_wgmma_kernel`, D = 64, 80, 128, 256:
 // * One block per (128-row query tile, b, h), h fastest so the G query
 //   heads sharing a KV head run together and find its tiles in L2, query
 //   tiles longest first (reversed) so the causal diagonal leaves no tail.
@@ -41,23 +41,36 @@
 // * BK = 128 at D = 64 and 128 (S: 64 registers; O: 32 / 64); BK = 64 at
 //   D = 256, where O is 128 registers a thread. Shared memory: Q 16 / 32 /
 //   64 KB plus 2 stages of K and V, 80 / 160 / 192 KB a block.
-// * ptxas -v (nvcc 12.8, sm_90a), <D, BK>: <64,128>, <128,128> and
-//   <256,64> each 168 registers at entry (the consumers run at 232 after
-//   setmaxnreg), 0 bytes of spills, 83000 / 164920 / 197688 bytes of
-//   dynamic shared memory. chip_smoke.py prints and records them. The
+// * ptxas -v (nvcc 12.8, sm_90a), <D, BK, DO>: <64,128,64>,
+//   <128,128,128>, <128,128,80> and <256,64,256> each 168 registers at
+//   entry (the consumers run at 232 after setmaxnreg), 0 bytes of spills,
+//   83000 / 164920 / 164920 / 197688 bytes of dynamic shared memory.
+//   chip_smoke.py prints and records them. The
 //   mbarrier wait spins on try_wait alone: a clock64 / __trap timeout in
 //   that loop made ptxas hold every warpgroup to 168 registers and spill
 //   (412 bytes at D = 128, 644 at D = 256).
+// * head_dim 80 (h2o-danube-1.8b) is not a whole number of 64-column
+//   slabs. It runs the D = 128 instance padded inside the kernel, and
+//   nothing is padded in device memory: the TMA maps' d-extent is 80, so
+//   the TMA zero-fills columns 80-127 of every Q, K and V tile in shared
+//   memory (the transaction count is the whole box either way). Q K^T
+//   issues only the 5 k-steps of 16 that hold real columns, so scores cost
+//   exactly d = 80; P V runs at n = 128, its columns 80-127 are zeros and
+//   are not written. Executed work is 1.3x the function's (P V 1.6x), for
+//   no new instance of the wgmma code: the alternative, a 32-byte swizzle
+//   with five 16-column slabs, needs new descriptors and an n = 80 P V.
 // Left for later: ping-pong scheduling between the two consumer
 // warpgroups, overlapping the softmax with the next tile's Q K^T, fp8.
 //
 // float32: the CUDA cores, so that f32 keeps f32 products (tensor cores
-// would round to TF32), D = 64 and 128. A block owns one (b, h, 64-row
+// would round to TF32), D = 64, 80 and 128. A block owns one (b, h, 64-row
 // query tile) and walks its reachable 64-key tiles in a loop (the TPU's
 // sequential KV grid axis). Q and K tiles sit transposed in shared memory
 // so each of 128 threads reads its 4 query rows and 8 keys as float4s, P
 // is staged transposed for the PV product, and each thread keeps a 4x8
-// score tile and a 4x(D/8) output tile in registers.
+// score tile and a 4x(D/8) output tile in registers (at D = 80, whose
+// rows are not a whole number of 32-column passes, the last pass is taken
+// by half of the key groups).
 //
 // Scores are kept in base-2 units (scale * log2 e) so the exponentials
 // are exp2. When the caller asks for it (training), each row's natural-log
@@ -110,7 +123,7 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H, int KV,
                  int causal, int window, float scale2) {
-  constexpr int DV = D / 32;   // float4 output chunks per thread (dims tx*4 + 32*j)
+  constexpr int DV = (D + 31) / 32;   // float4 output chunks per thread (dims tx*4 + 32*j)
   extern __shared__ __align__(16) float smem[];
   float* QsT = smem;             // [D][QP]  Q tile transposed, pre-scaled
   float* KsT = QsT + D * QP;     // [D][KP]  K tile transposed
@@ -120,6 +133,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int ty = tid >> 3;       // row group: rows ty*4 .. ty*4+3
   const int tx = tid & 7;        // key group: keys tx*8 .. tx*8+7; dims tx*4 + 32*j
+  // at D = 80 the last chunk (dims 64 + tx*4) exists for tx < 4 only
+  auto has = [&](int j) { return D % 32 == 0 || tx * 4 + 32 * j < D; };
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -235,6 +250,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float pr[RM] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
       for (int j = 0; j < DV; ++j) {
+        if (!has(j)) continue;
         const float4 vv = *reinterpret_cast<const float4*>(&Vs[t * D + tx * 4 + 32 * j]);
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
@@ -257,7 +273,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < DV; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        ob[size_t(s) * q_row + tx * 4 + 32 * j + e] = from_f32<T>(acc[r][j][e] / denom);
+        if (has(j)) ob[size_t(s) * q_row + tx * 4 + 32 * j + e] = from_f32<T>(acc[r][j][e] / denom);
   }
 }
 
@@ -473,7 +489,9 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
   else wgmma_rs_n256(d, a, db, 1);
 }
 
-template <int D, int BK>
+// D: the tile width in shared memory (whole 64-column slabs); DO <= D: the
+// head_dim, the columns that hold data (the TMA zero-fills the rest)
+template <int D, int BK, int DO>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
@@ -571,8 +589,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
       for (int sl = 0; sl < NSLAB; ++sl)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<BK>(s, gmma_desc(sQw + sl * WG_BQ * 128 + kk * 32, 16, 1024),
-                       gmma_desc(sKs + sl * BK * 128 + kk * 32, 16, 1024), sl | kk);
+          if (sl * 64 + kk * 16 < DO)      // k-steps past the head_dim hold only zeros
+            wgmma_ss<BK>(s, gmma_desc(sQw + sl * WG_BQ * 128 + kk * 32, 16, 1024),
+                         gmma_desc(sKs + sl * BK * 128 + kk * 32, 16, 1024), sl | kk);
       wgmma_commit();
       wgmma_wait0();
       reg_fence<BK / 2>(s);
@@ -656,9 +675,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     if (row >= S) continue;
     if (lse != nullptr && (lane & 3) == 0) lse[(size_t(b) * H + h) * S + row] = row_lse(m_r[r], l_r[r]);
     const float inv = l_r[r] > 0.f ? 1.f / l_r[r] : 0.f;
-    __nv_bfloat16* orow = o + ((size_t(b) * S + row) * H + h) * D + c2;
+    __nv_bfloat16* orow = o + ((size_t(b) * S + row) * H + h) * DO + c2;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DO / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
           __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
   }
@@ -683,7 +702,8 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (d, heads, rows, batch) bf16 tensor, contiguous; box (64, 1, box_rows, 1), 128-byte swizzle
+// (d, heads, rows, batch) bf16 tensor, contiguous; box (64, 1, box_rows, 1), 128-byte swizzle;
+// a box's columns past d (d = 80) and rows past `rows` are zero-filled
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int heads, int rows,
               int batch, int box_rows) {
   const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads), cuuint64_t(rows), cuuint64_t(batch)};
@@ -696,26 +716,28 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int hea
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// head_dim DO in tiles of D columns (D = DO, or 128 for DO = 80)
+template <int D, int DO = D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                          int Tk, int H, int KV, int causal, int window, float scale,
                          cudaStream_t stream) {
   constexpr int BK = D == 256 ? 64 : 128;
   constexpr size_t smem = WgSmem<D, BK>::bytes;
   static_assert(smem <= 232448, "shared memory of one block");
+  static_assert(DO <= D && DO % 16 == 0, "whole k-steps of 16 columns");
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, D, H, S, B, WG_BQ) || !make_map(enc, &tk, k, D, KV, Tk, B, BK) ||
-      !make_map(enc, &tv, v, D, KV, Tk, B, BK))
+  if (!make_map(enc, &tq, q, DO, H, S, B, WG_BQ) || !make_map(enc, &tk, k, DO, KV, Tk, B, BK) ||
+      !make_map(enc, &tv, v, DO, KV, Tk, B, BK))
     return cudaErrorInvalidValue;
   const int n_qt = (S + WG_BQ - 1) / WG_BQ;
   const long long blocks = (long long)H * n_qt * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, BK>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wgmma_kernel<D, BK, DO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  flash_wgmma_kernel<D, BK><<<unsigned(blocks), WG_THREADS, smem, stream>>>(
+  flash_wgmma_kernel<D, BK, DO><<<unsigned(blocks), WG_THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, KV, causal, window, scale * LOG2E,
       n_qt, B);
   return cudaGetLastError();
@@ -742,7 +764,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 extern "C" {
 
-// dtype: 0 = float32 (D = 64, 128), 1 = bfloat16 (D = 64, 128, 256).
+// dtype: 0 = float32 (D = 64, 80, 128), 1 = bfloat16 (D = 64, 80, 128, 256).
 // window < 0 means no window. All tensors contiguous and 16-byte aligned:
 // q/o (B,S,H,D), k/v (B,T,KV,D). lse, if not null, receives each row's
 // natural-log log-sum-exp of its scaled scores, (B,H,S) float32 (+inf for
@@ -755,10 +777,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   float* lse = static_cast<float*>(lse_out);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 0 && D == 80)
+    return launch<float, 80>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 64)
     return launch_wgmma<64>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 1 && D == 80)
+    return launch_wgmma<128, 80>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 256)
@@ -769,9 +795,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
 // Dynamic shared memory of one block of the kernel for (dtype, D), in bytes.
 int flash_attention_smem_bytes(int dtype, int D) {
   if (dtype == 1 && D == 64) return int(WgSmem<64, 128>::bytes);
-  if (dtype == 1 && D == 128) return int(WgSmem<128, 128>::bytes);
+  if (dtype == 1 && (D == 80 || D == 128)) return int(WgSmem<128, 128>::bytes);
   if (dtype == 1 && D == 256) return int(WgSmem<256, 64>::bytes);
   if (dtype == 0 && D == 64) return int(smem_bytes<64>());
+  if (dtype == 0 && D == 80) return int(smem_bytes<80>());
   if (dtype == 0 && D == 128) return int(smem_bytes<128>());
   return -1;
 }

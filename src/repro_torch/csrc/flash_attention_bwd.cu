@@ -46,6 +46,12 @@
 // and their gradients take 16 registers each and nothing spills at D = 128
 // (255 registers and ~80 bytes of spills with the whole stage at once).
 //
+// head_dim 80 (h2o-danube-1.8b) is five k-steps of 16 and ten n8 tiles
+// of the same m16n8k16 products, so every kernel takes it as it is: rows
+// padded to 88 elements (176 bytes, still conflict-free for ldmatrix), dK
+// and dV 80 registers a thread. Nothing is padded to 128. ptxas -v (nvcc
+// 12.8, sm_90a) at D = 80: dk/dv 163 registers, dq 146, no spills.
+//
 // float32: the CUDA cores, so that f32 keeps f32 products (the tensor
 // cores would round to TF32). 256 threads; the tiles sit in shared memory
 // with odd row strides, each thread scores 8 (key, query) pairs and then
@@ -455,7 +461,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll 2
+      // by two, or whole where the step count is odd (D = 80): by two with a
+      // remainder step, ptxas held dq<80> to 128 registers and spilled 4 bytes
+#pragma unroll(D / 16 % 2 ? D / 16 : 2)
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t aq[4], ao[4];
         ldsm_x4(q_a + kk * 32, aq);
@@ -799,11 +807,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// dynamic shared memory of one block: kernel 0 = dk/dv, 1 = dq
+template <int D>
+int bwd_smem(int dtype, int kernel) {
+  if (dtype == 1) return int(kernel == 0 ? DkvSmem<D>::bytes : DqSmem<D>::bytes);
+  return int(kernel == 0 ? FDkvSmem<D>::bytes : FDqSmem<D>::bytes);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D = 64 or 128. Causal self-attention:
+// dtype: 0 = float32, 1 = bfloat16; D = 64, 80 or 128. Causal self-attention:
 // q, o, dout, dq (B,S,H,D); k, v, dk, dv (B,S,KV,D); lse and the scratch
 // dsum (B,H,S) float32. window < 0 means no window. All tensors contiguous
 // and 16-byte aligned. Runs three kernels on `stream`; returns a cudaError_t.
@@ -812,7 +827,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
                         void* dv, int B, int S, int H, int KV, int D, int dtype, int window,
                         float scale, void* stream) {
   if (S <= 0 || B <= 0) return int(cudaSuccess);
-  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 128) || (dtype != 0 && dtype != 1))
+  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 80 && D != 128) || (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
@@ -820,23 +835,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   cudaError_t err = dtype == 1 ? launch_dsum<bf16>(o, dout, ds, B, S, H, D, st)
                                : launch_dsum<float>(o, dout, ds, B, S, H, D, st);
   if (err != cudaSuccess) return int(err);
-  if (dtype == 1 && D == 64)
-    return int(launch_bf16<64>(q, k, v, dout, lp, ds, dq, dk, dv, B, S, H, KV, window, scale, st));
-  if (dtype == 1)
-    return int(launch_bf16<128>(q, k, v, dout, lp, ds, dq, dk, dv, B, S, H, KV, window, scale, st));
-  if (D == 64)
-    return int(launch_f32<64>(q, k, v, dout, lp, ds, dq, dk, dv, B, S, H, KV, window, scale, st));
-  return int(launch_f32<128>(q, k, v, dout, lp, ds, dq, dk, dv, B, S, H, KV, window, scale, st));
+#define BWD_ARGS q, k, v, dout, lp, ds, dq, dk, dv, B, S, H, KV, window, scale, st
+  if (dtype == 1 && D == 64) return int(launch_bf16<64>(BWD_ARGS));
+  if (dtype == 1 && D == 80) return int(launch_bf16<80>(BWD_ARGS));
+  if (dtype == 1) return int(launch_bf16<128>(BWD_ARGS));
+  if (D == 64) return int(launch_f32<64>(BWD_ARGS));
+  if (D == 80) return int(launch_f32<80>(BWD_ARGS));
+  return int(launch_f32<128>(BWD_ARGS));
+#undef BWD_ARGS
 }
 
 // Dynamic shared memory of one block, in bytes: kernel 0 = dk/dv, 1 = dq.
 int flash_attention_bwd_smem_bytes(int dtype, int D, int kernel) {
-  if (D != 64 && D != 128) return -1;
-  if (dtype == 1)
-    return int(D == 64 ? (kernel == 0 ? DkvSmem<64>::bytes : DqSmem<64>::bytes)
-                       : (kernel == 0 ? DkvSmem<128>::bytes : DqSmem<128>::bytes));
-  return int(D == 64 ? (kernel == 0 ? FDkvSmem<64>::bytes : FDqSmem<64>::bytes)
-                     : (kernel == 0 ? FDkvSmem<128>::bytes : FDqSmem<128>::bytes));
+  if (D == 64) return bwd_smem<64>(dtype, kernel);
+  if (D == 80) return bwd_smem<80>(dtype, kernel);
+  if (D == 128) return bwd_smem<128>(dtype, kernel);
+  return -1;
 }
 
 const char* flash_attention_bwd_error_string(int err) {

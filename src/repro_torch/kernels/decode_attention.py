@@ -28,7 +28,7 @@ from . import _build
 from ._guard import require_no_grad
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_TILE = 32        # keys: a split is a whole number of these
 HEADS_PER_BLOCK = 16   # query heads a block of the bf16 kernel scores (its mma rows)
@@ -131,8 +131,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if not q.is_cuda:
         return decode_attention_ref(q, k_cache, v_cache, cache_len, window=window,
                                     scale=scale)
-    require_no_grad("decode_attention", "Queue 2 item 7, 'Backward kernels'", q, k_cache,
-                    v_cache)
+    require_no_grad("decode_attention", "'Backward kernels'", q, k_cache, v_cache)
     B, one, H, d = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     tensors = (k_cache, v_cache, cache_len)

@@ -30,8 +30,8 @@ import torch
 from . import _build
 
 NEG_INF = -2.0e38
-HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (64, 128)}
-BWD_HEAD_DIMS = (64, 128)
+HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256), torch.float32: (64, 80, 128)}
+BWD_HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -196,9 +196,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B,S,H,d), k/v (B,T,KV,d) with H % KV == 0 -> (B,S,H,d) in q's type.
-    Differentiable: on the card, when grad is needed, only causal
-    self-attention (S == T) at head_dim 64 or 128 has a backward; anything
-    else raises before the forward runs."""
+    On the card the forward takes head_dim 64, 80, 128 or 256 in bfloat16
+    and 64, 80 or 128 in float32 (``HEAD_DIMS``). Differentiable: on the
+    card, when grad is needed, only causal self-attention (S == T) at
+    head_dim 64, 80 or 128 (``BWD_HEAD_DIMS``) has a backward; anything else
+    raises before the forward runs."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check_inputs(q, k, v, HEAD_DIMS.get(q.dtype, ()))
@@ -209,8 +211,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise NotImplementedError(
                 f"flash_attention: no backward on the card for causal={causal}, S="
                 f"{q.shape[1]}, T={k.shape[1]}, head_dim {q.shape[-1]} (causal self-attention "
-                f"at head_dim {BWD_HEAD_DIMS} only; ROADMAP: Queue 2 item 7, "
-                "'Backward kernels')")
+                f"at head_dim {BWD_HEAD_DIMS} only; ROADMAP: 'Backward kernels')")
         return FlashAttentionFn.apply(q, k, v, window, scale)
     return _forward(q, k, v, causal, window, scale, with_lse=False)[0]
 

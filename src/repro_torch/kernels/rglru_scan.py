@@ -53,7 +53,7 @@ def rglru_scan(a_log: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torc
     """a_log, b (B,S,W) float32 -> (h (B,S,W) float32, h_last (B,W) float32)."""
     if not a_log.is_cuda:
         return rglru_scan_ref(a_log, b)
-    require_no_grad("rglru_scan", "Queue 2 item 7, 'Backward kernels'", a_log, b)
+    require_no_grad("rglru_scan", "'Backward kernels'", a_log, b)
     if not (b.is_cuda and b.device == a_log.device):
         raise ValueError("rglru_scan: a_log and b must lie on one CUDA device")
     if a_log.dtype != torch.float32 or b.dtype != torch.float32:

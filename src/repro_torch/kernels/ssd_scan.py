@@ -217,7 +217,7 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Ten
     chunk = min(chunk, S)
     if not x.is_cuda:
         return ssd_chunked(x, a_log, b, c, chunk)
-    require_no_grad("ssd_scan", "Queue 2 item 7, 'Backward kernels'", x, a_log, b, c)
+    require_no_grad("ssd_scan", "'Backward kernels'", x, a_log, b, c)
     G, N = b.shape[2], b.shape[3]
     if not all(t.is_cuda and t.device == x.device for t in (a_log, b, c)):
         raise ValueError("ssd_scan: x, a_log, b and c must lie on one CUDA device")

@@ -63,7 +63,10 @@ def test_flash_attention_kernel_matches_plain(dtype):
             ((2, 256, 256, 4, 2, 64), True, None),
             ((1, 384, 384, 8, 8, 128), True, 128),
             ((2, 200, 333, 4, 1, 128), False, None),
-            ((1, 130, 130, 16, 4, 64), True, 40)]:
+            ((1, 130, 130, 16, 4, 64), True, 40),
+            ((2, 300, 300, 8, 2, 80), True, 100),      # h2o-danube-1.8b's head_dim, ragged
+            ((1, 200, 333, 4, 1, 80), False, None),
+            ((1, 256, 256, 48, 1, 128), True, None)]:  # granite-20b's 48 heads on 1 KV head
         q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
@@ -111,7 +114,10 @@ def test_decode_attention_kernel_matches_plain(dtype):
             ((4, 2048, 16, 1, 256), [2048, 1793, 256, 1], None),   # recurrentgemma MQA ring
             ((3, 300, 8, 2, 256), [300, 101, 7], 96),
             ((4, 4128, 16, 2, 128), [4128, 1, 0, 4127], None),    # most splits empty
-            ((3, 32, 8, 1, 64), [32, 5, 1], 8)]:                  # one split
+            ((3, 32, 8, 1, 64), [32, 5, 1], 8),                   # one split
+            ((4, 4128, 32, 8, 80), [4128, 4097, 100, 0], None),   # h2o-danube-1.8b
+            ((3, 300, 8, 2, 80), [300, 101, 7], 96),
+            ((4, 4128, 48, 1, 128), [4128, 4000, 17, 1], None)]:  # granite-20b's G = 48
         if T == 32:
             assert kernels.decode_attention.split_plan(T, B, KV, H // KV)[1] == 1
         q = torch.randn((B, 1, H, d), generator=gen, device="cuda").to(dtype)
@@ -252,7 +258,7 @@ def test_rglru_prefill_launches_the_kernel_at_any_length():
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take():
     _card()
-    q = torch.zeros((1, 16, 4, 80), device="cuda")             # head_dim 80
+    q = torch.zeros((1, 16, 4, 96), device="cuda")             # head_dim 96: no kernel takes it
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="dtype"):
@@ -279,11 +285,13 @@ def test_kernels_refuse_what_they_do_not_take():
 def test_flash_attention_bwd_kernel_matches_plain(dtype):
     """The backward kernels against flash_attention_bwd_ref on the same
     inputs (the forward kernel's output and log-sum-exp): causal and
-    windowed, G = 1, 4, 8, ragged S, head_dim 64 and 128; the forward's
-    log-sum-exp against the plain one."""
+    windowed, G = 1, 4, 8 and 48, ragged S, head_dim 64, 80 and 128; the
+    forward's log-sum-exp against the plain one."""
     gen = _card()
     for (B, S, H, KV, d), window in [((2, 256, 4, 4, 64), None), ((1, 300, 8, 2, 128), None),
-                                     ((1, 333, 8, 1, 64), 100), ((2, 130, 16, 2, 128), 40)]:
+                                     ((1, 333, 8, 1, 64), 100), ((2, 130, 16, 2, 128), 40),
+                                     ((1, 300, 8, 2, 80), 100), ((2, 256, 32, 8, 80), None),
+                                     ((1, 256, 48, 1, 128), None)]:
         q, k, v = (torch.randn((B, S, n, d), generator=gen, device="cuda").to(dtype)
                    for n in (H, KV, KV))
         dout = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)

@@ -58,6 +58,7 @@ def _np(x):
     (1, 384, 8, 8, 128),      # S % block != 0
     (2, 128, 4, 1, 64),       # MQA
     (1, 512, 16, 4, 32),
+    (1, 256, 8, 2, 80),       # h2o-danube-1.8b's head_dim
 ])
 @pytest.mark.parametrize("window", [None, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -115,6 +116,32 @@ def test_flash_attention_bwd_plain_matches_jax_vjp(B, S, H, KV, d, window):
     np.testing.assert_allclose(_np(lse), _np(jlse), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,S,H,KV,window", [
+    (1, 160, 8, 2, None),
+    (2, 100, 4, 1, 48),           # ragged S, MQA, window
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_plain_matches_jax_vjp_head_dim_80(B, S, H, KV, window, dtype):
+    """The plain backward at h2o-danube-1.8b's head_dim 80 against jax.vjp
+    of the JAX package's reference. bfloat16: the plain version takes the
+    bf16 values (its forward rounds the weights to bf16, its gradients come
+    out in bf16) and JAX differentiates the same values in float32, within
+    the bfloat16 tolerance."""
+    d = 80
+    rng = np.random.default_rng(7)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, (B, S, n, d), dtype) for n in (H, KV, KV, H))
+    jq, jk, jv, jdo = (x.astype(jnp.float32) for x in (jq, jk, jv, jdo))
+    jout, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, causal=True,
+                                                                 window=window), jq, jk, jv)
+    out = ref.flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    lse = ref.flash_attention_lse_ref(tq, tk, causal=True, window=window)
+    grads = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True, window=window)
+    for got, exp in zip((out,) + grads, (jout,) + vjp(jdo)):
+        assert got.dtype == tq.dtype
+        np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))
+
+
 @pytest.mark.parametrize("window", [None, 20])
 def test_flash_attention_autograd_on_cpu_equals_plain_bwd(window):
     """On CPU tensors autograd differentiates the plain forward; it agrees
@@ -151,6 +178,7 @@ def test_flash_attention_lse_ref_row_without_live_key_is_inf():
     (3, 300, 8, 1, 128),      # T % block != 0
     (2, 512, 4, 4, 64),
     (2, 300, 16, 1, 256),     # recurrentgemma's MQA head_dim
+    (2, 300, 8, 2, 80),       # h2o-danube-1.8b's head_dim
 ])
 @pytest.mark.parametrize("window", [None, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -218,6 +246,8 @@ SPLIT_CASES = {
     "qwen3 window": ((4, 4128, 8, 1, 64), [4128, 3001, 1, 0], 1000),
     "recurrentgemma": ((4, 2048, 16, 1, 64), [2048, 1793, 256, 1], None),
     "recurrentgemma window": ((3, 2048, 16, 1, 32), [2048, 0, 700], 512),
+    "h2o head_dim 80": ((2, 4128, 8, 2, 80), [4128, 1], None),
+    "h2o head_dim 80 window": ((3, 1000, 8, 2, 80), [1000, 999, 0], 500),
 }
 
 

@@ -273,6 +273,10 @@ def _models(arch, **overrides):
                                             # window 32: prefill rolls the ring
     ("mamba2_780m", 64, {"dtype": "bfloat16"}),        # the served dtype's cast points
     ("recurrentgemma_9b", 64, {"dtype": "bfloat16"}),
+    # the full config's head_dim 80 (the flash and decode kernels' d = 80 on
+    # the card); window 32 < prompt 48
+    ("h2o_danube_1_8b", 48, {"head_dim": 80, "n_layers": 2}),
+    ("h2o_danube_1_8b", 48, {"head_dim": 80, "n_layers": 2, "dtype": "bfloat16"}),
 ])
 def test_lm_apply_prefill_decode_match_jax(arch, prompt, overrides):
     B, steps = 2, 4
