@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels from csrc/ (one nvcc a source, all
 started together; each instance's registers, stack, spills and shared
-memory printed from ``ptxas -v``, the HMMA count of each SSD stage from
-``cuobjdump -sass``; a spill in the flash backward fails) and runs these
+memory printed from ``ptxas -v``, the HMMA count of each SSD stage and the
+HGMMA count of the flash backward's main kernel from ``cuobjdump -sass``;
+a spill in the flash backward fails) and runs these
 phases:
 
 1. the device: name and power limit from nvidia-smi;
@@ -24,8 +25,10 @@ phases:
    L2 flushed before each launch); the flash backward (dq, dk, dv) at
    qwen3-32b's training shape (B=2, S=4096), h2o-danube-1.8b's (B=2,
    S=8192, head_dim 80, window 4096) and granite-20b's group (G = 48),
-   and at head_dim 64, G = 1, a 2048 window, ragged S and float32, each
-   of its three kernels timed by the profiler, against
+   and at head_dim 64, G = 1, a 2048 window, ragged S, the query group
+   split across blocks (G = 48, one key tile) and float32, each of its
+   three kernels (dsum, the wgmma kernel, the convert) timed by the
+   profiler, with its split plan and block count, against
    scaled_dot_product_attention's backward;
 3. four serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
@@ -609,7 +612,7 @@ def kernels_rglru(kp: KernelPhase) -> None:
     torch.cuda.empty_cache()
 
 
-BWD_STAGES = ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+BWD_STAGES = ("flash_bwd_dsum_kernel", "flash_bwd_wgmma_kernel", "flash_bwd_convert_kernel")
 # (name, (B, S, H, KV, d), window, dtype); the first is the training path's shape
 BWD_CASES = [
     ("train path", (TRAIN_BATCH, TRAIN_SEQ, HEADS, KV_HEADS, HEAD_DIM), None, "bfloat16"),
@@ -624,8 +627,12 @@ BWD_CASES = [
     ("d80 train path", (H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM),
      H2O_WINDOW, "bfloat16"),
     ("f32 ragged window d80", (2, 300, 8, 2, H2O_HEAD_DIM), 100, "float32"),
-    # granite-20b's group: 48 query heads on one KV head
-    ("G=48", (1, TRAIN_SEQ, G48_HEADS, 1, HEAD_DIM), None, "bfloat16")]
+    # granite-20b's group: 48 query heads on one KV head (its plan splits the group)
+    ("G=48", (1, TRAIN_SEQ, G48_HEADS, 1, HEAD_DIM), None, "bfloat16"),
+    ("G=48 split S=1024", (1, 1024, G48_HEADS, 1, HEAD_DIM), None, "bfloat16"),
+    ("G=48 split window 300", (1, 1024, G48_HEADS, 1, HEAD_DIM), 300, "bfloat16"),
+    # one key tile, ragged: every block of the plan is one query head
+    ("one block", (1, 100, 8, 1, HEAD_DIM), None, "bfloat16")]
 # the cases timed against their bound and the library, by record key
 BWD_MAINS = {"train path": "flash_attention_bwd", "d80 train path": "flash_attention_bwd_d80",
              "G=48": "flash_attention_bwd_g48"}
@@ -688,6 +695,10 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                   + f" ({tol}); the forward's lse {err_l:.3e}, {share_l:.3f} of "
                     f"{TOL['float32']}")
         if name in BWD_MAINS:
+            n_split = mod.bwd_split_plan(B, S, kv, h // kv)
+            blocks = -(-S // mod.BWD_KEY_TILE) * kv * B * n_split
+            log(card, f"flash_attention_bwd {name}: split plan {n_split} (query heads of a "
+                      f"group per block {h // kv // n_split}), {blocks} blocks of the wgmma kernel")
             live = live_pairs(S, S, True, window)
             # the least work: the S recompute, dP, dV, dK and dQ, 2 d each per live pair
             ops_n = 10.0 * B * h * d * live
@@ -735,7 +746,7 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                 shape=dict(B=B, S=S, T=S, H=h, KV=kv, d=d, dtype=dt, causal=True, window=window),
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share,
-                tol=tol, timing=readings, stages_ms=stages)
+                tol=tol, timing=readings, stages_ms=stages, n_split=n_split, blocks=blocks)
             for k_ in BWD_STAGES:
                 log(card, f"flash_attention_bwd {name} stage {k_}: {stages[k_]:.4f} ms on the "
                           f"device (profiler, mean of 3 calls)")
@@ -790,7 +801,7 @@ def profile(torch, fn, card: str, what: str, groups: Optional[Dict[str, str]] = 
 
 
 def _kernel_key(name: str) -> str:
-    """``flash_bwd_dq_kernel<128>(...)`` from a profiler row's demangled name."""
+    """``flash_bwd_wgmma_kernel<128, 128>(...)`` from a profiler row's demangled name."""
     name = re.sub(r"^void ", "", name)
     return re.sub(r"^\(anonymous namespace\)::", "", name)
 
@@ -1457,14 +1468,15 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}<{','.join(args)}>" if args else name
 
 
-def sass_hmma(source: str) -> Dict[str, int]:
-    """HMMA (tensor-core) instructions in each kernel's SASS (``cuobjdump
-    -sass`` of the built library); raises where the toolkit has no cuobjdump."""
+def sass_count(source: str, op: str) -> Dict[str, int]:
+    """Instructions of opcode ``op`` (HMMA: mma.sync, HGMMA: wgmma) in each
+    kernel's SASS (``cuobjdump -sass`` of the built library);
+    raises where the toolkit has no cuobjdump."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        raise FileNotFoundError("cuobjdump not found: the SSD stages' HMMA check cannot run")
+        raise FileNotFoundError(f"cuobjdump not found: the {op} check of {source} cannot run")
     sass = subprocess.run([tool, "-sass", str(_build._target(source))], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     counts, fn = {}, None
@@ -1473,7 +1485,7 @@ def sass_hmma(source: str) -> Dict[str, int]:
         if m:
             fn = _kernel_name(m.group(1))
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and re.search(rf"\b{op}\b", line):
             counts[fn] += 1
     return counts
 
@@ -1525,13 +1537,15 @@ def ptxas_record(logs: Dict[str, str]) -> list:
             r["dynamic_smem"] = smem[r["source"]](dtype, dims[0])
         if r["source"] == "ssd_scan":
             r["dynamic_smem"] = ssd_smem(ssd_stage[fn.split("<")[0]])
-        if r["source"] == "flash_attention_bwd" and dims:      # dk/dv (0) and dq (1)
-            r["dynamic_smem"] = bwd_smem(0 if "f32" in fn else 1, dims[0],
-                                         0 if "dkdv" in fn else 1)
-    hmma = sass_hmma("ssd_scan")
+        if r["source"] == "flash_attention_bwd" and dims:      # wgmma / f32 dk/dv (0), f32 dq (1)
+            r["dynamic_smem"] = bwd_smem(0 if "f32" in fn else 1, dims[-1],
+                                         1 if "dq_f32" in fn else 0)
+    counts = {"ssd_scan": ("hmma", sass_count("ssd_scan", "HMMA")),
+              "flash_attention_bwd": ("hgmma", sass_count("flash_attention_bwd", "HGMMA"))}
     for r in out:
-        if r["source"] == "ssd_scan" and r["function"] in hmma:
-            r["hmma"] = hmma[r["function"]]
+        if r["source"] in counts and r["function"] in counts[r["source"]][1]:
+            key, by_fn = counts[r["source"]]
+            r[key] = by_fn[r["function"]]
     return out
 
 
@@ -1570,12 +1584,18 @@ def main() -> int:
                   f"{r.get('stack', 0)} B stack, spill stores {r.get('spill_stores', 0)} B, "
                   f"spill loads {r.get('spill_loads', 0)} B, dynamic shared memory "
                   f"{r.get('dynamic_smem', 'none')}"
-                  + (f", {r['hmma']} HMMA in its SASS" if "hmma" in r else ""))
+                  + (f", {r['hmma']} HMMA in its SASS" if "hmma" in r else "")
+                  + (f", {r['hgmma']} HGMMA in its SASS" if "hgmma" in r else ""))
     # the bf16 SSD stages that multiply run on the tensor cores
     hmma = {r["function"]: r.get("hmma", 0) for r in ptxas if r["source"] == "ssd_scan"}
     no_hmma = [k for k in SSD_STAGES if k != "ssd_state_passing_kernel" and not hmma.get(k)]
     if no_hmma:
         raise AssertionError(f"no HMMA in the SASS of {no_hmma} (found {hmma})")
+    # the bf16 flash backward's main kernel runs on wgmma, in every instance
+    hgmma = {r["function"]: r.get("hgmma", 0) for r in ptxas
+             if r["function"].startswith("flash_bwd_wgmma_kernel")}
+    if len(hgmma) != 3 or not all(hgmma.values()):
+        raise AssertionError(f"flash_bwd_wgmma_kernel instances without HGMMA: {hgmma}")
     spills = [r["function"] for r in ptxas if r["source"] == "flash_attention_bwd"
               and (r.get("spill_stores", 0) or r.get("spill_loads", 0))]
     if spills:

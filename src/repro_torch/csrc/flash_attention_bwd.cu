@@ -12,54 +12,95 @@
 // log-sum-exp of each row's scaled scores (+inf for a row with no live
 // key, which then gets zero gradient).
 //
-// FlashAttention-2's decomposition, deterministic and without atomics:
-//   1. dsum  D = rowsum(dO o O) in f32, (B,H,S): one warp a row.
-//   2. dk/dv one block per (64-key tile, KV head, b). It loops over the G
-//      query heads of the group and over the query tiles that can see the
-//      key tile (the forward's causal and window skips), recomputes
-//      P = exp(S scale - lse) and accumulates dV += P^T dO and
-//      dK += (P o (dP - D))^T Q scale in f32 registers. Summing the group
-//      inside the block is what makes atomics unneeded for GQA.
-//   3. dq    one block per (64-query tile, head, b); it loops over the
-//      live key tiles and accumulates dQ += dS K scale.
-// Key tiles (dk/dv) and query tiles (dq) run longest first under the
-// causal mask so the diagonal leaves no tail.
-//
 // What bounds it: at qwen3-32b's training shape (B=2, S=4096, H=64, KV=8,
 // D=128) the least work is 10 D operations per live (query, key) pair (the
 // S recompute, dP, dV, dK, dQ: 2 D each), 1.375 TFLOP against ~0.61 GB in
-// and out, so it is bound by arithmetic (1.39 ms at 989 TFLOP/s bf16).
-// This first version runs every product on mma.sync m16n8k16 (bf16 in,
-// f32 accumulate); wgmma with TMA-fed tiles, as the forward has, is the
-// next step once its time is measured.
+// and out, so it is bound by arithmetic (1.39 ms at 989 TFLOP/s bf16), and
+// the arithmetic has to run on the tensor cores at the rate only `wgmma`
+// reaches.
 //
-// bfloat16: 128 threads, four warps of 16 rows (keys in dk/dv, queries in
-// dq). Operands go to shared memory by cp.async (rows padded by 16 bytes
-// so ldmatrix rows fall on distinct banks), Q/dO (dk/dv) or K/V (dq) in a
-// 2-stage ring. S^T and dP^T (dk/dv) or S and dP (dq) stay in registers;
-// P and dS are rounded to bf16 in registers (as the forward rounds P) and
-// reused as the A operand of the next product by the accumulator-to-A
-// fragment identity of m16n8k16, so no P or dS passes through shared
-// memory. dk/dv keeps a 16 x D f32 dK and dV a warp (D registers a thread
-// for the two) and takes its 32-query stage 16 queries at a time; dq keeps
-// a 16 x D dQ and takes its 64-key stage 32 keys at a time: so the scores
-// and their gradients take 16 registers each and nothing spills at D = 128
-// (255 registers and ~80 bytes of spills with the whole stage at once).
-//
-// head_dim 80 (h2o-danube-1.8b) is five k-steps of 16 and ten n8 tiles
-// of the same m16n8k16 products, so every kernel takes it as it is: rows
-// padded to 88 elements (176 bytes, still conflict-free for ldmatrix), dK
-// and dV 80 registers a thread. Nothing is padded to 128. ptxas -v (nvcc
-// 12.8, sm_90a) at D = 80: dk/dv 163 registers, dq 146, no spills.
+// bfloat16: FlashAttention-3's decomposition, three launches.
+//   1. dsum   D = rowsum(dO o O) in f32, one warp a (b, h, s) row over S
+//      padded to whole 64-query tiles; it also writes lse in log2 units
+//      (+inf on padded rows, so they get P = 0) and zeroes the row of the
+//      f32 dQ accumulator (and of the split dK/dV accumulators), so no
+//      memset runs.
+//   2. `flash_bwd_wgmma_kernel<D, DO>`: one block per (128-key tile, KV
+//      head, b, group split), key tile 0 (it sees the most queries) first.
+//      384 threads. Warpgroup 0 is the producer (`setmaxnreg` 24): one
+//      thread loads K and V once by TMA, then streams, per step of 64
+//      queries of one query head, the Q and dO tiles (TMA) and that tile's
+//      lse and D (bulk copies) into a 2-stage ring with full/empty
+//      mbarriers. Warpgroups 1 and 2 (240 registers) each own 64 of the
+//      block's keys and keep dK and dV in f32 registers. The block walks
+//      (query head of its split) x (query tiles that can see the key tile:
+//      the causal and window skips), in the order `walk` gives, so that the
+//      blocks of one (b, KV head) add into the same dQ tiles close in time;
+//      only tiles that cross the diagonal, the window edge or S are masked.
+//      Per step, in each consumer:
+//        S^T  = K Q^T      wgmma SS m64n64 (K-major both)
+//        dP^T = V dO^T     wgmma SS m64n64, in flight while P is computed
+//        P^T  = exp2(S^T scale log2e - lse log2e), dead pairs exactly 0
+//        dS^T = P^T o (dP^T - D)
+//        dV  += P^T dO     wgmma RS: P^T rounded to bf16 in registers (as
+//                          the forward rounds P), dO the MN-major B operand
+//        dK  += dS^T Q     wgmma RS, scaled once at the end
+//      dS^T also goes to shared memory as bf16 (128-byte swizzle); after a
+//      named barrier of the two consumers, dQ_partial (64 queries x 64
+//      columns) = dS K over all 128 keys is wgmma SS with both operands
+//      MN-major (A = dS^T, B = K, as V is read in the forward's P V). At
+//      D = 128 the two consumers take one 64-column slab each; at D = 64
+//      they take the one slab in turns, step by step. dQ_partial goes to an
+//      f32 tile in shared memory and one thread adds the whole tile to the
+//      f32 accumulator with one TMA bulk reduce-add
+//      (cp.reduce.async.bulk .add.f32): the adds run in L2, the consumers
+//      spend no instructions on 32 `red`s each, and the copy overlaps the
+//      next step. Its source must be contiguous and match the destination
+//      byte for byte, so the accumulator is (B, H, S_pad, DO + 8): a
+//      64-query tile is one contiguous run, and the 8 pad columns put the
+//      tile's rows 8 banks apart, so the float2 stores of a warp's 8 rows
+//      fill the 32 banks twice (2 wavefronts, the least for 256 bytes)
+//      instead of conflicting 8 ways.
+//      After the walk dK and dV leave the registers once: as bf16 when the
+//      group is not split, else added (`atomicAdd`, f32) into (B,S,KV,DO)
+//      accumulators.
+//   3. convert  the f32 accumulators to bf16 (dq x scale always; dk x
+//      scale and dv when the group is split).
+// The split plan (`bwd_split_plan` in kernels/flash_attention.py) comes
+// from the shapes alone: 1 where key tiles x KV x B fill the 132 SMs
+// (qwen3's and h2o's training shapes), else the smallest divisor of G that
+// does (granite-20b's G = 48 at B = 1, S = 4096: 6 splits, 192 blocks);
+// split sp takes query heads [sp G / n, (sp + 1) G / n).
+// Determinism: dQ (always) and dK/dV (when split) are sums whose order
+// changes from run to run (the bulk reduce-adds and atomics of different
+// blocks land in any order), so the bf16 backward is not bit-reproducible;
+// each result stays within the same tolerance of the plain version.
+// Registers at D = 128 (a consumer thread): dK 64 + dV 64 + S^T 32 + dP^T
+// 32 f32, the dQ product's 32 once S^T and dP^T are packed to bf16; the
+// budget is 240. Shared memory at D = 128: K and V 64 KB, the ring 2 x 32.5
+// KB, dS^T 16 KB, the dQ tile 34 KB: 180 KB of 227.
+// head_dim 80 (h2o-danube-1.8b) runs the D = 128 instance, as the forward
+// does: TMA maps of d-extent 80 zero-fill columns 80-127 of every tile in
+// shared memory, S^T and dP^T issue only the 5 k-steps that hold data, dV,
+// dK and dQ run at n = 128 and 80 columns are written; nothing is padded
+// in device memory.
+// The wgmma, TMA and mbarrier helpers below are copies of those in
+// csrc/flash_attention.cu (kept apart so that the forward's build and
+// register record do not depend on this file).
 //
 // float32: the CUDA cores, so that f32 keeps f32 products (the tensor
-// cores would round to TF32). 256 threads; the tiles sit in shared memory
-// with odd row strides, each thread scores 8 (key, query) pairs and then
-// owns one row's D/4 columns of the accumulators.
+// cores would round to TF32). dsum as above over unpadded rows, then two
+// kernels, 256 threads: dk/dv one block per (64-key tile, KV head, b),
+// looping over the group's query heads and the query tiles that see the
+// key tile, and dq one block per (64-query tile, head, b) looping over the
+// live key tiles; the tiles sit in shared memory with odd row strides,
+// each thread scores 8 (key, query) pairs and then owns one row's D/4
+// columns of the accumulators. Deterministic.
 //
 // Rows past S are zero-filled on load and never written. NEG_INF stays
 // finite in the forward; here every dead pair is a select to exactly 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,17 +111,15 @@ using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DSUM_ROWS = 8;      // rows per dsum block: one warp each
-constexpr int KB = 64;            // keys per dk/dv block (4 warps x 16)
-constexpr int QB = 32;            // queries per step of the dk/dv loop
-constexpr int QD = 64;            // queries per dq block (4 warps x 16)
-constexpr int KD = 64;            // keys per step of the dq loop
-constexpr int THREADS = 128;
+constexpr int BKEYS = 128;        // keys per block of the wgmma kernel (two consumers x 64)
+constexpr int BQ = 64;            // queries per step
+constexpr int STAGES = 2;         // Q / dO ring depth
+constexpr int WG_THREADS = 384;   // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;   // 128 x 24 + 256 x 240 <= 64K
+constexpr int CONVERT_THREADS = 256;
 constexpr int F_THREADS = 256;    // float32 kernels
 constexpr int F_KB = 64, F_QB = 32;   // f32 dk/dv: keys per block, queries per step
 constexpr int F_QD = 64, F_KD = 32;   // f32 dq: queries per block, keys per step
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ bool live(int qpos, int kpos, int S, int window) {
   return qpos < S && kpos <= qpos && (window < 0 || kpos > qpos - window);
@@ -97,45 +136,129 @@ __device__ __forceinline__ int2 key_span(int q0, int n, int S, int window) {
   return make_int2(lo, min(S, q0 + n));
 }
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
+// step i of a wgmma block's walk -> (query head, first query of its tile).
+// Without a binding window every key tile's query span ends at S, and the
+// query tiles are walked from S down with the heads inner: the blocks of one
+// (b, KV head) then add into the same dQ tile at the same step. With a
+// binding window the spans have one length, and each head's tiles are walked
+// upward from the key tile: neighbouring key tiles then reach a dQ tile two
+// steps apart. (Each order measured the faster in its case, PERF.md.)
+__device__ __forceinline__ int2 walk(int i, bool down, int h0, int n_h, int qt0, int n_qt) {
+  return down ? make_int2(h0 + i % n_h, (qt0 + n_qt - 1 - i / n_h) * BQ)
+              : make_int2(h0 + i / n_qt, (qt0 + i % n_qt) * BQ);
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// ---------------------------------------------------------------------------
+// Hopper helpers, copied from csrc/flash_attention.cu (mbarriers, TMA,
+// wgmma descriptors and wrappers), plus the bulk copies, the bulk
+// reduce-add, the proxy fence and the named barrier this kernel adds
+// ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// spin until the phase of parity `parity` has completed (try_wait alone in
+// the loop: anything more made ptxas hold every warpgroup to its entry budget)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+// one TMA box of a 4-D map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                          int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, 16-byte aligned) into shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// global f32 [dst, + bytes) += shared f32 [src, + bytes), in L2
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the issued bulk reduces have read their shared memory (it may be rewritten)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes become visible to the async proxy (wgmma, bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a barrier of the two consumer warpgroups (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(2 * 128) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFFu) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accesses of accumulator registers across a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// keep a register A operand alive (unmoved) until here, after the wait for its wgmma
+template <int N>
+__device__ __forceinline__ void reg_keep(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two floats -> bf16x2, the first in the low half (the lower k index)
@@ -144,379 +267,421 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The accumulators of two neighbouring m16n8 tiles (n-tiles 2j, 2j + 1) as
-// the A fragment of one m16k16 step: the m16n8k16 identity that lets a
-// product's result feed the next product from registers.
-__device__ __forceinline__ void to_a(const float* c0, const float* c1, uint32_t* a) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+#define WGMMA_D32                                                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),   \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),   \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WGMMA_D64                                                                                  \
+  WGMMA_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),         \
+      "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),   \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),   \
+      "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define REGS32                                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                         \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define REGS64                                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                         \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"               \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"               \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (m64n64 f32) {+}= A (64x16 bf16, shared, K-major) * B (64x16 bf16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// ldmatrix row addresses (lane -> row, column offset) for the fragments of
-// m16n8k16: "qa" gives matrices (rows 0-7, +0), (rows 8-15, +0), (rows 0-7,
-// +8), (rows 8-15, +8): an A operand stored row-major, or, with .trans, a
-// B operand stored k-major as two n-tiles. "kb" gives (rows 0-7, +0),
-// (rows 0-7, +8), (rows 8-15, +0), (rows 8-15, +8): a B operand stored
-// n-major as two n-tiles. g4 / t2: the accumulator's row and column pair.
-struct Lanes {
-  int qa_row, qa_col, kb_row, kb_col, g4, t2;
-  __device__ explicit Lanes(int lane)
-      : qa_row((lane & 7) + ((lane >> 3) & 1) * 8), qa_col((lane >> 4) * 8),
-        kb_row((lane & 7) + (lane >> 4) * 8), kb_col(((lane >> 3) & 1) * 8),
-        g4(lane >> 2), t2((lane & 3) * 2) {}
-};
+// d (m64n64 f32) {+}= A (64x16 bf16, shared, MN-major) * B (16x64 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_tt_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32 ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64 f32) {+}= A (64x16 bf16, registers) * B (16x64 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (m64n128 f32) {+}= A (64x16 bf16, registers) * B (16x128 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WGMMA_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
+  else wgmma_rs_n128(d, a, db, 1);
+}
 
 // ---------------------------------------------------------------------------
-// 1. dsum = rowsum(dO o O), (B,H,S) f32
+// 1. dsum = rowsum(dO o O) (and, for the bf16 path, lse in log2 units and
+//    the accumulators zeroed), one warp a (b, h, s) row, s < S_pad
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(32 * DSUM_ROWS)
-flash_bwd_dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ dsum,
-                      int S, int H, int D, long long rows) {
-  const long long row = (long long)blockIdx.x * DSUM_ROWS + (threadIdx.x >> 5);   // (b, s, h)
+flash_bwd_dsum_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ dsum,
+                      float* __restrict__ lse2, float* __restrict__ dq_acc,
+                      float* __restrict__ dk_acc, float* __restrict__ dv_acc, int S, int S_pad,
+                      int H, int D, int DP, long long rows, long long kv_rows) {
+  const long long row = (long long)blockIdx.x * DSUM_ROWS + (threadIdx.x >> 5);   // (b, h, s)
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const T* op = o + row * D;
-  const T* dp = dout + row * D;
+  const int s = int(row % S_pad);
+  const long long bh = row / S_pad;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(op[c]), to_f32(dp[c]), acc);
+  if (s < S) {
+    const long long src = ((bh / H * S + s) * H + bh % H) * D;     // row (b, s, h) of o and dO
+    for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(o[src + c]), to_f32(dout[src + c]), acc);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
-    const int h = int(row % H);
-    const long long bs = row / H;
-    dsum[(bs / S * H + h) * S + bs % S] = acc;
+    dsum[row] = acc;
+    if (lse2 != nullptr) lse2[row] = s < S ? lse[bh * S + s] * LOG2E : __int_as_float(0x7f800000);
   }
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (dq_acc != nullptr)
+    for (int c = 4 * lane; c < DP; c += 128) *reinterpret_cast<float4*>(dq_acc + row * DP + c) = zero;
+  if (dk_acc != nullptr && row < kv_rows)
+    for (int c = 4 * lane; c < D; c += 128) {
+      *reinterpret_cast<float4*>(dk_acc + row * D + c) = zero;
+      *reinterpret_cast<float4*>(dv_acc + row * D + c) = zero;
+    }
 }
 
 // ---------------------------------------------------------------------------
-// 2. bfloat16 dk/dv
+// 2. bfloat16: the fused wgmma kernel
 // ---------------------------------------------------------------------------
-template <int D>
-struct DkvSmem {                 // byte offsets
-  static constexpr int RS = D + 8;                                    // padded row (elements)
-  static constexpr size_t k = 0;                                      // [KB][RS] bf16
-  static constexpr size_t v = k + size_t(KB) * RS * 2;                // [KB][RS]
-  static constexpr size_t q = v + size_t(KB) * RS * 2;                // [2][QB][RS]
-  static constexpr size_t dout = q + size_t(2) * QB * RS * 2;         // [2][QB][RS]
-  static constexpr size_t lse = dout + size_t(2) * QB * RS * 2;       // [2][QB] f32, log2 units
-  static constexpr size_t dsum = lse + size_t(2) * QB * 4;            // [2][QB] f32
-  static constexpr size_t bytes = dsum + size_t(2) * QB * 4;
+// D: the tile width in shared memory (whole 64-column slabs); DO <= D: the
+// head_dim, the columns that hold data (the TMA zero-fills the rest)
+template <int D, int DO>
+struct BwdSmem {                 // byte offsets from a 1024-aligned base
+  static constexpr int NSLAB = D / 64;
+  static constexpr int DP = DO + 8;                                     // f32 row of the dQ tile
+  static constexpr size_t kv_tile = size_t(NSLAB) * BKEYS * 128;        // [NSLAB][128 keys][64]
+  static constexpr size_t q_tile = size_t(NSLAB) * BQ * 128;            // [NSLAB][64 queries][64]
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + kv_tile;
+  static constexpr size_t q = v + kv_tile;                              // [STAGES] Q tiles
+  static constexpr size_t dout = q + STAGES * q_tile;                   // [STAGES] dO tiles
+  static constexpr size_t ds = dout + STAGES * q_tile;                  // dS^T [128 keys][64] bf16
+  static constexpr size_t dq = ds + size_t(BKEYS) * 128;                // [64][DP] f32
+  static constexpr size_t lse = dq + size_t(BQ) * DP * 4;               // [STAGES][64] f32, log2
+  static constexpr size_t dsum = lse + size_t(STAGES) * BQ * 4;         // [STAGES][64] f32
+  static constexpr size_t bar = dsum + size_t(STAGES) * BQ * 4;         // mbarriers
+  static constexpr size_t bytes = bar + 8 * (2 * STAGES + 1) + 1024;    // + alignment slack
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ dsum,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int KV,
-                      int window, float scale, float scale2, int B) {
-  using L = DkvSmem<D>;
-  constexpr int RS = L::RS, C8 = D / 8, NT = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Os = reinterpret_cast<bf16*>(smem + L::dout);
-  float* Ls = reinterpret_cast<float*>(smem + L::lse);
-  float* Ds = reinterpret_cast<float*>(smem + L::dsum);
+template <int D, int DO>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse2, const float* __restrict__ dsum,
+                       float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       float* __restrict__ dk_acc, float* __restrict__ dv_acc, int S, int S_pad,
+                       int H, int KV, int window, float scale, float scale2, int B, int n_split) {
+  using L = BwdSmem<D, DO>;
+  constexpr int NSLAB = L::NSLAB, DP = L::DP;
+  extern __shared__ unsigned char smem_bwd[];
+  const uint32_t raw = smem_u32(smem_bwd);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_bwd + (base - raw);       // the same base as a generic pointer
+  const uint32_t sK = base + L::k, sV = base + L::v, sQ = base + L::q, sO = base + L::dout;
+  const uint32_t sDS = base + L::ds, sDQ = base + L::dq, sL = base + L::lse, sD = base + L::dsum;
+  const uint32_t sBar = base + L::bar;
+  // mbarriers: full [STAGES], empty [STAGES], K/V full
+  auto full = [&](int s) { return sBar + 8u * s; };
+  auto empty = [&](int s) { return sBar + 8u * (STAGES + s); };
+  const uint32_t kv_full = sBar + 8u * (2 * STAGES);
 
   int x = blockIdx.x;
   const int kvh = x % KV;
   x /= KV;
   const int b = x % B;
-  const int k0 = (x / B) * KB;          // key tile 0 sees the most queries: it runs first
+  x /= B;
+  const int sp = x % n_split;
+  const int k0 = (x / n_split) * BKEYS;            // key tile 0 sees the most queries: it runs first
   const int G = H / KV;
-  const int2 qs = query_span(k0, KB, S, window);
-  const int qt0 = qs.x / QB, n_qt = (qs.y + QB - 1) / QB - qt0;
-  const int n_it = G * n_qt;            // (query head, query tile) steps
+  const int h0 = kvh * G + sp * G / n_split;       // this split's query heads [h0, h0 + n_h)
+  const int n_h = kvh * G + (sp + 1) * G / n_split - h0;
+  const int2 qs = query_span(k0, BKEYS, S, window);
+  const int qt0 = qs.x / BQ, n_qt = (qs.y + BQ - 1) / BQ - qt0;
+  const int n_steps = n_h * n_qt;                  // (query head, query tile) steps
+  const bool down = window < 0 || window >= S;     // no binding window (see walk)
 
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const size_t krow = size_t(KV) * D, qrow = size_t(H) * D;
-  const bf16* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const bf16* vb = v + (size_t(b) * S * KV + kvh) * D;
-  for (int i = tid; i < KB * C8; i += THREADS) {
-    const int r = i / C8, c = (i % C8) * 8, t = k0 + r;
-    const bool in = t < S;
-    const size_t off = size_t(in ? t : 0) * krow + c;
-    cp_async16(smem_u32(Ks + r * RS + c), kb + off, in);
-    cp_async16(smem_u32(Vs + r * RS + c), vb + off, in);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);                      // lane 0 of each consumer warp
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  auto load_q = [&](int it, int buf) {
-    const int h = kvh * G + it / n_qt, q0 = (qt0 + it % n_qt) * QB;
-    const bf16* qb = q + (size_t(b) * S * H + h) * D;
-    const bf16* ob = dout + (size_t(b) * S * H + h) * D;
-    for (int i = tid; i < QB * C8; i += THREADS) {
-      const int r = i / C8, c = (i % C8) * 8, s = q0 + r;
-      const bool in = s < S;
-      const size_t off = size_t(in ? s : 0) * qrow + c;
-      cp_async16(smem_u32(Qs + (buf * QB + r) * RS + c), qb + off, in);
-      cp_async16(smem_u32(Os + (buf * QB + r) * RS + c), ob + off, in);
-    }
-    if (tid < QB) {
-      const int s = q0 + tid;
-      const size_t li = (size_t(b) * H + h) * S + s;
-      Ls[buf * QB + tid] = s < S ? lse[li] * LOG2E : 0.f;
-      Ds[buf * QB + tid] = s < S ? dsum[li] : 0.f;
-    }
-  };
-  cp_commit();
-  if (n_it > 0) load_q(0, 0);
-  cp_commit();
+  __syncthreads();
 
-  const Lanes ln(lane);
-  const int kw = 16 * w;                // this warp's 16 keys within the tile
-  // ldmatrix addresses: this lane's row and column within a 16 x 16 block, in bytes
-  const uint32_t qa_off = (ln.qa_row * RS + ln.qa_col) * 2, kb_off = (ln.kb_row * RS + ln.kb_col) * 2;
-  const uint32_t k_a = smem_u32(Ks + kw * RS) + qa_off, v_a = smem_u32(Vs + kw * RS) + qa_off;
-  float dka[NT][4], dva[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) load_q(it + 1, buf ^ 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const int q0 = (qt0 + it % n_qt) * QB;
-    const bf16* Qb = Qs + buf * QB * RS;
-    const bf16* Ob = Os + buf * QB * RS;
-
-    // 16 queries at a time (so S^T and dP^T take 16 registers, not 32):
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 16 queries a warp
-#pragma unroll 1
-    for (int hq = 0; hq < QB / 16; ++hq) {
-      const uint32_t qb_addr = smem_u32(Qb + (hq * 16) * RS);
-      const uint32_t ob_addr = smem_u32(Ob + (hq * 16) * RS);
-      float st[2][4], dpt[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4], bq[4], bo[4];
-        ldsm_x4(k_a + kk * 32, ak);
-        ldsm_x4(v_a + kk * 32, av);
-        ldsm_x4(qb_addr + kb_off + kk * 32, bq);
-        ldsm_x4(ob_addr + kb_off + kk * 32, bo);
-        mma16816(st[0], ak, bq[0], bq[1]);
-        mma16816(st[1], ak, bq[2], bq[3]);
-        mma16816(dpt[0], av, bo[0], bo[1]);
-        mma16816(dpt[1], av, bo[2], bo[3]);
+  // the role is warp-uniform by construction (a shuffle from lane 0), so ptxas
+  // gives each branch the register budget of its setmaxnreg
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 0) {
+    // ---- producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * BKEYS * D * 2);
+      for (int sl = 0; sl < NSLAB; ++sl) {
+        tma_load4(sK + sl * BKEYS * 128, &tm_k, kv_full, sl * 64, kvh, k0, b);
+        tma_load4(sV + sl * BKEYS * 128, &tm_v, kv_full, sl * 64, kvh, k0, b);
       }
-
-      // P^T = exp2(S^T scale2 - lse2), dS^T = P^T o (dP^T - D); dead pairs exactly 0
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + kw + ln.g4 + 8 * (e >> 1);
-          const int ql = hq * 16 + n * 8 + ln.t2 + (e & 1);
-          const bool ok = live(q0 + ql, key, S, window);
-          const float p = ok ? fast_exp2(st[n][e] * scale2 - Ls[buf * QB + ql]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = ok ? p * (dpt[n][e] - Ds[buf * QB + ql]) : 0.f;
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % STAGES;
+        const int2 hq = walk(i, down, h0, n_h, qt0, n_qt);
+        const int h = hq.x, q0 = hq.y;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * BQ * D * 2 + 2 * BQ * 4);
+        for (int sl = 0; sl < NSLAB; ++sl) {
+          tma_load4(sQ + s * L::q_tile + sl * BQ * 128, &tm_q, full(s), sl * 64, h, q0, b);
+          tma_load4(sO + s * L::q_tile + sl * BQ * 128, &tm_do, full(s), sl * 64, h, q0, b);
         }
-
-      // dV += P^T dO, dK += dS^T Q (dO and Q as k-major B operands)
-      uint32_t pa[4], da[4];
-      to_a(st[0], st[1], pa);
-      to_a(dpt[0], dpt[1], da);
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(ob_addr + qa_off + nd * 32, bo);
-        ldsm_x4_t(qb_addr + qa_off + nd * 32, bq);
-        mma16816(dva[2 * nd], pa, bo[0], bo[1]);
-        mma16816(dva[2 * nd + 1], pa, bo[2], bo[3]);
-        mma16816(dka[2 * nd], da, bq[0], bq[1]);
-        mma16816(dka[2 * nd + 1], da, bq[2], bq[3]);
+        const size_t row = (size_t(b) * H + h) * S_pad + q0;
+        bulk_load(sL + s * BQ * 4, lse2 + row, BQ * 4, full(s));
+        bulk_load(sD + s * BQ * 4, dsum + row, BQ * 4, full(s));
       }
     }
-    __syncthreads();                    // this stage is read out before it is refilled
+    return;
   }
-  cp_wait<0>();
 
+  // ---- consumers: warpgroup cw owns keys k0 + 64 cw .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int cw = wg - 1;
+  const int ctid = tid - 128;                      // 0 .. 255 over both consumers
+  const int lane = tid & 31, wl = (tid >> 5) & 3;
+  const int rl = 16 * wl + (lane >> 2);            // this thread's fragment rows: rl, rl + 8
+  const int c2 = (lane & 3) * 2;                   // and column pairs 8 j + c2
+  const int kw0 = k0 + 64 * cw;
+  const uint32_t sKw = sK + cw * 64 * 128, sVw = sV + cw * 64 * 128;
+  float* dq_tile = reinterpret_cast<float*>(gbase + L::dq);
+  const float* lse_s = reinterpret_cast<const float*>(gbase + L::lse);
+  const float* dsum_s = reinterpret_cast<const float*>(gbase + L::dsum);
+
+  for (int i = ctid; i < BQ * DP; i += 256) dq_tile[i] = 0.f;    // the pad columns stay 0
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int2 hq = walk(i, down, h0, n_h, qt0, n_qt);
+    const int h = hq.x, q0 = hq.y;
+    const uint32_t sQs = sQ + st * L::q_tile, sOs = sO + st * L::q_tile;
+    const float* lse_t = lse_s + st * BQ;
+    const float* dsum_t = dsum_s + st * BQ;
+    mbar_wait(full(st), ph);
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), two commit groups
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < NSLAB; ++sl)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (sl * 64 + kk * 16 < DO)          // k-steps past the head_dim hold only zeros
+          wgmma_ss_n64(s, gmma_desc(sKw + sl * BKEYS * 128 + kk * 32, 16, 1024),
+                       gmma_desc(sQs + sl * BQ * 128 + kk * 32, 16, 1024), sl | kk);
+    wgmma_commit();
+#pragma unroll
+    for (int sl = 0; sl < NSLAB; ++sl)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (sl * 64 + kk * 16 < DO)
+          wgmma_ss_n64(dp, gmma_desc(sVw + sl * BKEYS * 128 + kk * 32, 16, 1024),
+                       gmma_desc(sOs + sl * BQ * 128 + kk * 32, 16, 1024), sl | kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence<32>(s);
+
+    // P^T on the fragment: s[e] is key kw0 + rl + 8 ((e >> 1) & 1), query
+    // q0 + 8 (e >> 2) + c2 + (e & 1); masked only where the tile crosses the
+    // diagonal, the window edge or S
+    const bool full_tile = q0 + BQ <= S && kw0 + 63 <= q0 &&
+                           (window < 0 || kw0 > q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j + c2);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        float p = fast_exp2(s[e] * scale2 - ((e & 1) ? l2.y : l2.x));
+        if (!full_tile && !live(q0 + 8 * j + c2 + (e & 1), kw0 + rl + 8 * ((e >> 1) & 1), S, window))
+          p = 0.f;
+        s[e] = p;
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence<32>(dp);
+    // dS^T = P^T o (dP^T - D); P^T and dS^T as the A fragments of 16-query k-steps
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dsum_t + 8 * j + c2);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        dp[e] = s[e] * (dp[e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q (dO and Q as MN-major B operands)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dva, pa[kk], gmma_desc(sOs + kk * 16 * 128, BQ * 128, 1024));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dka, da[kk], gmma_desc(sQs + kk * 16 * 128, BQ * 128, 1024));
+    wgmma_commit();
+
+    // dS^T to shared memory, [key][query] bf16 under the 128-byte swizzle:
+    // da[kk][r] holds queries 16 kk + 8 (r >> 1) + c2 (+1) of key row rl + 8 (r & 1)
+    unsigned char* ds_smem = gbase + L::ds;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = 64 * cw + rl + 8 * (r & 1), qq = 16 * kk + 8 * (r >> 1) + c2;
+        *reinterpret_cast<uint32_t*>(ds_smem + key * 128 + ((((qq >> 3) ^ (key & 7)) << 4) | ((qq & 7) * 2))) =
+            da[kk][r];
+      }
+    fence_proxy_async();
+    if (ctid == 0) bulk_wait_read();               // the previous step's dQ tile has been read
+    consumer_sync(1);                              // every dS^T row is in shared memory
+
+    // dQ_partial = dS K: 64 queries x one 64-column slab over the 128 keys
+    if (NSLAB == 2 || (i & 1) == cw) {
+      const int slab = NSLAB == 2 ? cw : 0;
+      float dqa[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dqa[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKEYS / 16; ++kk)
+        wgmma_ss_tt_n64(dqa, gmma_desc(sDS + kk * 16 * 128, BKEYS * 128, 1024),
+                        gmma_desc(sK + slab * BKEYS * 128 + kk * 16 * 128, BKEYS * 128, 1024), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence<32>(dqa);
+      // dqa[e] is query rl + 8 ((e >> 1) & 1), column 64 slab + 8 (e >> 2) + c2 + (e & 1)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int col = 64 * slab + 8 * (e >> 2) + c2;
+        if (col < DO)
+          *reinterpret_cast<float2*>(dq_tile + (rl + 8 * ((e >> 1) & 1)) * DP + col) =
+              make_float2(dqa[e], dqa[e + 1]);
+      }
+      fence_proxy_async();
+    } else {
+      wgmma_wait<0>();
+    }
+    reg_fence<D / 2>(dva);
+    reg_fence<D / 2>(dka);
+    reg_keep<16>(&pa[0][0]);
+    reg_keep<16>(&da[0][0]);
+    consumer_sync(2);                              // the dQ tile is whole; dS^T has been read
+    if (ctid == 0)
+      bulk_reduce_add(dq_acc + ((size_t(b) * H + h) * S_pad + q0) * DP, sDQ, BQ * DP * 4);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));         // Q, dO, lse and D of this stage are read
+  }
+  if (ctid == 0) bulk_wait_all();
+
+  // dK and dV leave the registers once: dka[e] is key kw0 + rl + 8 ((e >> 1) & 1),
+  // column 8 (e >> 2) + c2 + (e & 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + kw + ln.g4 + 8 * r;
+    const int key = kw0 + rl + 8 * r;
     if (key >= S) continue;
-    const size_t off = ((size_t(b) * S + key) * KV + kvh) * D + ln.t2;
+    const size_t off = ((size_t(b) * S + key) * KV + kvh) * DO + c2;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
-          __floats2bfloat162_rn(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+    for (int n = 0; n < DO / 8; ++n) {
+      const int e = 4 * n + 2 * r;
+      if (n_split == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
+            __floats2bfloat162_rn(dka[e] * scale, dka[e + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) = __floats2bfloat162_rn(dva[e], dva[e + 1]);
+      } else {
+        atomicAdd(dk_acc + off + 8 * n, dka[e]);
+        atomicAdd(dk_acc + off + 8 * n + 1, dka[e + 1]);
+        atomicAdd(dv_acc + off + 8 * n, dva[e]);
+        atomicAdd(dv_acc + off + 8 * n + 1, dva[e + 1]);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 3. bfloat16 dq
+// 3. the f32 accumulators to bf16: dq (B,H,S_pad,DP) x scale -> (B,S,H,DO);
+//    when split, dk (x scale) and dv (B,S,KV,DO). Four columns a thread.
 // ---------------------------------------------------------------------------
-template <int D>
-struct DqSmem {                  // byte offsets
-  static constexpr int RS = D + 8;
-  static constexpr size_t q = 0;                                      // [QD][RS] bf16
-  static constexpr size_t dout = q + size_t(QD) * RS * 2;             // [QD][RS]
-  static constexpr size_t k = dout + size_t(QD) * RS * 2;             // [2][KD][RS]
-  static constexpr size_t v = k + size_t(2) * KD * RS * 2;            // [2][KD][RS]
-  static constexpr size_t bytes = v + size_t(2) * KD * RS * 2;
-};
+__device__ __forceinline__ void store4_bf16(bf16* dst, float4 a, float m) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x * m, a.y * m);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a.z * m, a.w * m);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dsum,
-                    bf16* __restrict__ dq, int S, int H, int KV, int window, float scale,
-                    float scale2, int n_qt, int B) {
-  using L = DqSmem<D>;
-  constexpr int RS = L::RS, C8 = D / 8, NT = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Os = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-
-  int x = blockIdx.x;
-  const int h = x % H;
-  x /= H;
-  const int b = x % B;
-  const int q0 = (n_qt - 1 - x / B) * QD;   // the last query tiles see the most keys: first
-  const int kvh = h / (H / KV);
-  const int2 ks = key_span(q0, QD, S, window);
-  const int kt0 = ks.x / KD, n_kt = (ks.y + KD - 1) / KD - kt0;
-
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const size_t krow = size_t(KV) * D, qrow = size_t(H) * D;
-  const bf16* qb = q + (size_t(b) * S * H + h) * D;
-  const bf16* ob = dout + (size_t(b) * S * H + h) * D;
-  for (int i = tid; i < QD * C8; i += THREADS) {
-    const int r = i / C8, c = (i % C8) * 8, s = q0 + r;
-    const bool in = s < S;
-    const size_t off = size_t(in ? s : 0) * qrow + c;
-    cp_async16(smem_u32(Qs + r * RS + c), qb + off, in);
-    cp_async16(smem_u32(Os + r * RS + c), ob + off, in);
-  }
-  const bf16* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const bf16* vb = v + (size_t(b) * S * KV + kvh) * D;
-  auto load_kv = [&](int kt, int buf) {
-    const int t0 = kt * KD;
-    for (int i = tid; i < KD * C8; i += THREADS) {
-      const int r = i / C8, c = (i % C8) * 8, t = t0 + r;
-      const bool in = t < S;
-      const size_t off = size_t(in ? t : 0) * krow + c;
-      cp_async16(smem_u32(Ks + (buf * KD + r) * RS + c), kb + off, in);
-      cp_async16(smem_u32(Vs + (buf * KD + r) * RS + c), vb + off, in);
+__global__ void __launch_bounds__(CONVERT_THREADS)
+flash_bwd_convert_kernel(const float* __restrict__ dq_acc, const float* __restrict__ dk_acc,
+                         const float* __restrict__ dv_acc, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int S, int S_pad, int H, int DO, int DP, float scale,
+                         long long n_dq, long long n_kv) {
+  const int C4 = DO / 4;
+  for (long long i = (long long)blockIdx.x * CONVERT_THREADS + threadIdx.x; i < n_dq + n_kv;
+       i += (long long)gridDim.x * CONVERT_THREADS) {
+    if (i < n_dq) {
+      const long long r = i / C4;                  // row (b, s, h) of dq
+      const int c = int(i % C4) * 4;
+      const int h = int(r % H), s = int(r / H % S);
+      const long long b = r / H / S;
+      const float4 a = *reinterpret_cast<const float4*>(dq_acc + ((b * H + h) * S_pad + s) * DP + c);
+      store4_bf16(dq + r * DO + c, a, scale);
+    } else {
+      const long long j = (i - n_dq) * 4;          // element of the (B,S,KV,DO) dk / dv
+      store4_bf16(dk + j, *reinterpret_cast<const float4*>(dk_acc + j), scale);
+      store4_bf16(dv + j, *reinterpret_cast<const float4*>(dv_acc + j), 1.f);
     }
-  };
-  cp_commit();
-  if (n_kt > 0) load_kv(kt0, 0);
-  cp_commit();
-
-  const Lanes ln(lane);
-  const int qw = 16 * w;                // this warp's 16 queries within the tile
-  const uint32_t qa_off = (ln.qa_row * RS + ln.qa_col) * 2, kb_off = (ln.kb_row * RS + ln.kb_col) * 2;
-  const uint32_t q_a = smem_u32(Qs + qw * RS) + qa_off, o_a = smem_u32(Os + qw * RS) + qa_off;
-  int rows[2];
-  float lse2[2], dsr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    rows[r] = q0 + qw + ln.g4 + 8 * r;
-    const size_t li = (size_t(b) * H + h) * S + rows[r];
-    lse2[r] = rows[r] < S ? lse[li] * LOG2E : 0.f;
-    dsr[r] = rows[r] < S ? dsum[li] : 0.f;
-  }
-  float dqa[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-
-  for (int i = 0; i < n_kt; ++i) {
-    const int buf = i & 1, t0 = (kt0 + i) * KD;
-    if (i + 1 < n_kt) load_kv(kt0 + i + 1, buf ^ 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* Kb = Ks + buf * KD * RS;
-    const bf16* Vb = Vs + buf * KD * RS;
-
-    // 32 keys at a time (so S and dP take 16 registers each):
-    // S = Q K^T and dP = dO V^T, 16 queries x 32 keys a warp
-#pragma unroll 1
-    for (int kc = 0; kc < KD / 32; ++kc) {
-      const uint32_t kb_addr = smem_u32(Kb + (kc * 32) * RS);
-      const uint32_t vb_addr = smem_u32(Vb + (kc * 32) * RS);
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      // by two, or whole where the step count is odd (D = 80): by two with a
-      // remainder step, ptxas held dq<80> to 128 registers and spilled 4 bytes
-#pragma unroll(D / 16 % 2 ? D / 16 : 2)
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t aq[4], ao[4];
-        ldsm_x4(q_a + kk * 32, aq);
-        ldsm_x4(o_a + kk * 32, ao);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bk[4], bv[4];
-          ldsm_x4(kb_addr + np * 16 * RS * 2 + kb_off + kk * 32, bk);
-          ldsm_x4(vb_addr + np * 16 * RS * 2 + kb_off + kk * 32, bv);
-          mma16816(s[2 * np], aq, bk[0], bk[1]);
-          mma16816(s[2 * np + 1], aq, bk[2], bk[3]);
-          mma16816(dp[2 * np], ao, bv[0], bv[1]);
-          mma16816(dp[2 * np + 1], ao, bv[2], bv[3]);
-        }
-      }
-
-      // dS = P o (dP - D), P = exp2(S scale2 - lse2); dead pairs exactly 0
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, key = t0 + kc * 32 + n * 8 + ln.t2 + (e & 1);
-          const bool ok = live(rows[r], key, S, window);
-          const float p = ok ? fast_exp2(s[n][e] * scale2 - lse2[r]) : 0.f;
-          s[n][e] = ok ? p * (dp[n][e] - dsr[r]) : 0.f;
-        }
-
-      // dQ += dS K (K as the k-major B operand)
-#pragma unroll
-      for (int kq = 0; kq < 2; ++kq) {
-        uint32_t da[4];
-        to_a(s[2 * kq], s[2 * kq + 1], da);
-#pragma unroll
-        for (int nd = 0; nd < D / 16; ++nd) {
-          uint32_t bk[4];
-          ldsm_x4_t(kb_addr + kq * 16 * RS * 2 + qa_off + nd * 32, bk);
-          mma16816(dqa[2 * nd], da, bk[0], bk[1]);
-          mma16816(dqa[2 * nd + 1], da, bk[2], bk[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= S) continue;
-    bf16* out = dq + ((size_t(b) * S + rows[r]) * H + h) * D + ln.t2;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-          __floats2bfloat162_rn(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
   }
 }
 
@@ -744,58 +909,126 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime
+// (copied from csrc/flash_attention.cu)
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (d, heads, rows, batch) bf16 tensor, contiguous; box (64, 1, box_rows, 1), 128-byte swizzle;
+// a box's columns past d (d = 80) and rows past `rows` are zero-filled (copied from
+// csrc/flash_attention.cu)
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int heads, int rows,
+              int batch, int box_rows) {
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads), cuuint64_t(rows), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * 2, cuuint64_t(heads) * d * 2,
+                                 cuuint64_t(rows) * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int pad_rows(int S) { return (S + BQ - 1) / BQ * BQ; }
+
+// the bf16 path's f32 scratch, in floats: lse (log2 units) and D, (B,H,S_pad)
+// each; the dQ accumulator (B,H,S_pad,DO + 8); with a split group the dK and
+// dV accumulators (B,S,KV,DO) each. float32: D (B,H,S).
+long long scratch_floats(int B, int S, int H, int KV, int D, int dtype, int n_split) {
+  if (dtype == 0) return (long long)B * H * S;
+  const long long rows = (long long)B * H * pad_rows(S);
+  return rows * (2 + D + 8) + (n_split > 1 ? 2LL * B * S * KV * D : 0);
+}
+
 template <typename T>
-cudaError_t launch_dsum(const void* o, const void* dout, float* dsum, int B, int S, int H, int D,
-                        cudaStream_t st) {
-  const long long rows = (long long)B * S * H;
+cudaError_t launch_dsum(const void* o, const void* dout, const float* lse, float* dsum, float* lse2,
+                        float* dq_acc, float* dk_acc, float* dv_acc, int B, int S, int S_pad, int H,
+                        int KV, int D, int DP, cudaStream_t st) {
+  const long long rows = (long long)B * H * S_pad;
   const long long blocks = (rows + DSUM_ROWS - 1) / DSUM_ROWS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_bwd_dsum_kernel<T><<<unsigned(blocks), 32 * DSUM_ROWS, 0, st>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dsum, S, H, D, rows);
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, dsum, lse2, dq_acc, dk_acc, dv_acc,
+      S, S_pad, H, D, DP, rows, (long long)B * S * KV);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* dsum, void* dq, void* dk, void* dv, int B,
-                        int S, int H, int KV, int window, float scale, cudaStream_t st) {
-  const float scale2 = scale * LOG2E;
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* op = static_cast<const bf16*>(dout);
-  const long long kv_blocks = (long long)((S + KB - 1) / KB) * KV * B;
-  const int n_qt = (S + QD - 1) / QD;
-  const long long q_blocks = (long long)n_qt * H * B;
-  if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(flash_bwd_dkdv_kernel<D>, DkvSmem<D>::bytes);
+// head_dim DO in tiles of D columns (D = DO, or 128 for DO = 80)
+template <int D, int DO = D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                        const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int S,
+                        int H, int KV, int window, int n_split, float scale, cudaStream_t st) {
+  using L = BwdSmem<D, DO>;
+  static_assert(L::bytes <= 232448, "shared memory of one block");
+  static_assert(DO <= D && DO % 16 == 0, "whole k-steps of 16 columns");
+  const int S_pad = pad_rows(S);
+  const long long rows = (long long)B * H * S_pad;
+  float* lse2 = scratch;
+  float* dsum = lse2 + rows;
+  float* dq_acc = dsum + rows;
+  float* dk_acc = n_split > 1 ? dq_acc + rows * L::DP : nullptr;
+  float* dv_acc = n_split > 1 ? dk_acc + (long long)B * S * KV * DO : nullptr;
+  cudaError_t err = launch_dsum<bf16>(o, dout, lse, dsum, lse2, dq_acc, dk_acc, dv_acc, B, S, S_pad,
+                                      H, KV, DO, L::DP, st);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<D><<<unsigned(kv_blocks), THREADS, DkvSmem<D>::bytes, st>>>(
-      qp, kp, vp, op, lse, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV,
-      window, scale, scale2, B);
+
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(enc, &tq, q, DO, H, S, B, BQ) || !make_map(enc, &tdo, dout, DO, H, S, B, BQ) ||
+      !make_map(enc, &tk, k, DO, KV, S, B, BKEYS) || !make_map(enc, &tv, v, DO, KV, S, B, BKEYS))
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)((S + BKEYS - 1) / BKEYS) * KV * B * n_split;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if ((err = set_smem(flash_bwd_wgmma_kernel<D, DO>, L::bytes)) != cudaSuccess) return err;
+  flash_bwd_wgmma_kernel<D, DO><<<unsigned(blocks), WG_THREADS, L::bytes, st>>>(
+      tq, tk, tv, tdo, lse2, dsum, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dk_acc,
+      dv_acc, S, S_pad, H, KV, window, scale, scale * LOG2E, B, n_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = set_smem(flash_bwd_dq_kernel<D>, DqSmem<D>::bytes)) != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D><<<unsigned(q_blocks), THREADS, DqSmem<D>::bytes, st>>>(
-      qp, kp, vp, op, lse, dsum, static_cast<bf16*>(dq), S, H, KV, window, scale, scale2, n_qt,
-      B);
+
+  const long long n_dq = (long long)B * S * H * (DO / 4);
+  const long long n_kv = n_split > 1 ? (long long)B * S * KV * (DO / 4) : 0;
+  const long long want = (n_dq + n_kv + CONVERT_THREADS - 1) / CONVERT_THREADS;
+  const unsigned grid = unsigned(want < 132 * 16 ? want : 132 * 16);
+  flash_bwd_convert_kernel<<<grid, CONVERT_THREADS, 0, st>>>(
+      dq_acc, dk_acc, dv_acc, static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
+      S_pad, H, DO, L::DP, scale, n_dq, n_kv);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* dsum, void* dq, void* dk, void* dv, int B,
-                       int S, int H, int KV, int window, float scale, cudaStream_t st) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                       const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int S,
+                       int H, int KV, int window, int, float scale, cudaStream_t st) {
   const float scale2 = scale * LOG2E;
   const auto* qp = static_cast<const float*>(q);
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   const auto* op = static_cast<const float*>(dout);
+  float* dsum = scratch;
+  cudaError_t err = launch_dsum<float>(o, dout, lse, dsum, nullptr, nullptr, nullptr, nullptr, B, S,
+                                       S, H, KV, D, 0, st);
+  if (err != cudaSuccess) return err;
   const long long kv_blocks = (long long)((S + F_KB - 1) / F_KB) * KV * B;
   const int n_qt = (S + F_QD - 1) / F_QD;
   const long long q_blocks = (long long)n_qt * H * B;
   if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(flash_bwd_dkdv_f32_kernel<D>, FDkvSmem<D>::bytes);
-  if (err != cudaSuccess) return err;
+  if ((err = set_smem(flash_bwd_dkdv_f32_kernel<D>, FDkvSmem<D>::bytes)) != cudaSuccess) return err;
   flash_bwd_dkdv_f32_kernel<D><<<unsigned(kv_blocks), F_THREADS, FDkvSmem<D>::bytes, st>>>(
       qp, kp, vp, op, lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV,
       window, scale, scale2, B);
@@ -807,37 +1040,30 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// dynamic shared memory of one block: kernel 0 = dk/dv, 1 = dq
-template <int D>
-int bwd_smem(int dtype, int kernel) {
-  if (dtype == 1) return int(kernel == 0 ? DkvSmem<D>::bytes : DqSmem<D>::bytes);
-  return int(kernel == 0 ? FDkvSmem<D>::bytes : FDqSmem<D>::bytes);
-}
-
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; D = 64, 80 or 128. Causal self-attention:
-// q, o, dout, dq (B,S,H,D); k, v, dk, dv (B,S,KV,D); lse and the scratch
-// dsum (B,H,S) float32. window < 0 means no window. All tensors contiguous
+// q, o, dout, dq (B,S,H,D); k, v, dk, dv (B,S,KV,D); lse (B,H,S) float32;
+// scratch float32 of flash_attention_bwd_scratch_floats(...) elements.
+// window < 0 means no window. n_split: the bf16 kernel's split of each KV
+// head's query group (1..H/KV; float32 ignores it). All tensors contiguous
 // and 16-byte aligned. Runs three kernels on `stream`; returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const void* lse, void* dsum, void* dq, void* dk,
+                        const void* dout, const void* lse, void* scratch, void* dq, void* dk,
                         void* dv, int B, int S, int H, int KV, int D, int dtype, int window,
-                        float scale, void* stream) {
+                        int n_split, float scale, void* stream) {
   if (S <= 0 || B <= 0) return int(cudaSuccess);
-  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 80 && D != 128) || (dtype != 0 && dtype != 1))
+  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 80 && D != 128) || (dtype != 0 && dtype != 1) ||
+      n_split < 1 || n_split > H / KV)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
-  float* ds = static_cast<float*>(dsum);
-  cudaError_t err = dtype == 1 ? launch_dsum<bf16>(o, dout, ds, B, S, H, D, st)
-                               : launch_dsum<float>(o, dout, ds, B, S, H, D, st);
-  if (err != cudaSuccess) return int(err);
-#define BWD_ARGS q, k, v, dout, lp, ds, dq, dk, dv, B, S, H, KV, window, scale, st
+  float* sc = static_cast<float*>(scratch);
+#define BWD_ARGS q, k, v, o, dout, lp, sc, dq, dk, dv, B, S, H, KV, window, n_split, scale, st
   if (dtype == 1 && D == 64) return int(launch_bf16<64>(BWD_ARGS));
-  if (dtype == 1 && D == 80) return int(launch_bf16<80>(BWD_ARGS));
+  if (dtype == 1 && D == 80) return int(launch_bf16<128, 80>(BWD_ARGS));
   if (dtype == 1) return int(launch_bf16<128>(BWD_ARGS));
   if (D == 64) return int(launch_f32<64>(BWD_ARGS));
   if (D == 80) return int(launch_f32<80>(BWD_ARGS));
@@ -845,11 +1071,25 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
 #undef BWD_ARGS
 }
 
-// Dynamic shared memory of one block, in bytes: kernel 0 = dk/dv, 1 = dq.
+// Elements of the float32 scratch that flash_attention_bwd needs.
+long long flash_attention_bwd_scratch_floats(int B, int S, int H, int KV, int D, int dtype,
+                                             int n_split) {
+  return scratch_floats(B, S, H, KV, D, dtype, n_split);
+}
+
+// Dynamic shared memory of one block, in bytes: bfloat16 (dtype 1) the
+// wgmma kernel (kernel 0); float32 kernel 0 = dk/dv, 1 = dq.
 int flash_attention_bwd_smem_bytes(int dtype, int D, int kernel) {
-  if (D == 64) return bwd_smem<64>(dtype, kernel);
-  if (D == 80) return bwd_smem<80>(dtype, kernel);
-  if (D == 128) return bwd_smem<128>(dtype, kernel);
+  if (dtype == 1 && kernel == 0) {
+    if (D == 64) return int(BwdSmem<64, 64>::bytes);
+    if (D == 80) return int(BwdSmem<128, 80>::bytes);
+    if (D == 128) return int(BwdSmem<128, 128>::bytes);
+  }
+  if (dtype == 0) {
+    if (D == 64) return int(kernel == 0 ? FDkvSmem<64>::bytes : FDqSmem<64>::bytes);
+    if (D == 80) return int(kernel == 0 ? FDkvSmem<80>::bytes : FDqSmem<80>::bytes);
+    if (D == 128) return int(kernel == 0 ? FDkvSmem<128>::bytes : FDqSmem<128>::bytes);
+  }
   return -1;
 }
 

@@ -12,7 +12,10 @@ and what its design does about that.
 takes ``flash_attention_ref`` for CPU tensors, through which autograd then
 differentiates. On the card, when grad is needed, it goes through
 ``FlashAttentionFn``: the forward also writes each row's log-sum-exp, and
-the backward is ``flash_attention_bwd`` (three kernels a call).
+the backward is ``flash_attention_bwd`` (three kernels a call: dsum, the
+main kernel, and a convert of its f32 accumulators; ``bwd_split_plan``
+splits a KV head's query group across blocks where the key tiles alone
+do not fill the card).
 ``flash_attention_fwd`` returns the forward's two outputs (out, lse), which
 the backward reads; the plain versions are ``flash_attention_ref``,
 ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` (the
@@ -28,11 +31,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .decode_attention import SMS
 
 NEG_INF = -2.0e38
 HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256), torch.float32: (64, 80, 128)}
 BWD_HEAD_DIMS = (64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_KEY_TILE = 128     # keys per block of the bf16 backward kernel
 
 launches = 0
 bwd_launches = 0
@@ -111,6 +116,20 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_split_plan(B: int, S: int, KV: int, G: int) -> int:
+    """How many blocks share one (key tile, KV head, b) of the bf16
+    backward, each taking a contiguous share of the G query heads: 1 where
+    the key tiles x KV x B blocks already fill the H100's ``SMS`` SMs,
+    else the smallest divisor of G that does (G itself if none does).
+    Split ``sp`` of ``n`` takes query heads [sp G // n, (sp + 1) G // n) of
+    the group. Depends on the shapes alone."""
+    blocks = -(-S // BWD_KEY_TILE) * KV * B
+    if blocks >= SMS:
+        return 1
+    want = -(-SMS // blocks)
+    return next((n for n in range(want, G + 1) if G % n == 0), G)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -125,9 +144,11 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
-    lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
+    lib.flash_attention_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -240,7 +261,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of causal self-attention from the forward's inputs, its
     output ``out`` and log-sum-exp ``lse`` (B,H,S) float32, and the output's
     gradient ``dout``; in the types of q, k, v. CUDA tensors launch the
-    backward kernels (one count a call), CPU tensors take the plain version."""
+    backward kernels (one count a call), CPU tensors take the plain version.
+    In bfloat16 dq (and, with a split group, dk and dv) is summed in f32 in
+    an order that changes from run to run: not bit-reproducible."""
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
                                        scale=scale)
@@ -261,13 +284,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("flash_attention_bwd: tensors must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    scale = float(scale) if scale is not None else d ** -0.5
+    dtype = _DTYPES[q.dtype]
+    n_split = bwd_split_plan(B, S, KV, H // KV) if q.dtype == torch.bfloat16 else 1
     lib = _bwd_lib()
+    # f32 scratch: the row sums D, and in bf16 also lse in log2 units and the
+    # f32 accumulators (zeroed by the first kernel)
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, S, H, KV, d, dtype, n_split),
+                          dtype=torch.float32, device=q.device)
+    scale = float(scale) if scale is not None else d ** -0.5
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, S, H, KV, d, _DTYPES[q.dtype], -1 if window is None else int(window), scale,
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, H, KV, d, dtype, -1 if window is None else int(window), n_split, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError("flash_attention_bwd kernels: "

@@ -285,13 +285,19 @@ def test_kernels_refuse_what_they_do_not_take():
 def test_flash_attention_bwd_kernel_matches_plain(dtype):
     """The backward kernels against flash_attention_bwd_ref on the same
     inputs (the forward kernel's output and log-sum-exp): causal and
-    windowed, G = 1, 4, 8 and 48, ragged S, head_dim 64, 80 and 128; the
-    forward's log-sum-exp against the plain one."""
+    windowed, G = 1, 4, 8 and 48, ragged S, head_dim 64, 80 and 128, the
+    query group split across blocks (G = 48 at S = 1024 with and without a
+    window, and one key tile of a ragged S, where every block is one split);
+    the forward's log-sum-exp against the plain one."""
     gen = _card()
     for (B, S, H, KV, d), window in [((2, 256, 4, 4, 64), None), ((1, 300, 8, 2, 128), None),
                                      ((1, 333, 8, 1, 64), 100), ((2, 130, 16, 2, 128), 40),
                                      ((1, 300, 8, 2, 80), 100), ((2, 256, 32, 8, 80), None),
-                                     ((1, 256, 48, 1, 128), None)]:
+                                     ((1, 256, 48, 1, 128), None), ((1, 1024, 48, 1, 128), None),
+                                     ((1, 1024, 48, 1, 128), 300), ((1, 777, 16, 2, 80), 300),
+                                     ((2, 555, 8, 2, 64), 200), ((1, 100, 8, 1, 128), None)]:
+        if (S, H) == (1024, 48) or S == 100:
+            assert kernels.flash_attention.bwd_split_plan(B, S, KV, H // KV) > 1
         q, k, v = (torch.randn((B, S, n, d), generator=gen, device="cuda").to(dtype)
                    for n in (H, KV, KV))
         dout = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)

@@ -163,6 +163,76 @@ def test_flash_attention_autograd_on_cpu_equals_plain_bwd(window):
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+def _split_heads(G: int, n: int, sp: int) -> range:
+    """The query heads (within a group) that split ``sp`` of ``n`` takes."""
+    return range(sp * G // n, (sp + 1) * G // n)
+
+
+@pytest.mark.parametrize("B,S,KV,G", [
+    (2, 4096, 8, 8),      # qwen3-32b training
+    (2, 8192, 8, 4),      # h2o-danube-1.8b training
+    (1, 4096, 1, 48),     # granite-20b's group
+    (1, 100, 1, 8),       # one block
+    (1, 1000, 2, 6),
+    (3, 64, 1, 7),        # G prime
+])
+def test_bwd_split_plan_covers_every_query_head_once(B, S, KV, G):
+    n = kernels.flash_attention.bwd_split_plan(B, S, KV, G)
+    assert 1 <= n <= G
+    seen = np.zeros(G, np.int64)
+    for sp in range(n):
+        seen[list(_split_heads(G, n, sp))] += 1
+    assert (seen == 1).all()
+    for m in range(1, G + 1):          # the kernel's head ranges at any split count
+        assert sorted(g for sp in range(m) for g in _split_heads(G, m, sp)) == list(range(G))
+
+
+def test_bwd_split_plan_at_the_training_and_granite_shapes():
+    """No split where the key tiles alone fill the H100's 132 SMs (qwen3's
+    512 blocks, h2o's 1024); granite-20b's 48-head group at B = 1, S = 4096
+    (32 key tiles) split into a divisor of 48 giving at least 132 blocks."""
+    plan, tile = kernels.flash_attention.bwd_split_plan, kernels.flash_attention.BWD_KEY_TILE
+    assert plan(2, 4096, 8, 8) == 1 and 4096 // tile * 8 * 2 == 512
+    assert plan(2, 8192, 8, 4) == 1 and 8192 // tile * 8 * 2 == 1024
+    n = plan(1, 4096, 1, 48)
+    assert 48 % n == 0 and 4096 // tile * n >= 132
+    assert plan(1, 100, 1, 8) == 8      # one key tile: every head its own block
+
+
+@pytest.mark.parametrize("B,S,H,KV,d,window", [
+    (1, 100, 8, 1, 32, None),      # one block: the plan splits the group 8 ways
+    (1, 130, 12, 2, 16, 40),       # two key tiles, G = 6, window
+])
+def test_flash_attention_bwd_split_sums_match_plain_and_jax_vjp(B, S, H, KV, d, window):
+    """dk and dv summed over the split plan's head ranges (the plain backward
+    on each range's heads alone, added in float32, as the kernel's split
+    accumulators add them) and dq taken per range, against the one-pass
+    plain backward and jax.vjp of the JAX package's reference, at 2e-5."""
+    rng = np.random.default_rng(8)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, (B, S, n, d), "float32") for n in (H, KV, KV, H))
+    G = H // KV
+    n = kernels.flash_attention.bwd_split_plan(B, S, KV, G)
+    assert n > 1
+    out = ref.flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    lse = ref.flash_attention_lse_ref(tq, tk, causal=True, window=window)
+    dq, dk, dv = torch.zeros_like(tq), torch.zeros_like(tk), torch.zeros_like(tv)
+    for sp in range(n):
+        heads = [j * G + g for j in range(KV) for g in _split_heads(G, n, sp)]
+        gq, gk, gv = ref.flash_attention_bwd_ref(tq[:, :, heads], tk, tv, out[:, :, heads],
+                                                 lse[:, heads], tdo[:, :, heads], causal=True,
+                                                 window=window, scale=d ** -0.5)
+        dq[:, :, heads] = gq
+        dk += gk
+        dv += gv
+    plain = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True, window=window)
+    _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, causal=True,
+                                                              window=window), jq, jk, jv)
+    for got, p, j in zip((dq, dk, dv), plain, vjp(jdo)):
+        np.testing.assert_allclose(_np(got), _np(p), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(_np(got), _np(j), atol=2e-5, rtol=2e-5)
+
+
 def test_flash_attention_lse_ref_row_without_live_key_is_inf():
     q = torch.randn(1, 4, 2, 16)
     k = torch.randn(1, 6, 2, 16)
