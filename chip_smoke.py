@@ -58,7 +58,22 @@ phases:
    a profiler window over one step with the flash forward's and
    backward's shares; after qwen3's steps a Checkpointer round trip of the
    trained parameters and AdamW state, restored onto the card bit for
-   bit.
+   bit;
+6. a Dora plan on the card: the port's planner plans granite-8b on
+   smart_home_2 (serve) and h2o-danube-1.8b on traffic_monitor (train),
+   each plan's summary, stage layout and planning time (host CPU)
+   printed, two stages at least; the pipeline executor runs granite-8b
+   at full width and depth forward on its 3 stages (4 microbatches of 1 x
+   4096, bf16) against the same layers microbatch by microbatch in plain
+   order, and h2o-danube-1.8b's loss and gradients on its 4 stages (4
+   microbatches of 2 x 4096, each stage remat'd) against
+   ``LM.loss(remat="full")``, in bf16 (launches, padded slots' zero
+   gradients, the loss, times; the gradients' bound readings printed
+   beside ``LM.loss`` against a rerun of itself) and in float32 (every
+   gradient within 1e-4 of its leaf's max); a small float32 h2o-family
+   model through the same plan, card against CPU; and the serve launcher
+   (``launch/serve.py``, h2o-danube-1.8b at full depth, edge_cluster,
+   ``--dynamics``) with its launches checked exactly.
 
 The h2o paths draw wq and wk at the fan-in of d_model (``fan_in_qk``):
 with the reference init's the random model is chaotic and its gradients
@@ -209,24 +224,29 @@ F32_TOL = 2e-5
 BWD_FLOOR = 2.0 ** -9
 
 
-def check(torch, out, exp, dt: str, floor: float = 0.0):
+def bound_share(torch, out, exp, dt: str, floor: float = 0.0):
     """Max abs error of ``out`` against ``exp`` and the largest share of its
-    bound that any element uses (over 1 means a failure); ``floor`` adds
-    that share of ``exp``'s rms to every bf16 element's bound."""
+    bound that any element uses; ``floor`` adds that share of ``exp``'s rms
+    to every bf16 element's bound."""
     out, exp = out.float(), exp.float()
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("kernel output is not finite")
     err = (out - exp).abs()
     if dt == "bfloat16":
         row_rms = exp.pow(2).mean(dim=-1, keepdim=True).sqrt()
         bound = BF16_RTOL * (exp.abs() + row_rms) + floor * exp.pow(2).mean().sqrt()
     else:
         bound = F32_TOL + F32_TOL * exp.abs()
-    share = float((err / bound).nan_to_num(nan=0.0, posinf=float("inf")).max())
+    return float(err.max()), float((err / bound).nan_to_num(nan=0.0, posinf=float("inf")).max())
+
+
+def check(torch, out, exp, dt: str, floor: float = 0.0):
+    """``bound_share`` of a finite ``out``, raising when the share is over 1."""
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("kernel output is not finite")
+    err, share = bound_share(torch, out, exp, dt, floor)
     if share > 1.0:
         raise AssertionError(f"kernel disagrees with its plain version: max abs err "
-                             f"{float(err.max()):.3e}, {share:.3g} x its bound ({TOL[dt]})")
-    return float(err.max()), share
+                             f"{err:.3e}, {share:.3g} x its bound ({TOL[dt]})")
+    return err, share
 
 
 TOL = {"bfloat16": "|err| <= 2**-5 (|ref| + rms_row(ref)) against float32 plain",
@@ -1434,6 +1454,455 @@ def checkpoint_round_trip(torch, card: str, name: str, step: int, params, opt) -
     return dict(bytes=written, save_s=save_s, restore_s=restore_s)
 
 
+# ==============================================================================
+# phase 6: a Dora plan on the card
+# ==============================================================================
+PLAN_SEQ = 4096
+# (arch, setting, (global batch, microbatch, training), (t_qoe s, lambda)): granite-8b
+# served on smart_home_2 with the serve launcher's workload, h2o-danube-1.8b trained
+# on traffic_monitor
+PLANS = {"forward": ("granite_8b", "smart_home_2", (4, 1, False), (0.2, 100.0)),
+         "gradients": ("h2o_danube_1_8b", "traffic_monitor", (8, 2, True), (8.0, 50.0))}
+# the small float32 h2o-family model that runs the gradients plan card against
+# CPU: 8 layers (3/2/2/1 on the four stages), attn_chunk 64 < S = 256, window 96
+PIPE_SMALL, PIPE_SMALL_SEQ = dict(head_dim=80, n_layers=8, attn_chunk=64, window=96), 256
+LAUNCHER_ARGS = ["--arch", "h2o_danube_1_8b", "--prompt-len", "4096", "--gen-len", "32",
+                 "--setting", "edge_cluster", "--dynamics"]
+
+
+def phase_plan(torch, card: str, what: str) -> dict:
+    """Plan one of ``PLANS`` with the port's planner (host code) and derive
+    the executor's stage layout; fails below two stages."""
+    from repro_torch import dora
+    from repro_torch.configs import get_config
+    from repro_torch.core import QoESpec, Workload
+    from repro_torch.models.registry import planning_graph
+    from repro_torch.runtime.pipeline import PipelineSpec
+
+    arch, setting, (gb, mb, training), (t_qoe, lam) = PLANS[what]
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    session = dora.serve(setting, graph=planning_graph(cfg, PLAN_SEQ),
+                         qoe=QoESpec(t_qoe=t_qoe, lam=lam),
+                         workload=Workload(global_batch=gb, microbatch_size=mb, training=training))
+    wall = time.perf_counter() - t0
+    res, plan = session.report.result, session.current
+    spec = PipelineSpec.from_plan(plan, cfg.n_layers)
+    log(card, f"Dora plan of {cfg.name} on {setting} ({'train' if training else 'serve'}: batch "
+              f"{gb} of {mb}, t_qoe {t_qoe} s, lambda {lam}, sequence {PLAN_SEQ}): "
+              f"{plan.summary()}; {spec}; planning took {res.total_s * 1e3:.1f} ms (phase1 "
+              f"{res.phase1_s * 1e3:.1f} ms, phase2 {res.phase2_s * 1e3:.1f} ms; "
+              f"{wall * 1e3:.1f} ms with the graph) of the host CPU, not card time")
+    if plan.n_stages < 2:
+        raise AssertionError(f"the {what} plan has {plan.n_stages} stage(s), expected two or more")
+    return dict(arch=arch, setting=setting, cfg=cfg, plan=plan, spec=spec,
+                summary=plan.summary(), layers_per_stage=list(spec.layers_per_stage),
+                n_microbatches=spec.n_microbatches, microbatch_size=plan.microbatch_size,
+                planning_s=res.total_s, planning_wall_s=wall)
+
+
+def _named(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict, in ``_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _wall_ms(torch, fn) -> float:
+    """Host-clock ms of one ``fn()`` call, between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _hold(torch, what: str, out, exp, dt: str, floor: float = 0.0):
+    """``check`` with ``what`` in its failure."""
+    try:
+        return check(torch, out, exp, dt, floor)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+
+
+def phase_pipeline_forward(torch, card: str, planned: dict) -> dict:
+    """The forward plan's model at full width and depth through the
+    executor on the card (bf16, no grad), held against the same layers
+    applied microbatch by microbatch in plain order; launches exact."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import apply_block
+    from repro_torch.runtime.pipeline import DoraPipelineExecutor
+
+    cfg, plan = planned["cfg"], planned["plan"]
+    model = build_model(cfg, device=DEVICE)
+    params = fan_in_qk(cfg, model.init(torch.Generator(device=DEVICE).manual_seed(0)))
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    def layer_fn(lp, x):
+        return apply_block(lp, x, cfg, "dense", mode="train")
+    ex = DoraPipelineExecutor(plan, cfg.n_layers, layer_fn)
+    spec = ex.spec
+    M, mb = spec.n_microbatches, plan.microbatch_size
+    toks = torch.randint(0, cfg.vocab_size, (M * mb, PLAN_SEQ), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(1))
+    with torch.no_grad():
+        x = params["embed"][toks].view(M, mb, PLAN_SEQ, cfg.d_model)
+        packed = ex.pack_params(params["stack"]["u0"])
+    packed_bytes = sum(t.numel() * t.element_size() for t in _leaves(packed))
+    del params                      # the unpacked stack goes; the packed tree stays
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with torch.no_grad():
+        out = ex.forward(packed, x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in kernels.KERNELS}
+    want["flash_attention"] = cfg.n_layers * M
+    if counts != want:
+        raise AssertionError(f"pipeline forward launched {counts}, expected {want}")
+    layers = [_slot(packed, s, j) for s, n in enumerate(spec.layers_per_stage) for j in range(n)]
+
+    def plain():
+        ys = []
+        for m in range(M):
+            y = x[m]
+            for lp in layers:
+                y = layer_fn(lp, y)
+            ys.append(y)
+        return torch.stack(ys)
+    with torch.no_grad():
+        ref = plain()
+        if out.shape != (M, mb, PLAN_SEQ, cfg.d_model) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"pipeline output {tuple(out.shape)} is not finite or misshaped")
+        bitwise = bool(torch.equal(out, ref))
+        err, share = _hold(torch, "pipeline forward against the plain order", out, ref, "bfloat16")
+        del out, ref
+        ex_ms, plain_ms = [], []
+        for _ in range(3):
+            ex_ms.append(_wall_ms(torch, lambda: ex.forward(packed, x)))
+            plain_ms.append(_wall_ms(torch, plain))
+    med_ex, med_plain = statistics.median(ex_ms), statistics.median(plain_ms)
+    log(card, f"pipeline forward of {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+              f"{n_params / 1e9:.2f} B parameters, {cfg.dtype}, wq/wk fan-in d_model) on the "
+              f"{planned['setting']} plan's {spec.n_stages} stages {spec.layers_per_stage} (pad "
+              f"{spec.pad}, packed {packed_bytes / 1e9:.2f} GB), {M} microbatches of {mb} x "
+              f"{PLAN_SEQ}: against the plain order microbatch by microbatch "
+              f"{'bitwise equal' if bitwise else 'not bitwise equal'}, max abs err {err:.3e}, "
+              f"{share:.3g} of the bound ({TOL['bfloat16']}); launches {counts}; executor "
+              f"{med_ex:.1f} ms against the plain order's {med_plain:.1f} ms (median of 3, host "
+              f"clock around torch.cuda.synchronize); peak memory {peak / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated over the checked forward)")
+    del packed, x, layers
+    return dict(arch=planned["arch"], n_layers=cfg.n_layers, params=n_params,
+                layers_per_stage=list(spec.layers_per_stage), pad=spec.pad,
+                n_microbatches=M, microbatch_size=mb, seq=PLAN_SEQ, bitwise=bitwise,
+                max_abs_err=err, bound_share=share, launches=counts, executor_ms=ex_ms,
+                plain_ms=plain_ms, executor_ms_median=med_ex, plain_ms_median=med_plain,
+                peak_bytes=peak, packed_bytes=packed_bytes)
+
+
+def _slot(tree, s: int, j: int):
+    """Slot ``j`` of stage ``s`` of a packed tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _slot(v, s, j) for k, v in tree.items()}
+    return tree[s, j]
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"/a/b": t} → {"a": {"b": t}}."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        node, parts = out, path.strip("/").split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return out
+
+
+def pipeline_tree(ex, params) -> dict:
+    """``params`` with the stack packed for ``ex`` (under ``"packed"``)."""
+    top = {k: v for k, v in params.items() if k not in ("stack", "tail")}
+    return dict(top, packed=ex.pack_params(params["stack"]["u0"]))
+
+
+def pipeline_grads(torch, model, ex, tree, batch, seq: int):
+    """The executor's training loss (embed → executor → final norm, head
+    and NLL, applied once to the whole output) and its gradients by
+    autograd, for ``tree`` (``pipeline_tree``): (loss, {path: gradient}
+    with the packed stack's unpacked to (L, ...), whether every padded
+    slot's gradient is exactly zero)."""
+    spec = ex.spec
+    M = spec.n_microbatches
+    B = batch["tokens"].shape[0]
+    mb = B // M
+    d = model.cfg.d_model
+    named = list(_named(tree))
+    leaves = [t.detach().requires_grad_(True) for _, t in named]
+    p = _unflatten({path: t for (path, _), t in zip(named, leaves)})
+    x = p["embed"][batch["tokens"].long()].view(M, mb, seq, d)
+    loss = ex.loss(p["packed"], x,
+                   lambda o: model.loss_from_hidden(p, o.reshape(B, seq, d), batch))
+    grads = torch.autograd.grad(loss, leaves)
+    out, padded_zero = {}, True
+    for (path, _), g in zip(named, grads):
+        if path.startswith("/packed/"):
+            padded_zero &= all(bool((g[s, n:] == 0).all())
+                               for s, n in enumerate(spec.layers_per_stage))
+            out["/stack/u0/" + path[len("/packed/"):]] = ex.unpack_params(g)
+        else:
+            out[path] = g
+    return loss.detach(), out, padded_zero
+
+
+PIPE_GRAD_TOL = 1e-4     # float32: every gradient within this share of its leaf's max
+
+
+def _rel_to_max(torch, got: dict, ref: dict):
+    """(worst leaf, its max abs error over the leaf's max magnitude)."""
+    errs = {k: float((got[k].float() - ref[k].float()).abs().max()
+                     / ref[k].float().abs().max().clamp(min=1e-30)) for k in ref}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def _worst_share(torch, got: dict, ref: dict):
+    """(worst leaf, max abs err, share) of the bf16 backward's bound."""
+    rows = {k: bound_share(torch, got[k], ref[k], "bfloat16", BWD_FLOOR) for k in ref}
+    worst = max(rows, key=lambda k: rows[k][1])
+    return (worst,) + rows[worst]
+
+
+def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
+    """The gradients plan's model at full width and depth trained through
+    the executor on the card (each stage remat'd), against
+    ``LM.loss(remat="full")`` on the same batch: in bf16 the launches (exact),
+    the padded slots' zero gradients, the loss within the bf16 bound and
+    the times; then in float32 (TF32 off) the loss and every gradient
+    within ``PIPE_GRAD_TOL`` of its leaf's largest magnitude. bf16
+    gradients are not held to the backward's bound: at this depth
+    ``LM.loss`` misses it against a rerun of itself (bf16 dq is summed in
+    another order each run), and that reading is printed beside the
+    executor's."""
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import apply_block
+    from repro_torch.runtime.pipeline import DoraPipelineExecutor
+
+    plan = planned["plan"]
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(planned["cfg"], dtype=dtype)
+        model = build_model(cfg, device=DEVICE)
+        params = fan_in_qk(cfg, model.init(torch.Generator(device=DEVICE).manual_seed(0)))
+        ex = DoraPipelineExecutor(plan, cfg.n_layers,
+                                  lambda lp, x, cfg=cfg: apply_block(lp, x, cfg, "dense",
+                                                                     mode="train"))
+        spec = ex.spec
+        B = spec.n_microbatches * plan.microbatch_size
+        toks = torch.randint(0, cfg.vocab_size, (B, PLAN_SEQ + 1), device=DEVICE,
+                             dtype=torch.int32,
+                             generator=torch.Generator(device=DEVICE).manual_seed(2))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        names = [path for path, _ in _named(params)]
+        res = {}
+
+        def reference():
+            loss, grads = _grads(torch, model, params, batch)
+            res["ref"] = (loss, dict(zip(names, grads)))
+
+        def pipeline():
+            res["pipe"] = pipeline_grads(torch, model, ex, tree, batch, PLAN_SEQ)
+        ref_ms = [_wall_ms(torch, reference)]
+        loss_ref, grads_ref = res.pop("ref")
+        with torch.no_grad():
+            tree = pipeline_tree(ex, params)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        ex_ms = [_wall_ms(torch, pipeline)]
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        loss, grads, padded_zero = res.pop("pipe")
+        want = {k: 0 for k in kernels.KERNELS}
+        want.update(flash_attention=2 * cfg.n_layers * spec.n_microbatches,
+                    flash_attention_bwd=cfg.n_layers * spec.n_microbatches)
+        if counts != want:
+            raise AssertionError(f"pipeline gradients ({dtype}) launched {counts}, expected {want}")
+        if not padded_zero:
+            raise AssertionError(f"a padded slot's gradient is not zero ({dtype})")
+        if sorted(grads) != sorted(grads_ref):
+            raise AssertionError(f"gradient leaves {sorted(grads)} != {sorted(grads_ref)}")
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            raise AssertionError(f"pipeline gradients ({dtype}) are not finite")
+        rec = dict(loss=float(loss), loss_ref=float(loss_ref), launches=counts,
+                   padded_zero=padded_zero, peak_bytes=peak)
+        if dtype == "bfloat16":
+            loss_err, _ = _hold(torch, "pipeline loss", loss.reshape(1), loss_ref.reshape(1),
+                                dtype, BWD_FLOOR)
+            worst = _worst_share(torch, grads, grads_ref)
+            del grads
+            ref_ms.append(_wall_ms(torch, reference))        # LM.loss against itself
+            floor = _worst_share(torch, res.pop("ref")[1], grads_ref)
+            ex_ms.append(_wall_ms(torch, pipeline))
+            res.clear()
+            ref_ms.append(_wall_ms(torch, reference))
+            ex_ms.append(_wall_ms(torch, pipeline))
+            res.clear()
+            med_ex, med_ref = statistics.median(ex_ms), statistics.median(ref_ms)
+            log(card, f"pipeline gradients of {cfg.name} at full width and depth ({cfg.n_layers} "
+                      f"layers, bf16, wq/wk fan-in d_model) on the {planned['setting']} plan's "
+                      f"{spec.n_stages} stages {spec.layers_per_stage} (pad {spec.pad}), "
+                      f"{spec.n_microbatches} microbatches of {plan.microbatch_size} x {PLAN_SEQ}, "
+                      f"each stage remat'd: loss {float(loss):.6f} against LM.loss(remat='full')'s "
+                      f"{float(loss_ref):.6f} (abs err {loss_err:.3e}); padded slots' gradients "
+                      f"exactly zero; launches {counts}; gradients against LM.loss's: worst "
+                      f"{worst[0]} at {worst[2]:.3g} x the backward's bound "
+                      f"({TOL['bfloat16 grad']}), max abs err {worst[1]:.3e}, where a rerun of "
+                      f"LM.loss reads {floor[2]:.3g} x ({floor[0]}): not gated, see the float32 "
+                      f"check; executor loss + backward {med_ex:.1f} ms against LM.loss's "
+                      f"{med_ref:.1f} ms (median of 3, host clock); peak memory "
+                      f"{peak / 2**30:.2f} GiB over the first executor pass")
+            rec.update(loss_abs_err=loss_err, layers_per_stage=list(spec.layers_per_stage),
+                       pad=spec.pad, n_microbatches=spec.n_microbatches,
+                       microbatch_size=plan.microbatch_size, seq=PLAN_SEQ,
+                       worst_grad=dict(path=worst[0], max_abs_err=worst[1], bound_share=worst[2]),
+                       rerun_worst_grad=dict(path=floor[0], max_abs_err=floor[1],
+                                             bound_share=floor[2]),
+                       executor_ms=ex_ms, plain_ms=ref_ms, executor_ms_median=med_ex,
+                       plain_ms_median=med_ref)
+            out.update(arch=planned["arch"], n_layers=cfg.n_layers, launches=counts)
+        else:
+            loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+            leaf, grad_err = _rel_to_max(torch, grads, grads_ref)
+            log(card, f"pipeline gradients of {cfg.name} in float32 (TF32 off), the same plan and "
+                      f"batch: loss {float(loss):.6f} against LM.loss's {float(loss_ref):.6f} (rel "
+                      f"err {loss_err:.3e}), worst gradient {leaf} at {grad_err:.3e} of its leaf's "
+                      f"max (tol {PIPE_GRAD_TOL}); padded slots' gradients exactly zero; launches "
+                      f"{counts}; executor {ex_ms[0]:.1f} ms, LM.loss {ref_ms[0]:.1f} ms (one pass "
+                      f"each); peak memory {peak / 2**30:.2f} GiB")
+            if max(loss_err, grad_err) > PIPE_GRAD_TOL:
+                raise AssertionError("the executor's float32 gradients disagree with LM.loss's")
+            rec.update(loss_rel_err=loss_err, worst_grad=dict(path=leaf, rel_to_max=grad_err),
+                       tol=PIPE_GRAD_TOL, executor_ms=ex_ms, plain_ms=ref_ms)
+        out[dtype] = rec
+        del params, tree, grads_ref, model, ex, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline_small(torch, card: str, planned: dict) -> dict:
+    """A small float32 h2o-family model through the gradients plan's four
+    stages, card against CPU: loss within 1e-4 relative and every gradient
+    within 1e-4 of its leaf's largest magnitude (TF32 off), launches exact."""
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import apply_block
+    from repro_torch.runtime.pipeline import DoraPipelineExecutor
+
+    cfg = dataclasses.replace(reduced_config("h2o_danube_1_8b"), **PIPE_SMALL)
+    plan = planned["plan"]
+    ex = DoraPipelineExecutor(plan, cfg.n_layers,
+                              lambda lp, x: apply_block(lp, x, cfg, "dense", mode="train"))
+    spec = ex.spec
+    B, S, tol = spec.n_microbatches * plan.microbatch_size, PIPE_SMALL_SEQ, 1e-4
+    params = fan_in_qk(cfg, build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1)))
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_c, grads_c, zero_c = pipeline_grads(torch, build_model(cfg, device="cpu"), ex,
+                                             pipeline_tree(ex, params), batch, S)
+    tree_g, batch_g = pipeline_tree(ex, _to(params, DEVICE)), _to(batch, DEVICE)
+    kernels.reset_launches()
+    loss_g, grads_g, zero_g = pipeline_grads(torch, build_model(cfg, device=DEVICE), ex, tree_g,
+                                             batch_g, S)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(flash_attention=2 * cfg.n_layers * spec.n_microbatches,
+                flash_attention_bwd=cfg.n_layers * spec.n_microbatches)
+    if counts != want:
+        raise AssertionError(f"small pipeline launched {counts}, expected {want}")
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = max(float((grads_g[k].cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                   for k, c in grads_c.items())
+    _, grads_n, _ = pipeline_grads(torch, build_model(cfg, device="cpu"), ex,
+                                   pipeline_tree(ex, _nudged(torch, params)), batch, S)
+    cond = max(float((grads_n[k] - c).abs().max() / c.abs().max().clamp(min=1e-30))
+               for k, c in grads_c.items())
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {PIPE_SMALL}, wq/wk fan-in d_model, "
+              f"S={S}) through the {planned['setting']} plan's stages {spec.layers_per_stage}, "
+              f"{spec.n_microbatches} microbatches of {plan.microbatch_size}, card vs CPU: loss "
+              f"rel err {loss_err:.3e}, worst gradient {grad_err:.3e} of its leaf's max (tol "
+              f"{tol}); a 1e-7 change of the embedding moves the CPU's gradients by up to "
+              f"{cond:.3e}; padded slots' gradients zero on both: {zero_c and zero_g}; launches "
+              f"{counts}")
+    if max(loss_err, grad_err) > tol or not (zero_c and zero_g):
+        raise AssertionError("the card's pipeline disagrees with the CPU's")
+    return dict(overrides=PIPE_SMALL, seq=S, layers_per_stage=list(spec.layers_per_stage),
+                loss_rel_err=loss_err, grad_rel_err=grad_err, conditioning=cond, tol=tol,
+                launches=counts)
+
+
+def phase_plan_launcher(torch, card: str) -> dict:
+    """The serve launcher, the user's entry point, planning and serving on
+    the card with ``--dynamics``; its launches checked exactly."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve
+
+    arch = LAUNCHER_ARGS[LAUNCHER_ARGS.index("--arch") + 1]
+    cfg = (reduced_config if "--reduced" in LAUNCHER_ARGS else get_config)(arch)
+    gen = int(LAUNCHER_ARGS[LAUNCHER_ARGS.index("--gen-len") + 1])
+    kernels.reset_launches()
+    out = serve.main(LAUNCHER_ARGS)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * gen)
+    if counts != want:
+        raise AssertionError(f"the planning launcher launched {counts}, expected {want}")
+    if out["dynamics"] is None or not out["plan"].n_stages:
+        raise AssertionError("the launcher returned no plan or no dynamics reaction")
+    if not all(map(math.isfinite, (out["prefill_ms"], out["p50_ms"], out["p99_ms"]))):
+        raise AssertionError(f"the launcher's times are not finite: {out}")
+    dyn = out["dynamics"]
+    log(card, f"serve launcher {' '.join(LAUNCHER_ARGS)}: plan {out['plan_summary']} (planning "
+              f"{out['planning_s'] * 1e3:.1f} ms of the host CPU); prefill {out['prefill_ms']:.1f} "
+              f"ms, decode p50 {out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms (host clock); "
+              f"adapter action {dyn['action']}, plan latency {out['plan'].latency * 1e3:.0f} -> "
+              f"{dyn['plan'].latency * 1e3:.0f} ms (the planner's model of the edge fleet, not "
+              f"this card); launches {counts}")
+    return dict(arch=arch, args=LAUNCHER_ARGS, plan=out["plan_summary"],
+                planning_s=out["planning_s"], prefill_ms=out["prefill_ms"], p50_ms=out["p50_ms"], p99_ms=out["p99_ms"],
+                action=dyn["action"], plan_latency_s=out["plan"].latency,
+                plan_latency_after_s=dyn["plan"].latency, launches=counts)
+
+
+def phase_dora(torch, card: str) -> dict:
+    """Phase 6: plan, then run the plans' pipeline stages and the planning
+    launcher on the card; each part frees what it made."""
+    planned = {what: phase_plan(torch, card, what) for what in PLANS}
+    out = {"plans": {w: {k: v for k, v in p.items() if k not in ("cfg", "plan", "spec")}
+                     for w, p in planned.items()}}
+    for name, fn in (("forward", lambda: phase_pipeline_forward(torch, card, planned["forward"])),
+                     ("gradients",
+                      lambda: phase_pipeline_grads(torch, card, planned["gradients"])),
+                     ("small", lambda: phase_pipeline_small(torch, card, planned["gradients"])),
+                     ("launcher", lambda: phase_plan_launcher(torch, card))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = fn()
+    return out
+
+
 def _to(tree, device):
     """A copy of ``tree`` on ``device`` (a copy on the same device too: the
     train step updates its parameters in place)."""
@@ -1614,6 +2083,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train[tpath.arch] = phase_train(torch, card, tpath)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dora = phase_dora(torch, card)           # phase 6
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -1638,6 +2110,10 @@ def main() -> int:
     for name in names:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})
+        by_path.update({f"{dora[k]['arch']} {label}": dora[k]["launches"][name]
+                        for k, label in (("forward", "pipeline forward"),
+                                         ("gradients", "pipeline gradients"),
+                                         ("launcher", "planning launcher"))})
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
@@ -1648,7 +2124,7 @@ def main() -> int:
             entry["stages_ms"] = kern[name]["stages_ms"]
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
-              "small_train": small_train, "train": train, "ptxas": ptxas,
+              "small_train": small_train, "train": train, "dora": dora, "ptxas": ptxas,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

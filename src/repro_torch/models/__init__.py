@@ -1,5 +1,5 @@
 from .config import ArchConfig
-from .registry import Model, build_model
+from .registry import Model, build_model, planning_graph
 from .transformer import LM
 
-__all__ = ["ArchConfig", "Model", "build_model", "LM"]
+__all__ = ["ArchConfig", "Model", "build_model", "planning_graph", "LM"]

@@ -341,6 +341,18 @@ class LM:
         """Mean next-token NLL over the ``mask``ed label positions (all when
         no ``mask``) plus the aux loss: ``(loss, {"nll", "aux"})``."""
         logits, aux = self.apply(params, batch["tokens"], remat=remat)
+        nll = self._nll(logits, batch)
+        return nll + aux, {"nll": nll, "aux": aux}
+
+    def loss_from_hidden(self, params: Params, x: torch.Tensor,
+                         batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The mean NLL from the layer stack's output ``x`` (B, S, D) on, as
+        ``loss`` takes it from there (final norm, head, NLL): the loss of a
+        pipeline executor's output."""
+        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        return self._nll(self._head(params, x), batch)
+
+    def _nll(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         labels = batch["labels"].long()
         if logits.shape[1] != labels.shape[1]:      # prefix rows carry no loss
             logits = logits[:, -labels.shape[1]:]
@@ -349,8 +361,7 @@ class LM:
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones_like(labels, dtype=torch.float32)
-        nll = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
-        return nll + aux, {"nll": nll, "aux": aux}
+        return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
