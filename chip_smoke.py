@@ -29,7 +29,9 @@ phases:
    split across blocks (G = 48, one key tile) and float32, each of its
    three kernels (dsum, the wgmma kernel, the convert) timed by the
    profiler, with its split plan and block count, against
-   scaled_dot_product_attention's backward;
+   scaled_dot_product_attention's backward; and the flash forward and
+   backward at phase 6's microbatch shapes (granite-8b's 1 x 4096, 32 heads
+   on 8 of 128; h2o-danube-1.8b's 2 x 4096 in bf16 and float32);
 3. four serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
    its kernels ran on every layer, a profiler window (device time by
@@ -68,9 +70,10 @@ phases:
    order, and h2o-danube-1.8b's loss and gradients on its 4 stages (4
    microbatches of 2 x 4096, each stage remat'd) against
    ``LM.loss(remat="full")``, in bf16 (launches, padded slots' zero
-   gradients, the loss, times; the gradients' bound readings printed
-   beside ``LM.loss`` against a rerun of itself) and in float32 (every
-   gradient within 1e-4 of its leaf's max); a small float32 h2o-family
+   gradients, the loss, times; against float32 ``LM.loss`` the gradients
+   may use at most 1.5 times the share of the backward's bound that bf16
+   ``LM.loss``'s use) and in float32 (every gradient within 1e-4 of its
+   leaf's max); a small float32 h2o-family
    model through the same plan, card against CPU; and the serve launcher
    (``launch/serve.py``, h2o-danube-1.8b at full depth, edge_cluster,
    ``--dynamics``) with its launches checked exactly.
@@ -122,6 +125,16 @@ H2O_HEADS, H2O_KV, H2O_HEAD_DIM, H2O_WINDOW = 32, 8, 80, 4096
 H2O_TRAIN_BATCH, H2O_TRAIN_SEQ = 2, 8192
 # granite-20b's group: 48 query heads on one KV head of 128
 G48_HEADS = 48
+# phase 6's plans, at sequence 4096: (arch, setting, (global batch, microbatch,
+# training), (t_qoe s, lambda)): granite-8b served on smart_home_2 with the serve
+# launcher's workload (32 heads on 8 KV heads of 128, microbatches of 1), h2o-danube-1.8b
+# trained on traffic_monitor (microbatches of 2); phase 2 holds the kernels at these
+# microbatch shapes, and phase 6 checks that the plans keep them
+PLAN_SEQ = 4096
+PLANS = {"forward": ("granite_8b", "smart_home_2", (4, 1, False), (0.2, 100.0)),
+         "gradients": ("h2o_danube_1_8b", "traffic_monitor", (8, 2, True), (8.0, 50.0))}
+GRANITE_HEADS, GRANITE_KV = 32, 8
+GRANITE_MB, H2O_MB = PLANS["forward"][2][1], PLANS["gradients"][2][1]
 
 
 def log(card: str, msg: str) -> None:
@@ -285,8 +298,8 @@ class KernelPhase:
 
 def kernels_flash(kp: KernelPhase) -> None:
     """flash_attention at qwen3-32b's, recurrentgemma-9b's,
-    h2o-danube-1.8b's and granite-20b's prefill shapes, ragged, windowed,
-    head_dim 64/80/128/256, float32."""
+    h2o-danube-1.8b's and granite-20b's prefill shapes and phase 6's
+    microbatches, ragged, windowed, head_dim 64/80/128/256, float32."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
@@ -323,7 +336,15 @@ def kernels_flash(kp: KernelPhase) -> None:
             ("f32 ragged window d80", (2, 300, 300, 8, 2, H2O_HEAD_DIM), True, 100, "float32"),
             # granite-20b's group: 48 query heads on one KV head
             ("G=48 main path", (BATCH, PROMPT, PROMPT, G48_HEADS, 1, D), True, None,
-             "bfloat16")]:
+             "bfloat16"),
+            # phase 6's microbatches: granite-8b's, and h2o-danube-1.8b's in bf16 and in
+            # float32 (its float32 gradient check runs the CUDA-core kernel)
+            ("granite-8b plan", (GRANITE_MB, PLAN_SEQ, PLAN_SEQ, GRANITE_HEADS, GRANITE_KV, D),
+             True, None, "bfloat16"),
+            ("d80 plan", (H2O_MB, PLAN_SEQ, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), True,
+             H2O_WINDOW, "bfloat16"),
+            ("f32 d80 plan", (H2O_MB, PLAN_SEQ, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), True,
+             H2O_WINDOW, "float32")]:
         q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, T, kv, d), dtypes[dt]), \
             rand((B, T, kv, d), dtypes[dt])
         out = launched(kernels.flash_attention,
@@ -500,7 +521,6 @@ def kernels_ssd(kp: KernelPhase) -> None:
     chunk_scan), float32 the CUDA-core kernel."""
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
-    from torch.profiler import ProfilerActivity, profile as tprofile
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
 
     # inputs as tests/test_kernels.py draws them: x, b, c ~ N(0, 0.01), a_log = -0.1 |N(0, 1)|
@@ -552,13 +572,11 @@ def kernels_ssd(kp: KernelPhase) -> None:
                 torch, lambda: ops.ssd_scan(x, a, b, c, chunk=L), plain, reps=10, rounds=3,
                 warmup=1)
             # each stage's device time, from the profiler over 5 calls
-            torch.cuda.synchronize()
-            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            def five():
                 for _ in range(5):
                     ops.ssd_scan(x, a, b, c, chunk=L)
-                torch.cuda.synchronize()
             stages = {k: 0.0 for k in SSD_STAGES}
-            for e in prof.key_averages():
+            for e in device_window(torch, card, five, cpu=False)[0]:
                 for k in SSD_STAGES:
                     if f"{k}(" in e.key:
                         stages[k] += e.self_device_time_total / 1e3 / 5
@@ -652,7 +670,11 @@ BWD_CASES = [
     ("G=48 split S=1024", (1, 1024, G48_HEADS, 1, HEAD_DIM), None, "bfloat16"),
     ("G=48 split window 300", (1, 1024, G48_HEADS, 1, HEAD_DIM), 300, "bfloat16"),
     # one key tile, ragged: every block of the plan is one query head
-    ("one block", (1, 100, 8, 1, HEAD_DIM), None, "bfloat16")]
+    ("one block", (1, 100, 8, 1, HEAD_DIM), None, "bfloat16"),
+    # phase 6's h2o-danube-1.8b microbatch, in bf16 and in float32 (the CUDA-core kernels)
+    ("d80 plan", (H2O_MB, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), H2O_WINDOW, "bfloat16"),
+    ("f32 d80 plan", (H2O_MB, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), H2O_WINDOW,
+     "float32")]
 # the cases timed against their bound and the library, by record key
 BWD_MAINS = {"train path": "flash_attention_bwd", "d80 train path": "flash_attention_bwd_d80",
              "G=48": "flash_attention_bwd_g48"}
@@ -679,13 +701,13 @@ def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
 def kernels_flash_bwd(kp: KernelPhase) -> None:
     """flash_attention_bwd at qwen3-32b's and h2o-danube-1.8b's training
     shapes, head_dim 64 and 80, G = 1, 8 and 48, windows at S = 4096 and
-    8192, ragged S, float32; each against its plain version on the same
+    8192, ragged S, float32, h2o-danube-1.8b's pipeline microbatch in bf16
+    and float32; each against its plain version on the same
     inputs (the forward kernel's output and log-sum-exp, which is itself
     held against the plain log-sum-exp)."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.kernels import ops, ref
-    from torch.profiler import ProfilerActivity, profile as tprofile
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     mod = kernels.flash_attention
     for name, (B, S, h, kv, d), window, dt in BWD_CASES:
@@ -750,13 +772,11 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                 library, reps=3, rounds=3, warmup=1)
             plain_ms = cuda_ms(torch, lambda: flash_bwd_plain(torch, ref, q, k, v, out, lse, dout,
                                                               window), reps=1)
-            torch.cuda.synchronize()
-            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            def three():
                 for _ in range(3):
                     ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
-                torch.cuda.synchronize()
             stages = {k_: 0.0 for k_ in BWD_STAGES}
-            for e in prof.key_averages():
+            for e in device_window(torch, card, three, cpu=False)[0]:
                 for k_ in BWD_STAGES:
                     if f"{k_}<" in e.key or f"{k_}(" in e.key:
                         stages[k_] += e.self_device_time_total / 1e3 / 3
@@ -790,18 +810,35 @@ def phase_kernels(torch, card: str) -> dict:
     return kp.rec
 
 
+def device_window(torch, card: str, fn, cpu: bool):
+    """``key_averages()`` of a torch.profiler window (CUDA activity, and the
+    CPU's with ``cpu``) around one ``fn()`` call, and the call's wall ms.
+    CUPTI has handed back a window with no device event at all on the H100
+    (once, over three flash backward calls that other runs profiled
+    fine); such a window is taken once more, and a second empty one is
+    returned as it is, for the caller's check to fail on."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        with tprofile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = prof.key_averages()
+        if any(e.self_device_time_total > 0 for e in rows):
+            break
+        log(card, f"the profiler window saw no device time (try {attempt + 1} of 2)")
+    return rows, wall_ms
+
+
 def profile(torch, fn, card: str, what: str, groups: Optional[Dict[str, str]] = None) -> dict:
     """Device time by kernel and the device's busy share over one call of
     ``fn``, from torch.profiler (CUPTI); with ``groups`` ({label: kernel
     name prefix}) also each group's device time and share of the busy time."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
+    rows, wall_ms = device_window(torch, card, fn, cpu=True)
+    dev = [e for e in rows
            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -1457,17 +1494,13 @@ def checkpoint_round_trip(torch, card: str, name: str, step: int, params, opt) -
 # ==============================================================================
 # phase 6: a Dora plan on the card
 # ==============================================================================
-PLAN_SEQ = 4096
-# (arch, setting, (global batch, microbatch, training), (t_qoe s, lambda)): granite-8b
-# served on smart_home_2 with the serve launcher's workload, h2o-danube-1.8b trained
-# on traffic_monitor
-PLANS = {"forward": ("granite_8b", "smart_home_2", (4, 1, False), (0.2, 100.0)),
-         "gradients": ("h2o_danube_1_8b", "traffic_monitor", (8, 2, True), (8.0, 50.0))}
 # the small float32 h2o-family model that runs the gradients plan card against
 # CPU: 8 layers (3/2/2/1 on the four stages), attn_chunk 64 < S = 256, window 96
 PIPE_SMALL, PIPE_SMALL_SEQ = dict(head_dim=80, n_layers=8, attn_chunk=64, window=96), 256
-LAUNCHER_ARGS = ["--arch", "h2o_danube_1_8b", "--prompt-len", "4096", "--gen-len", "32",
-                 "--setting", "edge_cluster", "--dynamics"]
+# the serve launcher's run: h2o-danube-1.8b at full depth on edge_cluster
+LAUNCHER_ARCH, LAUNCHER_GEN = "h2o_danube_1_8b", 32
+LAUNCHER_ARGS = ["--arch", LAUNCHER_ARCH, "--prompt-len", str(PLAN_SEQ), "--gen-len",
+                 str(LAUNCHER_GEN), "--setting", "edge_cluster", "--dynamics"]
 
 
 def phase_plan(torch, card: str, what: str) -> dict:
@@ -1495,6 +1528,9 @@ def phase_plan(torch, card: str, what: str) -> dict:
               f"{wall * 1e3:.1f} ms with the graph) of the host CPU, not card time")
     if plan.n_stages < 2:
         raise AssertionError(f"the {what} plan has {plan.n_stages} stage(s), expected two or more")
+    if plan.microbatch_size != mb:
+        raise AssertionError(f"the {what} plan's microbatch is {plan.microbatch_size}, not the "
+                             f"{mb} at which phase 2 holds its kernels")
     return dict(arch=arch, setting=setting, cfg=cfg, plan=plan, spec=spec,
                 summary=plan.summary(), layers_per_stage=list(spec.layers_per_stage),
                 n_microbatches=spec.n_microbatches, microbatch_size=plan.microbatch_size,
@@ -1548,11 +1584,25 @@ def phase_pipeline_forward(torch, card: str, planned: dict) -> dict:
     M, mb = spec.n_microbatches, plan.microbatch_size
     toks = torch.randint(0, cfg.vocab_size, (M * mb, PLAN_SEQ), device=DEVICE,
                          generator=torch.Generator(device=DEVICE).manual_seed(1))
+    stack = params["stack"]["u0"]
+    # the reference reads layer i of the unpacked stack, so it does not share the packing
+    layers = [_rebuild(stack, (t[i] for t in _leaves(stack))) for i in range(cfg.n_layers)]
+
+    def plain():
+        ys = []
+        for m in range(M):
+            y = x[m]
+            for lp in layers:
+                y = layer_fn(lp, y)
+            ys.append(y)
+        return torch.stack(ys)
     with torch.no_grad():
         x = params["embed"][toks].view(M, mb, PLAN_SEQ, cfg.d_model)
-        packed = ex.pack_params(params["stack"]["u0"])
+        ref = plain()
+        plain_ms = [_wall_ms(torch, plain) for _ in range(3)]
+        packed = ex.pack_params(stack)
     packed_bytes = sum(t.numel() * t.element_size() for t in _leaves(packed))
-    del params                      # the unpacked stack goes; the packed tree stays
+    del params, stack, layers       # the unpacked stack goes; the packed tree stays
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1567,27 +1617,13 @@ def phase_pipeline_forward(torch, card: str, planned: dict) -> dict:
     want["flash_attention"] = cfg.n_layers * M
     if counts != want:
         raise AssertionError(f"pipeline forward launched {counts}, expected {want}")
-    layers = [_slot(packed, s, j) for s, n in enumerate(spec.layers_per_stage) for j in range(n)]
-
-    def plain():
-        ys = []
-        for m in range(M):
-            y = x[m]
-            for lp in layers:
-                y = layer_fn(lp, y)
-            ys.append(y)
-        return torch.stack(ys)
     with torch.no_grad():
-        ref = plain()
         if out.shape != (M, mb, PLAN_SEQ, cfg.d_model) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"pipeline output {tuple(out.shape)} is not finite or misshaped")
         bitwise = bool(torch.equal(out, ref))
         err, share = _hold(torch, "pipeline forward against the plain order", out, ref, "bfloat16")
         del out, ref
-        ex_ms, plain_ms = [], []
-        for _ in range(3):
-            ex_ms.append(_wall_ms(torch, lambda: ex.forward(packed, x)))
-            plain_ms.append(_wall_ms(torch, plain))
+        ex_ms = [_wall_ms(torch, lambda: ex.forward(packed, x)) for _ in range(3)]
     med_ex, med_plain = statistics.median(ex_ms), statistics.median(plain_ms)
     log(card, f"pipeline forward of {cfg.name} at full width and depth ({cfg.n_layers} layers, "
               f"{n_params / 1e9:.2f} B parameters, {cfg.dtype}, wq/wk fan-in d_model) on the "
@@ -1596,34 +1632,16 @@ def phase_pipeline_forward(torch, card: str, planned: dict) -> dict:
               f"{PLAN_SEQ}: against the plain order microbatch by microbatch "
               f"{'bitwise equal' if bitwise else 'not bitwise equal'}, max abs err {err:.3e}, "
               f"{share:.3g} of the bound ({TOL['bfloat16']}); launches {counts}; executor "
-              f"{med_ex:.1f} ms against the plain order's {med_plain:.1f} ms (median of 3, host "
-              f"clock around torch.cuda.synchronize); peak memory {peak / 2**30:.2f} GiB "
+              f"{med_ex:.1f} ms against the plain order's {med_plain:.1f} ms (median of 3 each, "
+              f"the plain passes first, host clock around torch.cuda.synchronize); peak memory {peak / 2**30:.2f} GiB "
               f"(torch.cuda.max_memory_allocated over the checked forward)")
-    del packed, x, layers
+    del packed, x
     return dict(arch=planned["arch"], n_layers=cfg.n_layers, params=n_params,
                 layers_per_stage=list(spec.layers_per_stage), pad=spec.pad,
                 n_microbatches=M, microbatch_size=mb, seq=PLAN_SEQ, bitwise=bitwise,
                 max_abs_err=err, bound_share=share, launches=counts, executor_ms=ex_ms,
                 plain_ms=plain_ms, executor_ms_median=med_ex, plain_ms_median=med_plain,
                 peak_bytes=peak, packed_bytes=packed_bytes)
-
-
-def _slot(tree, s: int, j: int):
-    """Slot ``j`` of stage ``s`` of a packed tree (views)."""
-    if isinstance(tree, dict):
-        return {k: _slot(v, s, j) for k, v in tree.items()}
-    return tree[s, j]
-
-
-def _unflatten(flat: dict) -> dict:
-    """{"/a/b": t} → {"a": {"b": t}}."""
-    out: dict = {}
-    for path, leaf in flat.items():
-        node, parts = out, path.strip("/").split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = leaf
-    return out
 
 
 def pipeline_tree(ex, params) -> dict:
@@ -1645,7 +1663,7 @@ def pipeline_grads(torch, model, ex, tree, batch, seq: int):
     d = model.cfg.d_model
     named = list(_named(tree))
     leaves = [t.detach().requires_grad_(True) for _, t in named]
-    p = _unflatten({path: t for (path, _), t in zip(named, leaves)})
+    p = _rebuild(tree, iter(leaves))
     x = p["embed"][batch["tokens"].long()].view(M, mb, seq, d)
     loss = ex.loss(p["packed"], x,
                    lambda o: model.loss_from_hidden(p, o.reshape(B, seq, d), batch))
@@ -1662,6 +1680,9 @@ def pipeline_grads(torch, model, ex, tree, batch, seq: int):
 
 
 PIPE_GRAD_TOL = 1e-4     # float32: every gradient within this share of its leaf's max
+# bf16: the executor's gradients may use at most this multiple of the share of the
+# backward's bound that LM.loss's bf16 gradients use, both against LM.loss in float32
+PIPE_BF16_RATIO = 1.5
 
 
 def _rel_to_max(torch, got: dict, ref: dict):
@@ -1685,18 +1706,20 @@ def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
     ``LM.loss(remat="full")`` on the same batch: in bf16 the launches (exact),
     the padded slots' zero gradients, the loss within the bf16 bound and
     the times; then in float32 (TF32 off) the loss and every gradient
-    within ``PIPE_GRAD_TOL`` of its leaf's largest magnitude. bf16
-    gradients are not held to the backward's bound: at this depth
-    ``LM.loss`` misses it against a rerun of itself (bf16 dq is summed in
-    another order each run), and that reading is printed beside the
-    executor's."""
+    within ``PIPE_GRAD_TOL`` of its leaf's largest magnitude. The bf16
+    gradients cannot be held to the backward's bound against bf16
+    ``LM.loss`` (at this depth ``LM.loss`` misses it against a rerun of
+    itself: bf16 dq is summed in another order each run); both bf16
+    gradient sets are held against float32 ``LM.loss`` instead, and the
+    executor's share of the bound may be at most ``PIPE_BF16_RATIO`` times
+    ``LM.loss``'s."""
     from repro_torch import kernels
     from repro_torch.models import build_model
     from repro_torch.models.transformer import apply_block
     from repro_torch.runtime.pipeline import DoraPipelineExecutor
 
     plan = planned["plan"]
-    out = {}
+    out, kept = {}, {}
     for dtype in ("bfloat16", "float32"):
         cfg = dataclasses.replace(planned["cfg"], dtype=dtype)
         model = build_model(cfg, device=DEVICE)
@@ -1746,7 +1769,7 @@ def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
             loss_err, _ = _hold(torch, "pipeline loss", loss.reshape(1), loss_ref.reshape(1),
                                 dtype, BWD_FLOOR)
             worst = _worst_share(torch, grads, grads_ref)
-            del grads
+            kept.update(executor=grads, lm=grads_ref)       # for the float32 reference
             ref_ms.append(_wall_ms(torch, reference))        # LM.loss against itself
             floor = _worst_share(torch, res.pop("ref")[1], grads_ref)
             ex_ms.append(_wall_ms(torch, pipeline))
@@ -1764,8 +1787,8 @@ def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
                       f"exactly zero; launches {counts}; gradients against LM.loss's: worst "
                       f"{worst[0]} at {worst[2]:.3g} x the backward's bound "
                       f"({TOL['bfloat16 grad']}), max abs err {worst[1]:.3e}, where a rerun of "
-                      f"LM.loss reads {floor[2]:.3g} x ({floor[0]}): not gated, see the float32 "
-                      f"check; executor loss + backward {med_ex:.1f} ms against LM.loss's "
+                      f"LM.loss reads {floor[2]:.3g} x ({floor[0]}): gated against float32 "
+                      f"LM.loss below; executor loss + backward {med_ex:.1f} ms against LM.loss's "
                       f"{med_ref:.1f} ms (median of 3, host clock); peak memory "
                       f"{peak / 2**30:.2f} GiB over the first executor pass")
             rec.update(loss_abs_err=loss_err, layers_per_stage=list(spec.layers_per_stage),
@@ -1790,6 +1813,27 @@ def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
                 raise AssertionError("the executor's float32 gradients disagree with LM.loss's")
             rec.update(loss_rel_err=loss_err, worst_grad=dict(path=leaf, rel_to_max=grad_err),
                        tol=PIPE_GRAD_TOL, executor_ms=ex_ms, plain_ms=ref_ms)
+            bf = {who: _worst_share(torch, g, grads_ref) for who, g in kept.items()}
+            rel = {who: _rel_to_max(torch, g, grads_ref) for who, g in kept.items()}
+            kept.clear()
+            limit = PIPE_BF16_RATIO * bf["lm"][2]
+            log(card, f"bf16 gradients of {cfg.name} on that plan against LM.loss in float32 (the "
+                      f"same seed, weights in float32): executor worst {bf['executor'][0]} at "
+                      f"{bf['executor'][2]:.3g} x the backward's bound ({TOL['bfloat16 grad']}), "
+                      f"LM.loss's bf16 gradients worst {bf['lm'][0]} at {bf['lm'][2]:.3g} x; gate: "
+                      f"the executor's at most {PIPE_BF16_RATIO} x LM.loss's, {limit:.3g} x; "
+                      f"worst max abs err over the leaf's max: executor {rel['executor'][1]:.3e} "
+                      f"({rel['executor'][0]}), LM.loss {rel['lm'][1]:.3e} ({rel['lm'][0]})")
+            out["bfloat16"]["against_float32"] = dict(
+                executor=dict(path=bf["executor"][0], max_abs_err=bf["executor"][1],
+                              bound_share=bf["executor"][2], rel_to_max=rel["executor"][1]),
+                lm_loss=dict(path=bf["lm"][0], max_abs_err=bf["lm"][1], bound_share=bf["lm"][2],
+                             rel_to_max=rel["lm"][1]),
+                ratio_limit=PIPE_BF16_RATIO, share_limit=limit)
+            if bf["executor"][2] > limit:
+                raise AssertionError(f"the executor's bf16 gradients use {bf['executor'][2]:.3g} x "
+                                     f"the backward's bound against float32 LM.loss, over "
+                                     f"{PIPE_BF16_RATIO} x bf16 LM.loss's {bf['lm'][2]:.3g} x")
         out[dtype] = rec
         del params, tree, grads_ref, model, ex, res
         gc.collect()
@@ -1855,18 +1899,16 @@ def phase_plan_launcher(torch, card: str) -> dict:
     """The serve launcher, the user's entry point, planning and serving on
     the card with ``--dynamics``; its launches checked exactly."""
     from repro_torch import kernels
-    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    arch = LAUNCHER_ARGS[LAUNCHER_ARGS.index("--arch") + 1]
-    cfg = (reduced_config if "--reduced" in LAUNCHER_ARGS else get_config)(arch)
-    gen = int(LAUNCHER_ARGS[LAUNCHER_ARGS.index("--gen-len") + 1])
+    cfg = get_config(LAUNCHER_ARCH)
     kernels.reset_launches()
     out = serve.main(LAUNCHER_ARGS)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = {k: 0 for k in kernels.KERNELS}
-    want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * gen)
+    want.update(flash_attention=cfg.n_layers, decode_attention=cfg.n_layers * LAUNCHER_GEN)
     if counts != want:
         raise AssertionError(f"the planning launcher launched {counts}, expected {want}")
     if out["dynamics"] is None or not out["plan"].n_stages:
@@ -1880,7 +1922,7 @@ def phase_plan_launcher(torch, card: str) -> dict:
               f"adapter action {dyn['action']}, plan latency {out['plan'].latency * 1e3:.0f} -> "
               f"{dyn['plan'].latency * 1e3:.0f} ms (the planner's model of the edge fleet, not "
               f"this card); launches {counts}")
-    return dict(arch=arch, args=LAUNCHER_ARGS, plan=out["plan_summary"],
+    return dict(arch=LAUNCHER_ARCH, args=LAUNCHER_ARGS, plan=out["plan_summary"],
                 planning_s=out["planning_s"], prefill_ms=out["prefill_ms"], p50_ms=out["p50_ms"], p99_ms=out["p99_ms"],
                 action=dyn["action"], plan_latency_s=out["plan"].latency,
                 plan_latency_after_s=dyn["plan"].latency, launches=counts)

@@ -159,6 +159,7 @@ def test_the_issue_plans_have_the_stages_the_card_runs():
     stages, h2o-danube-1.8b on traffic_monitor (train) in four."""
     got, _ = _plan_both("smart_home_2", "granite_8b", "serve")
     assert [len(s.node_ids) for s in got.current.stages] == [13, 12, 13]
+    assert (got.current.microbatch_size, got.current.n_microbatches) == (1, 4)
     got, _ = _plan_both("traffic_monitor", "h2o_danube_1_8b", "train")
     assert [len(s.node_ids) for s in got.current.stages] == [9, 8, 5, 4]
     assert (got.current.microbatch_size, got.current.n_microbatches) == (2, 4)
