@@ -29,9 +29,18 @@ phases:
    split across blocks (G = 48, one key tile) and float32, each of its
    three kernels (dsum, the wgmma kernel, the convert) timed by the
    profiler, with its split plan and block count, against
-   scaled_dot_product_attention's backward; and the flash forward and
+   scaled_dot_product_attention's backward; the flash forward and
    backward at phase 6's microbatch shapes (granite-8b's 1 x 4096, 32 heads
-   on 8 of 128; h2o-danube-1.8b's 2 x 4096 in bf16 and float32);
+   on 8 of 128; h2o-danube-1.8b's 2 x 4096 in bf16 and float32); decode at
+   head_dim 16 (calibration's reduced qwen3 decode step in float32, longer
+   caches in both types); and the SSD scan's backward (dx, da_log, db, dc)
+   at mamba2-780m's training shape (B=4, S=4096, bf16; each of its four
+   kernels timed by the profiler) and the reduced calibration step's
+   (float32), grouped, ragged chunk, with and without the final state's
+   cotangent, against its plain version; and every kernel at the shapes of
+   phase 7's calibration path in float32 (``kernel_rates``' flash, decode,
+   SSD scan and RG-LRU shapes, and the reduced mamba2 train step's SSD
+   scan forward);
 3. four serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
    its kernels ran on every layer, a profiler window (device time by
@@ -49,13 +58,17 @@ phases:
    float32 train step of a small qwen3-family model (head_dim 64) and of a
    small h2o-family model (head_dim 80, a window below S), each with
    attn_chunk 64 < S = 256 so the flash forward and backward kernels run,
-   on the card against the CPU: loss, grad norm and every gradient;
+   and of the reduced mamba2 (S = 128, chunk 32: the SSD scan's forward
+   and backward kernels), on the card against the CPU: loss, grad norm and
+   every gradient;
 5. training through ``make_train_step`` and ``TokenPipeline`` (bf16,
    remat="full", 10 steps each): qwen3-32b at full width (depth cut to 4
    layers, batch 2 x 4096), then h2o-danube-1.8b at full width and depth
-   (24 layers, batch 2 x 8192, above its 4096 window): each step's loss
-   (the last below the first), its launches checked exactly (two flash
-   forwards a layer, forward and recompute, and one backward), the median
+   (24 layers, batch 2 x 8192, above its 4096 window), then mamba2-780m at
+   full width and depth (48 layers, batch 4 x 4096): each step's loss
+   (the last below the first), its launches checked exactly (two forwards
+   of the layer's kernel a layer, forward and recompute, and one
+   backward), the median
    step time, tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory,
    a profiler window over one step with the flash forward's and
    backward's shares; after qwen3's steps a Checkpointer round trip of the
@@ -76,7 +89,18 @@ phases:
    leaf's max); a small float32 h2o-family
    model through the same plan, card against CPU; and the serve launcher
    (``launch/serve.py``, h2o-danube-1.8b at full depth, edge_cluster,
-   ``--dynamics``) with its launches checked exactly.
+   ``--dynamics``) with its launches checked exactly;
+7. calibration (``repro_torch.calibrate``, the reference's defaults: archs
+   qwen3_32b and mamba2_780m, a logical fleet of 4 on the card):
+   ``calibrate_host`` (the measurements, the compute factor, the step
+   ratios; each kernel's launches must be the count that ``measure_host``'s
+   repeats and the reduced configs' layers make), the fidelity
+   suite over ``CASES`` then ``QUICK_CASES`` (each case's measured time
+   beside its calibrated and uncalibrated predictions; calibration must
+   lower the mean error), the regression gate against the committed
+   ``calibration/h100_fidelity.json`` where it exists, and traffic_monitor
+   planned with ``costs="profiled:<artifact>"``. The artifact and the
+   fidelity record go to build/calibration and are printed on one line.
 
 The h2o paths draw wq and wk at the fan-in of d_model (``fan_in_qk``):
 with the reference init's the random model is chaotic and its gradients
@@ -125,6 +149,13 @@ H2O_HEADS, H2O_KV, H2O_HEAD_DIM, H2O_WINDOW = 32, 8, 80, 4096
 H2O_TRAIN_BATCH, H2O_TRAIN_SEQ = 2, 8192
 # granite-20b's group: 48 query heads on one KV head of 128
 G48_HEADS = 48
+# mamba2-780m's training path: all 48 layers, batch 4 x 4096, bf16
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 4, 4096
+# calibration's steps on the reduced configs (batch 2, sequence 32, float32):
+# mamba2's SSD scan (B, S, H, P, G, N, chunk) in training, and qwen3's decode
+# attention (B, T, H, KV, d) at the first position of a 32-slot cache
+CAL_SSD = (2, 32, 8, 32, 1, 16, 32)
+CAL_DECODE = (2, 32, 8, 2, 16)
 # phase 6's plans, at sequence 4096: (arch, setting, (global batch, microbatch,
 # training), (t_qoe s, lambda)): granite-8b served on smart_home_2 with the serve
 # launcher's workload (32 heads on 8 KV heads of 128, microbatches of 1), h2o-danube-1.8b
@@ -299,12 +330,15 @@ class KernelPhase:
 def kernels_flash(kp: KernelPhase) -> None:
     """flash_attention at qwen3-32b's, recurrentgemma-9b's,
     h2o-danube-1.8b's and granite-20b's prefill shapes and phase 6's
-    microbatches, ragged, windowed, head_dim 64/80/128/256, float32."""
+    microbatches, ragged, windowed, head_dim 64/80/128/256, float32, and
+    phase 7's calibration shape."""
     import torch.nn.functional as F
     from repro_torch import kernels
+    from repro_torch.calibrate import microbench as mb
     from repro_torch.kernels import ops, ref
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
+    Bk, Sk, Hk, KVk, Dk = mb.FLASH_SHAPE
     mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256",
              "d80 main path": "flash_attention_d80", "G=48 main path": "flash_attention_g48"}
 
@@ -344,7 +378,9 @@ def kernels_flash(kp: KernelPhase) -> None:
             ("d80 plan", (H2O_MB, PLAN_SEQ, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), True,
              H2O_WINDOW, "bfloat16"),
             ("f32 d80 plan", (H2O_MB, PLAN_SEQ, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), True,
-             H2O_WINDOW, "float32")]:
+             H2O_WINDOW, "float32"),
+            # phase 7's calibration: kernel_rates' shape
+            ("f32 calibration rate", (Bk, Sk, Sk, Hk, KVk, Dk), True, None, "float32")]:
         q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, T, kv, d), dtypes[dt]), \
             rand((B, T, kv, d), dtypes[dt])
         out = launched(kernels.flash_attention,
@@ -406,12 +442,15 @@ def kernels_flash(kp: KernelPhase) -> None:
 
 def kernels_decode(kp: KernelPhase) -> None:
     """decode_attention at qwen3-32b's, recurrentgemma-9b's,
-    h2o-danube-1.8b's (head_dim 80) and granite-20b's (G = 48) decode shapes."""
+    h2o-danube-1.8b's (head_dim 80) and granite-20b's (G = 48) decode shapes,
+    and phase 7's calibration shapes (head_dim 64 and 16)."""
     import torch.nn.functional as F
     from repro_torch import kernels
+    from repro_torch.calibrate import microbench as mb
     from repro_torch.kernels import ops, ref
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
+    Bk, _, Hk, KVk, Dk = mb.FLASH_SHAPE
     flush = l2_flush(torch)      # a served step finds the cache cold
 
     def run_decode(key, main, cases):
@@ -433,7 +472,7 @@ def kernels_decode(kp: KernelPhase) -> None:
                       f"err {err:.3e}, worst element at {share:.3f} of its bound ({TOL[dt]})")
             if name == main:
                 live = sum(min(n, t) for n in lens)      # cache rows the lengths make live
-                elt = 2
+                elt = 2 if dt == "bfloat16" else 4
                 nbytes = elt * (2 * live * kv * d + 2 * B * h * d) + 4 * B
                 ops_n = 4.0 * h * d * live
                 bound_ms, bound_by = bound(ops_n, nbytes, dt)
@@ -471,7 +510,10 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("one split T=32", (3, 32, 8, 1, 64), [32, 5, 1], 8, "bfloat16"),
         ("f32", (2, T, H, KV, D), [T, PROMPT // 2 + 1], None, "float32"),
         ("f32 empty splits", (4, T, H, KV, D), [T, 1, 0, T - 1], None, "float32"),
-        ("f32 T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "float32")])
+        ("f32 T=300 MQA d64", (3, 300, 8, 1, 64), [300, 101, 7], 96, "float32"),
+        # phase 7's calibration: kernel_rates' shape, a full cache
+        ("f32 calibration rate", (Bk, mb.DECODE_T, Hk, KVk, Dk), [mb.DECODE_T] * Bk, None,
+         "float32")])
     # recurrentgemma-9b's local attention: a full 2048-slot ring, MQA, head_dim 256
     Tr, Hr, Dr = RG_PROMPT, RG_HEADS, RG_HEAD_DIM
     run_decode("decode_attention_d256", "d256 main path", [
@@ -488,6 +530,15 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("d80 T=300 MQA", (3, 300, 8, 1, Dh), [300, 101, 7], 96, "bfloat16"),
         ("d80 f32", (2, T, Hh, KVh, Dh), [T, PROMPT // 2 + 1], None, "float32"),
         ("d80 f32 empty splits", (4, T, Hh, KVh, Dh), [T, 1, 0, T - 1], None, "float32")])
+    # the reduced dense configs' head_dim 16: calibration's decode step (float32,
+    # position 0 of a 32-slot cache), then longer caches in both types
+    Bc, Tc, Hc, KVc, Dc = CAL_DECODE
+    run_decode("decode_attention_d16", "d16 main path", [
+        ("d16 main path", (Bc, Tc, Hc, KVc, Dc), [1] * Bc, None, "float32"),
+        ("d16 f32", (2, T, Hc, KVc, Dc), [T, 17], None, "float32"),
+        ("d16 f32 window", (3, 300, Hc, KVc, Dc), [300, 101, 0], 96, "float32"),
+        ("d16 bf16", (4, T, Hc, KVc, Dc), [T, PROMPT + 1, 100, 1], None, "bfloat16"),
+        ("d16 bf16 window", (3, 300, Hc, KVc, Dc), [300, 101, 7], 96, "bfloat16")])
     # granite-20b's group: 48 query heads on one KV head of 128
     run_decode("decode_attention_g48", "G=48 main path", [
         ("G=48 main path", (BATCH, T, G48_HEADS, 1, D), [T] * BATCH, None, "bfloat16"),
@@ -516,10 +567,11 @@ def ssd_stage_bytes(B: int, S: int, H: int, P: int, G: int, N: int, L: int) -> D
 
 
 def kernels_ssd(kp: KernelPhase) -> None:
-    """ssd_scan at mamba2-780m's prefill shape, grouped, ragged chunk. bf16
-    runs the four chunk-parallel stages (cb, chunk_state, state_passing,
-    chunk_scan), float32 the CUDA-core kernel."""
+    """ssd_scan at mamba2-780m's prefill shape, grouped, ragged chunk, phase
+    7's calibration shapes. bf16 runs the four chunk-parallel stages (cb,
+    chunk_state, state_passing, chunk_scan), float32 the CUDA-core kernel."""
     from repro_torch import kernels
+    from repro_torch.calibrate import microbench as mb
     from repro_torch.kernels import ops, ref
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
 
@@ -529,7 +581,10 @@ def kernels_ssd(kp: KernelPhase) -> None:
             ("grouped f32", (2, 512, 8, 32, 2, 64, 128), "float32"),
             ("chunk 100 f32", (1, 300, 4, 64, 1, 32, 100), "float32"),
             ("chunk 100 bf16", (1, 300, 4, 64, 1, 32, 100), "bfloat16"),
-            ("grouped bf16 P48 N80", (2, 192, 8, 48, 2, 80, 48), "bfloat16")]:
+            ("grouped bf16 P48 N80", (2, 192, 8, 48, 2, 80, 48), "bfloat16"),
+            # phase 7's calibration: kernel_rates' shape, and the reduced mamba2 train step's
+            ("f32 calibration rate", mb.SSD_SHAPE + (mb.SSD_CHUNK,), "float32"),
+            ("f32 calibration step", CAL_SSD, "float32")]:
         x = (rand((B, S, h, P), torch.float32) * 0.1).to(dtypes[dt])
         a = -rand((B, S, h), torch.float32).abs() * 0.1
         b = (rand((B, S, G, N), torch.float32) * 0.1).to(dtypes[dt])
@@ -608,15 +663,111 @@ def kernels_ssd(kp: KernelPhase) -> None:
     torch.cuda.empty_cache()
 
 
-def kernels_rglru(kp: KernelPhase) -> None:
-    """rglru_scan at recurrentgemma-9b's prefill shape, a small one, ragged."""
+SSD_BWD_STAGES = ("ssd_bwd_state_kernel", "ssd_bwd_passing_kernel", "ssd_bwd_chunk_kernel",
+                  "ssd_bwd_convert_kernel")
+# (name, (B, S, H, P, G, N, chunk), dtype, with the final state's cotangent): the
+# first is mamba2-780m's training shape, the second the reduced mamba2 train step
+# that calibration times
+SSD_BWD_CASES = [
+    ("train path", (MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, SSD_HEADS, SSD_P, 1, SSD_N, SSD_CHUNK),
+     "bfloat16", False),
+    ("calibration f32", CAL_SSD, "float32", False),
+    ("grouped f32 state", (2, 512, 8, 32, 2, 64, 128), "float32", True),
+    ("chunk 100 bf16 state", (1, 300, 4, 64, 4, 32, 100), "bfloat16", True),
+    ("f32 P64 N128 chunk 256", (1, 1024, 4, SSD_P, 1, SSD_N, SSD_CHUNK), "float32", True)]
+
+
+def ssd_bwd_ops(B: int, S: int, H: int, P: int, G: int, N: int, L: int) -> float:
+    """The backward's least work, 2 operations a multiply-add: C B^T once per
+    group over the causal (query, key) pairs of each chunk; per head dy X^T,
+    the dx, dC and dB products over the same pairs, and the five L x P x N
+    state products (the chunk's state, dy's share of d prev, B dst^T, X dst,
+    dy prev)."""
+    nc, pairs = S // L, L * (L + 1) // 2
+    return 2.0 * B * nc * (G * pairs * N + H * (pairs * (2 * P + 2 * N) + 5 * L * P * N))
+
+
+def kernels_ssd_bwd(kp: KernelPhase) -> None:
+    """ssd_scan_bwd at mamba2-780m's training shape and the reduced calibration
+    step's, grouped, ragged chunk, with and without the final state's
+    cotangent; against ssd_scan_bwd_ref on the same values in float32."""
     from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
+    mod = kernels.ssd_scan
+    for name, (B, S, h, P, G, N, L), dt, with_state in SSD_BWD_CASES:
+        x = (rand((B, S, h, P), torch.float32) * 0.1).to(dtypes[dt])
+        a = -rand((B, S, h), torch.float32).abs() * 0.1
+        b = (rand((B, S, G, N), torch.float32) * 0.1).to(dtypes[dt])
+        c = (rand((B, S, G, N), torch.float32) * 0.1).to(dtypes[dt])
+        dy = rand((B, S, h, P), dtypes[dt])
+        dst = rand((B, h, P, N), torch.float32) if with_state else None
+        got = launched(mod, lambda: ops.ssd_scan_bwd(x, a, b, c, dy, dst, chunk=L),
+                       "bwd_launches")
+        exp = ref.ssd_scan_bwd_ref(x.float(), a, b.float(), c.float(), dy.float(), dst, L)
+        # da_log is float32 whatever the input type: the float32 tolerance
+        errs = {n: check(torch, g, e, dt if n != "da_log" else "float32")
+                for n, g, e in zip(("dx", "da_log", "db", "dc"), got, exp)}
+        err, share = max(e for e, _ in errs.values()), max(sh for _, sh in errs.values())
+        tol = f"dx, db, dc: {TOL[dt]}; da_log: {TOL['float32']}"
+        cases_out.append(dict(kernel="ssd_scan_bwd", case=name, dtype=dt, max_abs_err=err,
+                              bound_share=share, tol=tol,
+                              by_output={n: dict(max_abs_err=e, bound_share=sh)
+                                         for n, (e, sh) in errs.items()}))
+        log(card, f"ssd_scan_bwd {name}: B={B} S={S} H={h} P={P} G={G} N={N} chunk={L} {dt}, "
+                  f"final-state cotangent {'yes' if with_state else 'none'}: "
+                  + ", ".join(f"{n} max abs err {e:.3e} at {sh:.3f} of its bound"
+                              for n, (e, sh) in errs.items()) + f" ({tol})")
+        if name == "train path":
+            elt = 2
+            # x, dy read and dx written; b, c read and db, dc written; a_log read, da_log written
+            nbytes = elt * (3 * B * S * h * P + 4 * B * S * G * N) + 2 * 4 * B * S * h
+            ops_n = ssd_bwd_ops(B, S, h, P, G, N, L)
+            bound_ms, bound_by = bound(ops_n, nbytes, dt)
+            ms = cuda_ms(torch, lambda: ops.ssd_scan_bwd(x, a, b, c, dy, None, chunk=L), reps=5)
+            plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_bwd_ref(x, a, b, c, dy, None, L),
+                               reps=1)
+
+            def three():
+                for _ in range(3):
+                    ops.ssd_scan_bwd(x, a, b, c, dy, None, chunk=L)
+            stages = {k: 0.0 for k in SSD_BWD_STAGES}
+            for e in device_window(torch, card, three, cpu=False)[0]:
+                for k in SSD_BWD_STAGES:
+                    if f"{k}<" in e.key or f"{k}(" in e.key:
+                        stages[k] += e.self_device_time_total / 1e3 / 3
+            if not all(v > 0 for v in stages.values()):
+                raise AssertionError(f"the profiler saw no device time for a stage: {stages}")
+            rec["ssd_scan_bwd"] = dict(
+                shape=dict(B=B, S=S, H=h, P=P, G=G, N=N, chunk=L, dtype=dt),
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share, tol=tol,
+                stages_ms=stages)
+            for k in SSD_BWD_STAGES:
+                log(card, f"ssd_scan_bwd stage {k}: {stages[k]:.4f} ms on the device (profiler, "
+                          f"mean of 3 calls)")
+        del x, a, b, c, dy, dst, got, exp
+        torch.cuda.empty_cache()
+    r = rec["ssd_scan_bwd"]
+    log(card, f"ssd_scan_bwd at the training path's shape (bf16): kernels {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, no single PyTorch call computes it, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['ops'] / 1e9:.1f} GFLOP, "
+              f"{r['bytes'] / 1e6:.1f} MB)")
+
+
+def kernels_rglru(kp: KernelPhase) -> None:
+    """rglru_scan at recurrentgemma-9b's prefill shape, a small one, ragged,
+    phase 7's calibration shape."""
+    from repro_torch import kernels
+    from repro_torch.calibrate import microbench as mb
     from repro_torch.kernels import ref
     torch, card, rec, cases_out, rand, launched, _ = kp.unpack()
 
-    # inputs as tests/test_kernels.py draws them: a_log = -0.5 |N(0, 1)|, b ~ N(0, 1)
+    # inputs as tests/test_kernels.py draws them: a_log = -0.5 |N(0, 1)|, b ~ N(0, 1);
+    # the last is phase 7's calibration, kernel_rates' shape
     for name, (B, S, W) in [("main path", (BATCH, RG_PROMPT, RG_WIDTH)),
-                            ("S 256 W 512", (2, 256, 512)), ("ragged", (3, 77, 96))]:
+                            ("S 256 W 512", (2, 256, 512)), ("ragged", (3, 77, 96)),
+                            ("calibration rate", mb.RGLRU_SHAPE)]:
         a = -rand((B, S, W), torch.float32).abs() * 0.5
         b = rand((B, S, W), torch.float32)
         hh, hl = launched(kernels.rglru_scan, lambda: kernels.rglru_scan.rglru_scan(a, b))
@@ -804,7 +955,8 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
 
 def phase_kernels(torch, card: str) -> dict:
     kp = KernelPhase(torch, card)
-    for run in (kernels_flash, kernels_flash_bwd, kernels_decode, kernels_ssd, kernels_rglru):
+    for run in (kernels_flash, kernels_flash_bwd, kernels_decode, kernels_ssd, kernels_ssd_bwd,
+                kernels_rglru):
         run(kp)
     kp.rec["cases"] = kp.cases
     return kp.rec
@@ -833,10 +985,11 @@ def device_window(torch, card: str, fn, cpu: bool):
     return rows, wall_ms
 
 
-def profile(torch, fn, card: str, what: str, groups: Optional[Dict[str, str]] = None) -> dict:
+def profile(torch, fn, card: str, what: str, groups: Optional[dict] = None) -> dict:
     """Device time by kernel and the device's busy share over one call of
     ``fn``, from torch.profiler (CUPTI); with ``groups`` ({label: kernel
-    name prefix}) also each group's device time and share of the busy time."""
+    name prefix, or a tuple of them}) also each group's device time and
+    share of the busy time."""
     rows, wall_ms = device_window(torch, card, fn, cpu=True)
     dev = [e for e in rows
            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -1135,12 +1288,22 @@ SMALL = [
 ]
 # (arch, overrides, S, wq and wk at the fan-in of d_model) of the small float32
 # train steps, card against CPU: attn_chunk 64 < S, so the flash forward and
-# backward kernels run
+# backward kernels run; the reduced mamba2 (4 layers, chunk 32) at S = 128 runs
+# the SSD scan's forward and backward kernels
 SMALL_TRAIN = [
     ("qwen3_32b", dict(head_dim=64, attn_chunk=64), 256, False),
     # head_dim 80, and a window below S that binds in both kernels
     ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 256, True),
+    ("mamba2_780m", {}, 128, False),
 ]
+
+
+def train_launches(cfg) -> Dict[str, int]:
+    """The kernel launches of one train step with remat="full": each layer's
+    kernel runs forward twice (forward and recompute) and backward once."""
+    fwd, bwd = ("ssd_scan", "ssd_scan_bwd") if cfg.ssm else ("flash_attention",
+                                                             "flash_attention_bwd")
+    return {fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
 
 
 # The reference init (``dense_init``, as the JAX package's) reads the fan-in
@@ -1247,7 +1410,8 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
                       qk_fan_in: bool) -> dict:
     """One float32 train step of a small model on the card against the same
     step on the CPU (the plain path). attn_chunk < S, so the flash forward
-    and backward kernels run: loss and grad_norm within 1e-4 relative,
+    and backward kernels run (for mamba2 the SSD scan's): loss and grad_norm
+    within 1e-4 relative,
     every gradient within 1e-4 of
     its leaf's largest magnitude (post-Adam parameters are not compared:
     Adam turns rounding noise on tiny gradients into lr-sized differences),
@@ -1282,7 +1446,7 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
         _, _, m = step(p, adamw_init(p), _to(batch, dev), 1)
         out[dev] = dict(m, launches=kernels.launch_counts())
     want = {k: 0 for k in kernels.KERNELS}
-    want.update(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    want.update(train_launches(cfg))
     if out[DEVICE]["launches"] != want:
         raise AssertionError(f"small train step launches {out[DEVICE]['launches']}, "
                              f"expected {want}")
@@ -1314,8 +1478,19 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 x (parameters in matrix
     products: the layers' projections and MLP and the head; the embedding is
     a lookup) x tokens, plus attention's scores and P V (4 d operations a
-    live pair and head) three times (forward and backward); the
-    recomputation of remat="full" is not counted."""
+    live pair and head) three times (forward and backward); for an SSM
+    (mamba2) the layers' in and out projections and the SSD scan's linear
+    form (``kernels/flops.ssd_scan_flops``) three times; the recomputation
+    of remat="full" is not counted."""
+    if cfg.ssm:
+        from repro_torch.kernels import flops
+        d, din, gn, nh = cfg.d_model, cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state, \
+            cfg.ssm_nheads
+        per_layer = d * (2 * din + 2 * gn + nh) + din * d
+        ssd = flops.ssd_scan_flops(batch, seq, nh, cfg.ssm_headdim, cfg.ssm_ngroups,
+                                   cfg.ssm_state)
+        return 6.0 * (cfg.n_layers * per_layer + d * cfg.padded_vocab) * batch * seq \
+            + 3 * ssd * cfg.n_layers
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     per_layer = 2 * d * h * hd + 2 * d * kv * hd + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
     matmul = cfg.n_layers * per_layer + d * cfg.padded_vocab
@@ -1344,6 +1519,8 @@ TRAIN_PATHS = [
     # is printed beside the run)
     TrainPath("h2o_danube_1_8b", None, H2O_TRAIN_BATCH, H2O_TRAIN_SEQ, TRAIN_STEPS, False,
               True),
+    # all 48 SSD layers: the ssd_scan forward and backward kernels
+    TrainPath("mamba2_780m", None, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, TRAIN_STEPS, False),
 ]
 
 
@@ -1371,14 +1548,17 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
     state_bytes = sum(t.numel() * t.element_size() for t in _leaves({"p": params, "o": opt}))
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                     seed=0), device=DEVICE)
-    log(card, f"training {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads on "
-              f"{cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-              f"{cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
+    width = (f"{cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+             f"{cfg.ssm_chunk}" if cfg.ssm else f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV "
+             f"heads of {cfg.hd}, d_ff {cfg.d_ff}")
+    log(card, f"training {cfg.name} at full width (d_model {cfg.d_model}, {width}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: "
+              f"{n_params / 1e9:.3f} B "
               f"parameters, {state_bytes / 1e9:.2f} GB with the AdamW state; batch {B} x {S}, "
               f"window {cfg.window}, remat='full', {steps} steps, peak lr 3e-4, warmup 2, wq/wk "
               f"fan-in {'d_model' if path.qk_fan_in else 'heads (the reference init)'}")
     per_step = {k: 0 for k in kernels.KERNELS}
-    per_step.update(flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    per_step.update(train_launches(cfg))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1421,10 +1601,12 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
               f"GiB reserved, {retries} allocation retries (the caching allocator freed its "
               f"cache and synchronised); launches over {steps} steps {counts}")
     batch = next(data)
+    groups = {"ssd_scan forward": ("ssd_cb_", "ssd_chunk_state_", "ssd_state_passing_",
+                                   "ssd_chunk_scan_"), "ssd_scan backward": "ssd_bwd_"} \
+        if cfg.ssm else {"flash_attention forward": "flash_wgmma_kernel",
+                         "flash_attention backward": "flash_bwd_"}
     prof = profile(torch, lambda: train_step(params, opt, batch, steps), card,
-                   f"one {cfg.name} train step ({B}x{S})",
-                   groups={"flash_attention forward": "flash_wgmma_kernel",
-                           "flash_attention backward": "flash_bwd_"})
+                   f"one {cfg.name} train step ({B}x{S})", groups=groups)
     data.close()
     del batch
     out = dict(config=full.name, n_layers=cfg.n_layers, full_layers=full.n_layers,
@@ -1945,6 +2127,129 @@ def phase_dora(torch, card: str) -> dict:
     return out
 
 
+# ==============================================================================
+# phase 7: calibration on the card
+# ==============================================================================
+CAL_DIR = os.path.join(REPO, "build", "calibration")
+CAL_FLEET = 4          # logical devices, all on the one card (the executor's stages)
+CAL_SETTING = "traffic_monitor"
+
+
+def calibration_launches() -> Dict[str, int]:
+    """The launches ``calibrate_host`` makes, from ``measure_host``'s settings:
+    ``kernel_rates`` times each kernel through ``time_callable``, 2 warm-up
+    calls and 3 timed; each reduced step is called 2 + 5 times and launches
+    once a layer: qwen3's decode step decode_attention (its train step, at
+    sequence 32, stays below attn_chunk), mamba2's train step the SSD scan and
+    its backward (its decode step runs the recurrence alone)."""
+    from repro_torch.configs import reduced_config
+    rate, step = 2 + 3, 2 + 5
+    lq, lm = reduced_config("qwen3_32b").n_layers, reduced_config("mamba2_780m").n_layers
+    return {"flash_attention": rate, "flash_attention_bwd": 0,
+            "decode_attention": rate + step * lq, "ssd_scan": rate + step * lm,
+            "ssd_scan_bwd": step * lm, "rglru_scan": rate}
+
+
+def phase_calibrate(torch, card: str) -> dict:
+    """``repro_torch.calibrate`` on the card, as ``python -m
+    repro_torch.calibrate`` runs it with the reference's defaults: the
+    microbenchmarks and the ProfiledCosts artifact (``calibrate_host``, an
+    in-memory cache), the fidelity suite over ``CASES`` then ``QUICK_CASES``
+    (plan, price both ways, execute through the pipeline executor, compare),
+    the regression gate against the committed ``calibration/h100_fidelity.json``
+    (on a copy), and a Table 3 setting planned with the artifact. Both JSON
+    records are written under build/calibration and printed on one line."""
+    import shutil
+    from repro_torch import dora, kernels
+    from repro_torch.calibrate import fidelity, host, timing
+    from repro_torch.calibrate.microbench import measure_host
+
+    fleet = timing.Fleet("cuda", CAL_FLEET)
+    os.makedirs(CAL_DIR, exist_ok=True)
+    art, bench = os.path.join(CAL_DIR, "h100.json"), os.path.join(CAL_DIR, "h100_fidelity.json")
+    if os.path.exists(bench):
+        os.remove(bench)
+    cache = timing.MeasurementCache(path=None, fleet=fleet)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    costs = host.calibrate_host(cache, path=art)
+    host_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    measure = measure_host(cache)            # every value from the cache now
+    for k, v in measure.items():
+        log(card, f"calibration measurement {k}: {v:.6g}")
+    factor = next(iter(costs.compute_factor.values()))
+    log(card, f"calibrate_host ({timing.backend_key(fleet)}, {host_s:.1f} s): compute factor "
+              f"{factor:.6g} on {len(costs.compute_factor)} logical devices (claimed "
+              f"{costs.provenance['claimed_effective_flops']} FLOP/s, achieved "
+              f"{costs.provenance['achieved_contended_flops']}), hostmem bandwidth factor "
+              f"{costs.bandwidth_factor.get(host.HOSTMEM)}; step ratios (analytic / measured) "
+              + ", ".join(f"{k.split('/', 1)[1]} {v}" for k, v in sorted(costs.provenance.items())
+                          if k.startswith("step_ratio/")) + f"; launches {counts}")
+    need = calibration_launches()
+    if dict(counts) != need:
+        raise AssertionError(f"calibration's launches {dict(counts)}, not the {need} that "
+                             f"measure_host's repeats and the reduced configs' layers make")
+    log(card, "calibration/h100.json: " + costs.to_json(indent=None))
+
+    records = {}
+    for label, cases in (("current", fidelity.CASES), ("quick", fidelity.QUICK_CASES)):
+        t0 = time.perf_counter()
+        rec = fidelity.run_fidelity(cases, quick=label == "quick", cache=cache)
+        records[label] = rec
+        for name, r in rec["cases"].items():
+            log(card, f"fidelity {label} {name} ({r['mode']}, {r['n_stages']} stages, "
+                      f"{r['layers']} layers {r['d_model']}x{r['d_ff']}, {r['microbatches']} "
+                      f"microbatches, layout from the {r['layout']}): measured "
+                      f"{r['measured_s'] * 1e3:.3f} ms, calibrated "
+                      f"{r['calibrated']['predicted_s'] * 1e3:.3f} ms (error "
+                      f"{r['calibrated']['rel_err']:.4f}), uncalibrated "
+                      f"{r['uncalibrated']['predicted_s'] * 1e3:.3f} ms (error "
+                      f"{r['uncalibrated']['rel_err']:.4f}), compute factor "
+                      f"{r['compute_factor']:.6g}")
+        log(card, f"fidelity {label} ({time.perf_counter() - t0:.1f} s): mean error calibrated "
+                  f"{rec['mean_rel_err_calibrated']:.4f}, uncalibrated "
+                  f"{rec['mean_rel_err_uncalibrated']:.4f}, gain {rec['calibration_gain']:.2f}x")
+        if not rec["mean_rel_err_calibrated"] < rec["mean_rel_err_uncalibrated"]:
+            raise AssertionError(f"calibration does not help on the card ({label})")
+    fidelity.write_bench(records["current"], bench)
+    fidelity.write_quick(records["quick"], bench)
+    with open(bench, encoding="utf-8") as f:
+        log(card, "calibration/h100_fidelity.json: " + json.dumps(json.load(f)))
+
+    gate = None
+    committed = os.path.join(REPO, "calibration", "h100_fidelity.json")
+    if os.path.exists(committed):
+        copy = os.path.join(CAL_DIR, "committed_fidelity.json")
+        shutil.copyfile(committed, copy)
+        gate = fidelity.check_regression(copy, fleet)
+        log(card, f"check_regression against the committed calibration/h100_fidelity.json: "
+                  f"{'OK' if gate == 0 else 'FAIL'}")
+        if gate != 0:
+            raise AssertionError("calibrated fidelity regressed against the committed record")
+    else:
+        log(card, "no committed calibration/h100_fidelity.json yet: no regression gate")
+
+    # a Table 3 setting planned with the artifact; its devices are not host<i>,
+    # so the factors fall back to the defaults there; the same setting's model and
+    # workload over the measured fleet shows the calibrated prediction
+    plans = {}
+    for where, topo in (("Table 3 fleet", None),
+                        ("measured fleet", host.host_topology(measure, CAL_FLEET))):
+        for label, c in (("analytic", None), ("profiled", f"profiled:{art}")):
+            planner, wl = dora.planner_for(CAL_SETTING, topology=topo, costs=c)
+            best = planner.plan(wl).best
+            plans[f"{where} {label}"] = dict(latency_s=best.latency, stages=best.n_stages)
+        log(card, f"{CAL_SETTING} on the {where}: best plan's latency "
+                  f"{plans[f'{where} analytic']['latency_s'] * 1e3:.3f} ms analytic, "
+                  f"{plans[f'{where} profiled']['latency_s'] * 1e3:.3f} ms with costs="
+                  f"'profiled:build/calibration/h100.json' "
+                  f"({plans[f'{where} profiled']['stages']} stages)")
+    counts = kernels.launch_counts()
+    return dict(measure=measure, costs=json.loads(costs.to_json()), fidelity=records,
+                regression_gate=gate, plans=plans, launches=counts)
+
+
 def _to(tree, device):
     """A copy of ``tree`` on ``device`` (a copy on the same device too: the
     train step updates its parameters in place)."""
@@ -2016,6 +2321,8 @@ def ptxas_record(logs: Dict[str, str]) -> list:
     ssd_smem.argtypes, ssd_smem.restype = [ctypes.c_int], ctypes.c_int
     bwd_smem = ctypes.CDLL(str(_build._target("flash_attention_bwd"))).flash_attention_bwd_smem_bytes
     bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    bwd_ssd_smem = ctypes.CDLL(str(_build._target("ssd_scan_bwd"))).ssd_scan_bwd_smem_bytes
+    bwd_ssd_smem.argtypes, bwd_ssd_smem.restype = [ctypes.c_int], ctypes.c_int
     ssd_stage = {"ssd_kernel": 0, **{k: i + 1 for i, k in enumerate(SSD_STAGES)}}
     out = []
     for src, text in logs.items():
@@ -2048,6 +2355,9 @@ def ptxas_record(logs: Dict[str, str]) -> list:
             r["dynamic_smem"] = smem[r["source"]](dtype, dims[0])
         if r["source"] == "ssd_scan":
             r["dynamic_smem"] = ssd_smem(ssd_stage[fn.split("<")[0]])
+        if r["source"] == "ssd_scan_bwd" and fn.split("<")[0] in ("ssd_bwd_state_kernel",
+                                                                 "ssd_bwd_chunk_kernel"):
+            r["dynamic_smem"] = bwd_ssd_smem(0 if "state" in fn else 1)
         if r["source"] == "flash_attention_bwd" and dims:      # wgmma / f32 dk/dv (0), f32 dq (1)
             r["dynamic_smem"] = bwd_smem(0 if "f32" in fn else 1, dims[-1],
                                          1 if "dq_f32" in fn else 0)
@@ -2086,7 +2396,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = ["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
-             "rglru_scan"]
+             "ssd_scan_bwd", "rglru_scan"]
     logs = _build.build(names)
     log(card, f"built the kernels in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     ptxas = ptxas_record(logs)
@@ -2128,6 +2438,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dora = phase_dora(torch, card)           # phase 6
+    gc.collect()
+    torch.cuda.empty_cache()
+    calibration = phase_calibrate(torch, card)   # phase 7
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -2139,6 +2452,9 @@ def main() -> int:
                                     "src/repro/kernels/decode_attention.py:30"),
                "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                             "src/repro/kernels/ssd_scan.py:34"),
+               # no Pallas kernel: the gradient the JAX package takes through ssd_chunked
+               "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                                "src/repro/models/ssm.py:28"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                               "src/repro/kernels/rglru_scan.py:34")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
@@ -2147,8 +2463,10 @@ def main() -> int:
     # the main entry is each kernel's qwen3-32b (or only) shape; the other
     # timed shapes ride beside it, each with the same keys
     extra = {"flash_attention": ("d256", "d80", "g48"),
-             "decode_attention": ("d256", "d80", "g48"), "flash_attention_bwd": ("d80", "g48")}
-    extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48"}
+             "decode_attention": ("d256", "d80", "g48", "d16"),
+             "flash_attention_bwd": ("d80", "g48")}
+    extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
+                 "d16": "head_dim_16"}
     for name in names:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})
@@ -2156,17 +2474,19 @@ def main() -> int:
                         for k, label in (("forward", "pipeline forward"),
                                          ("gradients", "pipeline gradients"),
                                          ("launcher", "planning launcher"))})
+        by_path["calibration"] = calibration["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
                  "card": card}
         for x in extra.get(name, ()):
             entry[extra_key[x]] = {k: kern[f"{name}_{x}"][k] for k in keys}
-        if name in ("ssd_scan", "flash_attention_bwd"):
+        if name in ("ssd_scan", "ssd_scan_bwd", "flash_attention_bwd"):
             entry["stages_ms"] = kern[name]["stages_ms"]
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
-              "small_train": small_train, "train": train, "dora": dora, "ptxas": ptxas,
+              "small_train": small_train, "train": train, "dora": dora,
+              "calibration": calibration, "ptxas": ptxas,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -46,7 +46,8 @@
 // shared memory; the two warps merge their (m, l, acc) there once, at the
 // end. head_dim 80 (h2o-danube-1.8b) is five k-steps of 16 and ten n8
 // tiles of the same products, with rows padded to 88 elements (176 bytes,
-// conflict-free for ldmatrix). ptxas -v (nvcc 12.8, sm_90a), D = 64 / 80 /
+// conflict-free for ldmatrix). head_dim 16 (the reduced dense configs that
+// calibration times) is one k-step of Q K^T and two n8 tiles of P V. ptxas -v (nvcc 12.8, sm_90a), D = 64 / 80 /
 // 128 / 256: 79 / 118 / 124 / 180 registers, 0 bytes of spills, 29952 /
 // 36608 / 56576 / 109824 bytes of dynamic shared memory, so up to four
 // blocks fit on an SM at D <= 128 and two at D = 256.
@@ -57,7 +58,8 @@
 // same partials. At D = 80 the P V step's 20 float4 columns leave 16 of
 // its 256 threads without a key subset (12 subsets of 20 threads); those
 // threads idle there, and the combine kernel's 20 columns leave 16 threads
-// idle the same way.
+// idle the same way. At D = 16 the P V step takes 16 key subsets of 4
+// threads (64 of 256 busy), so that its reduction buffer fits in the K tile.
 //
 // NEG_INF is finite (-2e38), as in the TPU kernel, and masked keys get a
 // weight of exactly 0, so no row ever produces NaN.
@@ -371,7 +373,9 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                   int KV, int window, int split_len, int n_splits, float scale2) {
   constexpr int KS = D + 8;          // padded K row: conflict-free float4 reads
   constexpr int NCH = D / 4;         // float4 chunks of an output row
-  constexpr int NKS = NT32 / NCH;    // key subsets in the PV step (threads past NKS * NCH idle)
+  // key subsets in the PV step (threads past NKS * NCH idle); at most 16, so
+  // that the reduction buffer fits in the K tile at D = 16
+  constexpr int NKS = NT32 / NCH < 16 ? NT32 / NCH : 16;
   constexpr int TPK = NT32 / BK;     // threads sharing a key in the score step
   static_assert(NKS * GC * D <= BK * KS, "reduction buffer must fit in the K tile");
   static_assert(BK % 32 == 0 && D % (4 * TPK) == 0, "tile shapes");
@@ -690,10 +694,12 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, const void
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
 #define DECODE_ARGS q, k, v, cache_len, ml, acc, o, B, Tk, H, KV, window, split_len, n_splits, scale, st
+  if (dtype == 1 && D == 16) return launch_bf16<16>(DECODE_ARGS);
   if (dtype == 1 && D == 64) return launch_bf16<64>(DECODE_ARGS);
   if (dtype == 1 && D == 80) return launch_bf16<80>(DECODE_ARGS);
   if (dtype == 1 && D == 128) return launch_bf16<128>(DECODE_ARGS);
   if (dtype == 1 && D == 256) return launch_bf16<256>(DECODE_ARGS);
+  if (dtype == 0 && D == 16) return launch_f32<16>(DECODE_ARGS);
   if (dtype == 0 && D == 64) return launch_f32<64>(DECODE_ARGS);
   if (dtype == 0 && D == 80) return launch_f32<80>(DECODE_ARGS);
   if (dtype == 0 && D == 128) return launch_f32<128>(DECODE_ARGS);
@@ -704,10 +710,12 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, const void
 
 // Dynamic shared memory of one block of the partial kernel for (dtype, D), in bytes.
 int decode_attention_smem_bytes(int dtype, int D) {
+  if (dtype == 1 && D == 16) return int(MmaSmem<16>::bytes);
   if (dtype == 1 && D == 64) return int(MmaSmem<64>::bytes);
   if (dtype == 1 && D == 80) return int(MmaSmem<80>::bytes);
   if (dtype == 1 && D == 128) return int(MmaSmem<128>::bytes);
   if (dtype == 1 && D == 256) return int(MmaSmem<256>::bytes);
+  if (dtype == 0 && D == 16) return int(smem_bytes<16, key_tile<16>()>());
   if (dtype == 0 && D == 64) return int(smem_bytes<64, key_tile<64>()>());
   if (dtype == 0 && D == 80) return int(smem_bytes<80, key_tile<80>()>());
   if (dtype == 0 && D == 128) return int(smem_bytes<128, key_tile<128>()>());

@@ -4,7 +4,8 @@ module with its plain PyTorch version and a launch counter:
 * ``flash_attention``  — causal/SWA/GQA flash attention (prefill, training)
 * ``flash_attention_bwd`` — its gradient (training; in the same module)
 * ``decode_attention`` — one token against the KV cache (decode)
-* ``ssd_scan``         — Mamba-2 SSD chunked scan (mamba2 prefill)
+* ``ssd_scan``         — Mamba-2 SSD chunked scan (mamba2 prefill, training)
+* ``ssd_scan_bwd``     — its gradient (training; in the same module)
 * ``rglru_scan``       — RG-LRU linear recurrence (recurrentgemma prefill)
 
 The public entry points are in ``ops``; the submodule names stay free for
@@ -17,7 +18,8 @@ from . import decode_attention, flash_attention, rglru_scan, ssd_scan
 KERNELS = {"flash_attention": (flash_attention, "launches"),
            "flash_attention_bwd": (flash_attention, "bwd_launches"),
            "decode_attention": (decode_attention, "launches"),
-           "ssd_scan": (ssd_scan, "launches"), "rglru_scan": (rglru_scan, "launches")}
+           "ssd_scan": (ssd_scan, "launches"), "ssd_scan_bwd": (ssd_scan, "bwd_launches"),
+           "rglru_scan": (rglru_scan, "launches")}
 
 
 def reset_launches() -> None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd, flash_attention_fwd
 from .rglru_scan import rglru_scan
-from .ssd_scan import ssd_scan
+from .ssd_scan import ssd_scan, ssd_scan_bwd
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "decode_attention",
-           "ssd_scan", "rglru_scan"]
+           "ssd_scan", "ssd_scan_bwd", "rglru_scan"]

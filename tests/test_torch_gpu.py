@@ -117,7 +117,9 @@ def test_decode_attention_kernel_matches_plain(dtype):
             ((3, 32, 8, 1, 64), [32, 5, 1], 8),                   # one split
             ((4, 4128, 32, 8, 80), [4128, 4097, 100, 0], None),   # h2o-danube-1.8b
             ((3, 300, 8, 2, 80), [300, 101, 7], 96),
-            ((4, 4128, 48, 1, 128), [4128, 4000, 17, 1], None)]:  # granite-20b's G = 48
+            ((4, 4128, 48, 1, 128), [4128, 4000, 17, 1], None),   # granite-20b's G = 48
+            ((2, 64, 8, 2, 16), [64, 33], None),        # the reduced dense configs' d = 16
+            ((3, 300, 8, 2, 16), [300, 101, 0], 96)]:
         if T == 32:
             assert kernels.decode_attention.split_plan(T, B, KV, H // KV)[1] == 1
         q = torch.randn((B, 1, H, d), generator=gen, device="cuda").to(dtype)
@@ -343,22 +345,94 @@ def test_flash_attention_autograd_on_card_runs_both_kernels():
 
 @pytest.mark.gpu
 def test_kernels_without_backward_refuse_grad():
-    """decode_attention, ssd_scan and rglru_scan have no backward on the
-    card: a call that needs a gradient raises instead of dropping it."""
+    """decode_attention and rglru_scan have no backward on the card: a call
+    that needs a gradient raises instead of dropping it (ssd_scan has one
+    since its backward kernel came)."""
     _card()
     q = torch.zeros((1, 1, 4, 64), device="cuda", requires_grad=True)
     kc = torch.zeros((1, 32, 4, 64), device="cuda")
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.decode_attention(q, kc, kc, lens)
-    x = torch.zeros((1, 64, 4, 32), device="cuda", requires_grad=True)
-    a, bc = torch.zeros((1, 64, 4), device="cuda"), torch.zeros((1, 64, 1, 32), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd_scan(x, a, bc, bc, chunk=32)
+    a = torch.zeros((1, 64, 4), device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.rglru_scan(a.requires_grad_(True), a.detach())
     with torch.no_grad():                              # without grad they run
         ops.decode_attention(q, kc, kc, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_matches_plain(dtype):
+    """The backward kernels against ssd_scan_bwd_ref on the same values:
+    the reduced mamba2 train step's shape, kernel_rates', grouped, a group
+    a head with chunk 100, and mamba2-780m's heads at chunk 256; with and
+    without the final state's cotangent. da_log (float32 whatever the
+    input type) is held to the float32 tolerance."""
+    gen = _card()
+    for (B, S, H, P, G, N, chunk), with_state in [
+            ((2, 64, 8, 32, 1, 16, 32), False), ((1, 256, 4, 64, 1, 64, 128), True),
+            ((1, 192, 8, 32, 2, 32, 64), True), ((1, 300, 4, 16, 4, 16, 100), True),
+            ((1, 512, 4, 64, 1, 128, 256), False)]:
+        x = (torch.randn((B, S, H, P), generator=gen, device="cuda") * 0.1).to(dtype)
+        a = -torch.randn((B, S, H), generator=gen, device="cuda").abs() * 0.1
+        b, c = ((torch.randn((B, S, G, N), generator=gen, device="cuda") * 0.1).to(dtype)
+                for _ in range(2))
+        dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+        dst = torch.randn((B, H, P, N), generator=gen, device="cuda") if with_state else None
+        b0 = ssd.bwd_launches
+        got = ops.ssd_scan_bwd(x, a, b, c, dy, dst, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd.bwd_launches == b0 + 1
+        exp = ref.ssd_scan_bwd_ref(x.float(), a, b.float(), c.float(), dy.float(), dst, chunk)
+        for name, g, e, t in zip(("dx", "da", "db", "dc"), got, exp, (x, a, b, c)):
+            assert g.dtype == t.dtype and g.shape == t.shape, name
+            if g.dtype == torch.float32:
+                torch.testing.assert_close(g, e, **F32_TOL)
+            else:
+                _assert_within_bf16_bound(g, e)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_autograd_on_card_runs_both_kernels():
+    """Autograd through ops.ssd_scan on the card (forward kernel, then the
+    backward kernels) against autograd through the plain version on the
+    CPU."""
+    gen = _card()
+    shapes = ((2, 64, 8, 32), (2, 64, 8), (2, 64, 1, 16), (2, 64, 1, 16))
+    xs = [torch.randn(s, generator=gen, device="cuda") * 0.1 for s in shapes]
+    xs[1] = -xs[1].abs()
+    xs = [t.requires_grad_(True) for t in xs]
+    n0, b0 = ssd.launches, ssd.bwd_launches
+    y, state = ops.ssd_scan(*xs, chunk=32)
+    grads = torch.autograd.grad(y.square().sum() + state.sum(), xs)
+    assert (ssd.launches, ssd.bwd_launches) == (n0 + 1, b0 + 1)
+    cs = [t.detach().cpu().requires_grad_(True) for t in xs]
+    yc, sc = ref.ssd_scan_ref(*cs, 32)
+    exp = torch.autograd.grad(yc.square().sum() + sc.sum(), cs)
+    for g, e in zip(grads, exp):
+        torch.testing.assert_close(g.cpu(), e, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_calibration_microbenchmarks_launch_the_kernels():
+    """kernel_rates on the card launches each of the four kernels; the
+    reduced mamba2 train step launches the SSD scan's forward and backward,
+    the reduced qwen3 decode step the d = 16 decode kernel."""
+    from repro_torch.calibrate import microbench
+    _card()
+    kernels.reset_launches()
+    rates = microbench.kernel_rates(repeats=1)
+    counts = kernels.launch_counts()
+    assert all(v > 0 for v in rates.values())
+    for name in ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan"):
+        assert counts[name] > 0, (name, counts)
+    kernels.reset_launches()
+    assert microbench.step_seconds("mamba2_780m", "train", repeats=1) > 0
+    assert kernels.launch_counts()["ssd_scan_bwd"] > 0
+    kernels.reset_launches()
+    assert microbench.step_seconds("qwen3_32b", "decode", repeats=1) > 0
+    assert kernels.launch_counts()["decode_attention"] > 0
 
 
 @pytest.mark.gpu

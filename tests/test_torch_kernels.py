@@ -249,6 +249,7 @@ def test_flash_attention_lse_ref_row_without_live_key_is_inf():
     (2, 512, 4, 4, 64),
     (2, 300, 16, 1, 256),     # recurrentgemma's MQA head_dim
     (2, 300, 8, 2, 80),       # h2o-danube-1.8b's head_dim
+    (2, 64, 8, 2, 16),        # the reduced dense configs' head_dim (calibration's decode step)
 ])
 @pytest.mark.parametrize("window", [None, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -446,6 +447,97 @@ def test_ssd_state_passing_matches_a_step_by_step_loop(with_h0):
         np.testing.assert_allclose(_np(prev[:, ci]), h, atol=2e-5, rtol=2e-5)
         h = np.exp(a_cum[:, :, ci, -1].astype(np.float64))[..., None, None] * h + states[:, ci]
     np.testing.assert_allclose(_np(final), h, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------- ssd backward
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 64, 8, 32, 1, 16, 32),       # the reduced mamba2 train step's shape (two chunks)
+    (1, 256, 4, 64, 1, 64, 128),     # kernel_rates' shape
+    (1, 192, 8, 32, 2, 32, 64),      # two groups, three chunks
+    (1, 300, 4, 16, 4, 16, 100),     # a group per head, chunk 100
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_bwd_plain_matches_jax_vjp(B, S, H, P, G, N, chunk, dtype):
+    """ssd_scan_bwd_ref (the stages' adjoints written out, no autograd)
+    against jax.vjp of the JAX package's ``ssd_chunked``, with cotangents
+    on y and on the final state. bfloat16: both take the same bf16 values,
+    JAX differentiates them in float32; the plain version returns dx, db,
+    dc in bf16, within the bfloat16 tolerance."""
+    rng = np.random.default_rng(11)
+    jargs, targs = _ssd_inputs(rng, B, S, H, P, G, N, dtype)
+    jdy, tdy = _pair(rng, (B, S, H, P), dtype)
+    jds, tds = _pair(rng, (B, H, P, N), "float32")
+    jargs = tuple(t.astype(jnp.float32) for t in jargs)
+    _, vjp = jax.vjp(lambda x, a, b, c: jssd_chunked(x, a, b, c, chunk), *jargs)
+    want = vjp((jdy.astype(jnp.float32), jds))
+    got = ref.ssd_scan_bwd_ref(*targs, tdy, tds, chunk)
+    for g, w, t in zip(got, want, targs):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        tol = _tol(dtype) if t.dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(_np(g), _np(w), **tol)
+
+
+def test_ssd_scan_bwd_without_a_state_cotangent():
+    """``dstate=None`` reads as a zero cotangent of the final state."""
+    rng = np.random.default_rng(12)
+    jargs, targs = _ssd_inputs(rng, 1, 128, 4, 32, 1, 16, "float32")
+    jdy, tdy = _pair(rng, (1, 128, 4, 32), "float32")
+    _, vjp = jax.vjp(lambda x, a, b, c: jssd_chunked(x, a, b, c, 32), *jargs)
+    want = vjp((jdy, jnp.zeros((1, 4, 32, 16), jnp.float32)))
+    for g, w in zip(ref.ssd_scan_bwd_ref(*targs, tdy, None, 32), want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=2e-5, rtol=2e-5)
+
+
+def test_ssd_scan_autograd_on_cpu_equals_plain_bwd():
+    """On CPU tensors autograd differentiates the plain forward; it agrees
+    with the plain backward the card's kernel is held to, and launches
+    nothing."""
+    rng = np.random.default_rng(13)
+    _, targs = _ssd_inputs(rng, 2, 96, 4, 16, 2, 16, "float32")
+    targs = [t.requires_grad_(True) for t in targs]
+    dy = torch.from_numpy(rng.standard_normal((2, 96, 4, 16)).astype(np.float32))
+    dst = torch.from_numpy(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
+    before = kernels.launch_counts()
+    y, state = ops.ssd_scan(*targs, chunk=32)
+    grads = torch.autograd.grad((y, state), targs, (dy, dst))
+    assert kernels.launch_counts() == before
+    with torch.no_grad():
+        exp = ops.ssd_scan_bwd(*targs, dy, dst, chunk=32)
+    for g, w in zip(grads, exp):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("use_state", [False, True])
+def test_ssd_scan_fn_saves_the_inputs_and_calls_the_backward(monkeypatch, use_state):
+    """``SsdScanFn`` (the card's autograd wiring) with its kernels replaced
+    by the plain versions: autograd's gradients through it equal the plain
+    backward's, a final state left out of the loss reaches the backward as
+    None, and each backward counts one ``ssd_scan_bwd`` launch."""
+    calls = []
+
+    def fake_bwd(x, a_log, b, c, dy, dstate=None, *, chunk=256):
+        calls.append(dstate is None)
+        tssd.bwd_launches += 1
+        return tssd.ssd_scan_bwd_ref(x, a_log, b, c, dy, dstate, chunk)
+    monkeypatch.setattr(tssd, "_forward", lambda x, a, b, c, chunk: tssd.ssd_chunked(
+        x, a, b, c, chunk))
+    monkeypatch.setattr(tssd, "ssd_scan_bwd", fake_bwd)
+    rng = np.random.default_rng(14)
+    _, targs = _ssd_inputs(rng, 1, 64, 4, 16, 1, 16, "float32")
+    targs = [t.requires_grad_(True) for t in targs]
+    dy = torch.from_numpy(rng.standard_normal((1, 64, 4, 16)).astype(np.float32))
+    dst = torch.from_numpy(rng.standard_normal((1, 4, 16, 16)).astype(np.float32))
+    before = kernels.launch_counts()
+    y, state = tssd.SsdScanFn.apply(*targs, 32)
+    loss = (y * dy).sum() + ((state * dst).sum() if use_state else 0.0)
+    grads = torch.autograd.grad(loss, targs)
+    after = kernels.launch_counts()
+    assert calls == [not use_state]
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    exp = tssd.ssd_scan_bwd_ref(*(t.detach() for t in targs), dy, dst if use_state else None,
+                                32)
+    for g, w in zip(grads, exp):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------- rglru

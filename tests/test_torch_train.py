@@ -13,7 +13,10 @@ moment, so a rounding-level difference of a tiny gradient becomes an
 lr-sized difference of its parameter, and post-Adam parameters are not a
 fair comparison. attn_chunk below S sends attention down the chunked path
 (the flash kernel's plain version in the port, the query-chunked remat
-attention in the JAX package), above S the plain GQA path.
+attention in the JAX package), above S the plain GQA path. mamba2_780m's
+reduced config (S = 32, one chunk of 32) trains through the SSD scan, whose
+backward on the card is the ``ssd_scan_bwd`` kernel and here autograd
+through its plain version.
 """
 import dataclasses
 import os
@@ -50,6 +53,8 @@ def _weights(arch, **overrides):
     weights = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
     for block in weights["stack"].values():
         for name in ("wq", "wk"):
+            if name not in block["mixer"]:          # an SSM block (mamba2) has neither
+                continue
             w = block["mixer"][name]
             block["mixer"][name] = (w * np.float32(0.3)).astype(w.dtype)
     return jm, weights
@@ -91,6 +96,8 @@ def _walk(t, j, fn):
     ("granite_8b", 8, "none", False),
     ("qwen3_32b", 8, "full", True),
     ("granite_8b", 64, "none", True),
+    ("mamba2_780m", 64, "full", False),    # the SSD scan's backward (its plain version here)
+    ("mamba2_780m", 64, "none", True),
 ])
 def test_loss_and_grads_match_jax(arch, attn_chunk, remat, mask):
     jm, weights = _weights(arch, attn_chunk=attn_chunk)
@@ -126,7 +133,8 @@ def test_remat_dots_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("arch,attn_chunk,remat", [("qwen3_32b", 8, "full"),
-                                                   ("granite_8b", 64, "none")])
+                                                   ("granite_8b", 64, "none"),
+                                                   ("mamba2_780m", 64, "full")])
 def test_train_step_matches_jax(arch, attn_chunk, remat):
     kw = dict(peak_lr=1e-3, warmup=2, total=10, remat=remat)
     jm, weights = _weights(arch, attn_chunk=attn_chunk)
