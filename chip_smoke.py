@@ -5,9 +5,9 @@
 
 Builds the hand-written CUDA kernels from csrc/ (one nvcc a source, all
 started together; each instance's registers, stack, spills and shared
-memory printed from ``ptxas -v``, the HMMA count of each SSD stage and the
-HGMMA count of the flash backward's main kernel from ``cuobjdump -sass``;
-a spill in the flash backward fails) and runs these
+memory printed from ``ptxas -v``, the HMMA count of each SSD stage, forward
+and bf16 backward, and the HGMMA count of the flash backward's main kernel
+from ``cuobjdump -sass``; a spill in the flash backward fails) and runs these
 phases:
 
 1. the device: name and power limit from nvidia-smi;
@@ -34,8 +34,8 @@ phases:
    on 8 of 128; h2o-danube-1.8b's 2 x 4096 in bf16 and float32); decode at
    head_dim 16 (calibration's reduced qwen3 decode step in float32, longer
    caches in both types); and the SSD scan's backward (dx, da_log, db, dc)
-   at mamba2-780m's training shape (B=4, S=4096, bf16; each of its four
-   kernels timed by the profiler) and the reduced calibration step's
+   at mamba2-780m's training shape (B=4, S=4096, bf16; each of its six
+   bf16 kernels timed by the profiler) and the reduced calibration step's
    (float32), grouped, ragged chunk, with and without the final state's
    cotangent, against its plain version; and every kernel at the shapes of
    phase 7's calibration path in float32 (``kernel_rates``' flash, decode,
@@ -663,8 +663,11 @@ def kernels_ssd(kp: KernelPhase) -> None:
     torch.cuda.empty_cache()
 
 
-SSD_BWD_STAGES = ("ssd_bwd_state_kernel", "ssd_bwd_passing_kernel", "ssd_bwd_chunk_kernel",
-                  "ssd_bwd_convert_kernel")
+# the bf16 backward's kernels, in launch order (float32 keeps ssd_bwd_state_kernel,
+# ssd_bwd_passing_kernel and ssd_bwd_chunk_kernel on the CUDA cores)
+SSD_BWD_STAGES = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_passing_kernel",
+                  "ssd_bwd_dcb_kernel", "ssd_bwd_dx_kernel", "ssd_bwd_dbdc_kernel",
+                  "ssd_bwd_da_kernel")
 # (name, (B, S, H, P, G, N, chunk), dtype, with the final state's cotangent): the
 # first is mamba2-780m's training shape, the second the reduced mamba2 train step
 # that calibration times
@@ -674,15 +677,27 @@ SSD_BWD_CASES = [
     ("calibration f32", CAL_SSD, "float32", False),
     ("grouped f32 state", (2, 512, 8, 32, 2, 64, 128), "float32", True),
     ("chunk 100 bf16 state", (1, 300, 4, 64, 4, 32, 100), "bfloat16", True),
-    ("f32 P64 N128 chunk 256", (1, 1024, 4, SSD_P, 1, SSD_N, SSD_CHUNK), "float32", True)]
+    ("f32 P64 N128 chunk 256", (1, 1024, 4, SSD_P, 1, SSD_N, SSD_CHUNK), "float32", True),
+    # two groups of four heads: db and dc summed over each group's heads
+    ("grouped bf16 state", (2, 512, 8, 32, 2, 64, 128), "bfloat16", True),
+    ("grouped bf16 P64 N128 chunk 256", (1, 1024, 8, SSD_P, 2, SSD_N, SSD_CHUNK), "bfloat16",
+     True)]
 
 
 def ssd_bwd_ops(B: int, S: int, H: int, P: int, G: int, N: int, L: int) -> float:
-    """The backward's least work, 2 operations a multiply-add: C B^T once per
-    group over the causal (query, key) pairs of each chunk; per head dy X^T,
-    the dx, dC and dB products over the same pairs, and the five L x P x N
-    state products (the chunk's state, dy's share of d prev, B dst^T, X dst,
-    dy prev)."""
+    """The backward's least work, 2 operations a multiply-add: per group and
+    chunk three L x L x N products over the causal (query, key) pairs (C B^T,
+    dC = dcb B, dB = dcb^T C, with dcb the group's heads' (dy X^T) o lmat
+    summed first); per head two L x L x P products over the same pairs (dy
+    X^T, dx) and the five L x P x N state products (the chunk's state, dy's
+    share of d prev, B dst^T, X dst, dy prev)."""
+    nc, pairs = S // L, L * (L + 1) // 2
+    return 2.0 * B * nc * (3 * G * pairs * N + H * (2 * pairs * P + 5 * L * P * N))
+
+
+def ssd_bwd_ops_per_head(B: int, S: int, H: int, P: int, G: int, N: int, L: int) -> float:
+    """The float32 CUDA-core design's own count: C B^T once per group, the dC
+    and dB products per head."""
     nc, pairs = S // L, L * (L + 1) // 2
     return 2.0 * B * nc * (G * pairs * N + H * (pairs * (2 * P + 2 * N) + 5 * L * P * N))
 
@@ -723,6 +738,7 @@ def kernels_ssd_bwd(kp: KernelPhase) -> None:
             # x, dy read and dx written; b, c read and db, dc written; a_log read, da_log written
             nbytes = elt * (3 * B * S * h * P + 4 * B * S * G * N) + 2 * 4 * B * S * h
             ops_n = ssd_bwd_ops(B, S, h, P, G, N, L)
+            ops_head = ssd_bwd_ops_per_head(B, S, h, P, G, N, L)
             bound_ms, bound_by = bound(ops_n, nbytes, dt)
             ms = cuda_ms(torch, lambda: ops.ssd_scan_bwd(x, a, b, c, dy, None, chunk=L), reps=5)
             plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_bwd_ref(x, a, b, c, dy, None, L),
@@ -741,18 +757,23 @@ def kernels_ssd_bwd(kp: KernelPhase) -> None:
             rec["ssd_scan_bwd"] = dict(
                 shape=dict(B=B, S=S, H=h, P=P, G=G, N=N, chunk=L, dtype=dt),
                 ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share, tol=tol,
-                stages_ms=stages)
+                ops=ops_n, ops_per_head=ops_head,
+                ops_per_head_ms=ops_head / PEAK_OPS[dt] * 1e3, bytes=nbytes, max_abs_err=err,
+                bound_share=share, tol=tol, stages_ms=stages)
             for k in SSD_BWD_STAGES:
                 log(card, f"ssd_scan_bwd stage {k}: {stages[k]:.4f} ms on the device (profiler, "
                           f"mean of 3 calls)")
         del x, a, b, c, dy, dst, got, exp
         torch.cuda.empty_cache()
     r = rec["ssd_scan_bwd"]
+    worst = max((cs for cs in cases_out if cs["kernel"] == "ssd_scan_bwd"),
+                key=lambda cs: cs["bound_share"])
     log(card, f"ssd_scan_bwd at the training path's shape (bf16): kernels {r['ms']:.3f} ms, "
               f"plain {r['plain_ms']:.3f} ms, no single PyTorch call computes it, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['ops'] / 1e9:.1f} GFLOP, "
-              f"{r['bytes'] / 1e6:.1f} MB)")
+              f"{r['bytes'] / 1e6:.1f} MB); the per-head count, {r['ops_per_head'] / 1e9:.1f} "
+              f"GFLOP, would take {r['ops_per_head_ms']:.4f} ms; the worst case's share of its "
+              f"bound {worst['bound_share']:.3f} ({worst['case']})")
 
 
 def kernels_rglru(kp: KernelPhase) -> None:
@@ -2324,6 +2345,9 @@ def ptxas_record(logs: Dict[str, str]) -> list:
     bwd_ssd_smem = ctypes.CDLL(str(_build._target("ssd_scan_bwd"))).ssd_scan_bwd_smem_bytes
     bwd_ssd_smem.argtypes, bwd_ssd_smem.restype = [ctypes.c_int], ctypes.c_int
     ssd_stage = {"ssd_kernel": 0, **{k: i + 1 for i, k in enumerate(SSD_STAGES)}}
+    bwd_ssd_stage = {"ssd_bwd_state_kernel": 0, "ssd_bwd_chunk_kernel": 1,
+                     "ssd_bwd_chunk_state_kernel": 2, "ssd_bwd_dcb_kernel": 3,
+                     "ssd_bwd_dx_kernel": 4, "ssd_bwd_dbdc_kernel": 5}
     out = []
     for src, text in logs.items():
         cur = None
@@ -2355,13 +2379,13 @@ def ptxas_record(logs: Dict[str, str]) -> list:
             r["dynamic_smem"] = smem[r["source"]](dtype, dims[0])
         if r["source"] == "ssd_scan":
             r["dynamic_smem"] = ssd_smem(ssd_stage[fn.split("<")[0]])
-        if r["source"] == "ssd_scan_bwd" and fn.split("<")[0] in ("ssd_bwd_state_kernel",
-                                                                 "ssd_bwd_chunk_kernel"):
-            r["dynamic_smem"] = bwd_ssd_smem(0 if "state" in fn else 1)
+        if r["source"] == "ssd_scan_bwd" and fn in bwd_ssd_stage:
+            r["dynamic_smem"] = bwd_ssd_smem(bwd_ssd_stage[fn])
         if r["source"] == "flash_attention_bwd" and dims:      # wgmma / f32 dk/dv (0), f32 dq (1)
             r["dynamic_smem"] = bwd_smem(0 if "f32" in fn else 1, dims[-1],
                                          1 if "dq_f32" in fn else 0)
     counts = {"ssd_scan": ("hmma", sass_count("ssd_scan", "HMMA")),
+              "ssd_scan_bwd": ("hmma", sass_count("ssd_scan_bwd", "HMMA")),
               "flash_attention_bwd": ("hgmma", sass_count("flash_attention_bwd", "HGMMA"))}
     for r in out:
         if r["source"] in counts and r["function"] in counts[r["source"]][1]:
@@ -2407,9 +2431,12 @@ def main() -> int:
                   f"{r.get('dynamic_smem', 'none')}"
                   + (f", {r['hmma']} HMMA in its SASS" if "hmma" in r else "")
                   + (f", {r['hgmma']} HGMMA in its SASS" if "hgmma" in r else ""))
-    # the bf16 SSD stages that multiply run on the tensor cores
-    hmma = {r["function"]: r.get("hmma", 0) for r in ptxas if r["source"] == "ssd_scan"}
-    no_hmma = [k for k in SSD_STAGES if k != "ssd_state_passing_kernel" and not hmma.get(k)]
+    # the bf16 SSD stages that multiply, forward and backward, run on the tensor cores
+    hmma = {r["function"]: r.get("hmma", 0) for r in ptxas
+            if r["source"] in ("ssd_scan", "ssd_scan_bwd")}
+    no_hmma = [k for k in SSD_STAGES + SSD_BWD_STAGES
+               if k not in ("ssd_state_passing_kernel", "ssd_bwd_state_passing_kernel",
+                            "ssd_bwd_da_kernel") and not hmma.get(k)]
     if no_hmma:
         raise AssertionError(f"no HMMA in the SASS of {no_hmma} (found {hmma})")
     # the bf16 flash backward's main kernel runs on wgmma, in every instance

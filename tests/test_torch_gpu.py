@@ -415,6 +415,85 @@ def test_ssd_scan_autograd_on_card_runs_both_kernels():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,with_state", [
+    (2, 512, 4, 64, 1, 128, 256, False),   # mamba2-780m's head and state sizes
+    (2, 512, 8, 32, 2, 64, 128, True),     # two groups of four heads
+    (1, 300, 4, 64, 4, 32, 100, True),     # a group a head, a chunk off the 64-row tiles
+    (2, 64, 8, 16, 1, 16, 32, False),      # the smallest P and N
+    (1, 96, 2, 48, 1, 80, 48, True),       # P and N that leave some warp tiles part empty
+    (1, 300, 2, 32, 1, 32, 150, True)])    # three 64-row tiles: a half-empty 128-row block
+def test_ssd_bwd_bf16_stage_kernels_match_their_plain_stages(B, S, H, P, G, N, chunk,
+                                                             with_state):
+    """Each bf16 backward stage kernel against its plain stage on the same
+    inputs (the plain stages' outputs feed the next kernel): a_cum, the
+    chunk states, d_prev, prev and dst (summed over their bf16 planes),
+    d_last, cbT, d_intra and d_state (summed over their slots) and da at the
+    float32 tolerance; dcbT, dx, db and dc at the bf16 bound."""
+    gen = _card()
+    x, a, b, c = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
+    dy = torch.randn((B, S, H, P), generator=gen, device="cuda").bfloat16()
+    dst = torch.randn((B, H, P, N), generator=gen, device="cuda") if with_state else None
+    xf, bf, cf, dyf = x.float(), b.float(), c.float(), dy.float()
+    nc, lp = S // chunk, -(-chunk // 64) * 64
+    states_e, d_prev_e, a_cum_e = (t.contiguous() for t in ssd.ssd_bwd_chunk_state(
+        xf, a, bf, cf, dyf, chunk))
+    states, d_prev, a_cum = ssd.bwd_chunk_state_kernel(x, a, b, c, dy, chunk)
+    for got, exp in ((states, states_e), (d_prev, d_prev_e), (a_cum, a_cum_e)):
+        torch.testing.assert_close(got, exp, **F32_TOL)
+    prev_e, dst_e, d_last_e = ssd.ssd_bwd_state_passing(states_e, d_prev_e, a_cum_e, dst)
+    prev3, dst3, d_last = ssd.bwd_state_passing_kernel(states_e, d_prev_e, a_cum_e, dst)
+    assert prev3.shape == (B, nc, H, 3, P, N) and prev3.dtype == torch.bfloat16
+    torch.testing.assert_close(prev3.float().sum(-3), prev_e, **F32_TOL)
+    torch.testing.assert_close(dst3.float().sum(-3), dst_e, **F32_TOL)
+    torch.testing.assert_close(d_last.sum(-1), d_last_e, **F32_TOL)
+    cb_e, dcb_e, d_intra_e = ssd.ssd_bwd_dcb(xf, dyf, bf, cf, a_cum_e, chunk)
+    cbT, dcbT, d_intra = ssd.bwd_dcb_kernel(x, dy, b, c, a_cum_e)
+    tile = torch.arange(chunk, device="cuda") // 64
+    upper = tile[None, :] >= tile[:, None]               # the [j][i] tiles the kernel writes
+    torch.testing.assert_close(cbT[..., :chunk, :chunk][..., upper],
+                               cb_e.transpose(-1, -2)[..., upper], **F32_TOL)
+    _assert_within_bf16_bound(torch.where(upper, dcbT[..., :chunk, :chunk].float(), 0.0),
+                              dcb_e.transpose(-1, -2))
+    torch.testing.assert_close(d_intra.sum(3)[..., :chunk], d_intra_e, **F32_TOL)
+    cb_pad = torch.zeros((B, nc, G, lp, lp), device="cuda")
+    cb_pad[..., :chunk, :chunk] = cb_e.transpose(-1, -2)
+    dst3_e, prev3_e = ssd.split_bf16(dst_e).contiguous(), ssd.split_bf16(prev_e).contiguous()
+    dx = ssd.bwd_dx_kernel(dy, b, a_cum_e, cb_pad, dst3_e)
+    _assert_within_bf16_bound(dx, ssd.ssd_bwd_dx(dyf, bf, a_cum_e, cb_e, dst_e))
+    dcb_pad = torch.zeros((B, nc, G, lp, lp), device="cuda", dtype=torch.bfloat16)
+    dcb_pad[..., :chunk, :chunk] = dcb_e.transpose(-1, -2).bfloat16()
+    db, dc, d_state = ssd.bwd_dbdc_kernel(x, dy, b, c, a_cum_e, dcb_pad, prev3_e, dst3_e)
+    db_e, dc_e, d_state_e = ssd.ssd_bwd_dbdc(xf, dyf, bf, cf, a_cum_e, dcb_e, prev_e, dst_e)
+    _assert_within_bf16_bound(db, db_e)
+    _assert_within_bf16_bound(dc, dc_e)
+    torch.testing.assert_close(d_state.sum(3)[..., :chunk], d_state_e, **F32_TOL)
+    d_intra_pad = torch.zeros((B, H, nc, lp // 64, lp), device="cuda")
+    d_intra_pad[:, :, :, 0, :chunk] = d_intra_e
+    d_state_pad = torch.zeros((B, H, nc, 2, lp), device="cuda")
+    d_state_pad[:, :, :, 0, :chunk] = d_state_e
+    d_last_pad = torch.zeros((B, H, nc, ssd.bwd_slices(P, N)), device="cuda")
+    d_last_pad[..., 0] = d_last_e
+    da = ssd.bwd_da_kernel(d_intra_pad, d_state_pad, d_last_pad, P, N, chunk)
+    torch.testing.assert_close(da, ssd.ssd_bwd_da(d_intra_e, d_state_e, d_last_e), **F32_TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bwd_bf16_db_dc_are_bit_reproducible():
+    """The bf16 backward sums db and dc over a group's heads in a fixed
+    order (no atomics): two calls on the same inputs give the same bits, in
+    every output."""
+    gen = _card()
+    x, a, b, c = _ssd_inputs(gen, 2, 512, 8, 64, 2, 128, torch.bfloat16)
+    dy = torch.randn((2, 512, 8, 64), generator=gen, device="cuda").bfloat16()
+    dst = torch.randn((2, 8, 64, 128), generator=gen, device="cuda")
+    first = ops.ssd_scan_bwd(x, a, b, c, dy, dst, chunk=256)
+    second = ops.ssd_scan_bwd(x, a, b, c, dy, dst, chunk=256)
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.gpu
 def test_calibration_microbenchmarks_launch_the_kernels():
     """kernel_rates on the card launches each of the four kernels; the
     reduced mamba2 train step launches the SSD scan's forward and backward,

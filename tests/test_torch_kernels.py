@@ -540,6 +540,111 @@ def test_ssd_scan_fn_saves_the_inputs_and_calls_the_backward(monkeypatch, use_st
         torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,with_state", [
+    (2, 64, 8, 32, 1, 16, 32, False),     # the reduced mamba2 train step's shape
+    (1, 300, 4, 16, 4, 16, 100, True),    # a group a head, chunk 100 (a ragged 64-row tile)
+    (1, 192, 8, 32, 2, 32, 64, True),     # two groups of four heads
+    (2, 128, 8, 32, 2, 64, 64, False),    # two groups, no state cotangent
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_stages_compose_to_jax_vjp(B, S, H, P, G, N, chunk, with_state, dtype):
+    """The six plain stages of the card's bf16 backward, composed by hand,
+    give jax.vjp of the JAX package's ``ssd_chunked`` and ``ssd_scan_bwd_ref``,
+    in float32 at 2e-5 (the stages sum in float32 and do not round their
+    outputs to bf16); each intermediate has the shape its kernel writes."""
+    rng = np.random.default_rng(15)
+    jargs, (x, a, b, c) = _ssd_inputs(rng, B, S, H, P, G, N, dtype)
+    jdy, dy = _pair(rng, (B, S, H, P), dtype)
+    jds, dst = _pair(rng, (B, H, P, N), "float32")
+    if not with_state:
+        jds, dst = jnp.zeros_like(jds), None
+    nc = S // chunk
+    states, d_prev, a_cum = tssd.ssd_bwd_chunk_state(x, a, b, c, dy, chunk)
+    prev, dstt, d_last = tssd.ssd_bwd_state_passing(states, d_prev, a_cum, dst)
+    cb, dcb, d_intra = tssd.ssd_bwd_dcb(x, dy, b, c, a_cum, chunk)
+    dx = tssd.ssd_bwd_dx(dy, b, a_cum, cb, dstt)
+    db, dc, d_state = tssd.ssd_bwd_dbdc(x, dy, b, c, a_cum, dcb, prev, dstt)
+    da = tssd.ssd_bwd_da(d_intra, d_state, d_last)
+    assert states.shape == d_prev.shape == prev.shape == dstt.shape == (B, nc, H, P, N)
+    assert cb.shape == dcb.shape == (B, nc, G, chunk, chunk)
+    assert d_intra.shape == d_state.shape == (B, H, nc, chunk) and d_last.shape == (B, H, nc)
+    got = (dx, da, db, dc)
+    jargs = tuple(t.astype(jnp.float32) for t in jargs)
+    _, vjp = jax.vjp(lambda x, a, b, c: jssd_chunked(x, a, b, c, chunk), *jargs)
+    want = vjp((jdy.astype(jnp.float32), jds))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=2e-5, rtol=2e-5)
+    ref_out = ref.ssd_scan_bwd_ref(x.float(), a, b.float(), c.float(), dy.float(), dst, chunk)
+    for g, w in zip(got, ref_out):
+        np.testing.assert_allclose(_np(g), _np(w), atol=2e-5, rtol=2e-5)
+
+
+def test_ssd_bwd_dcb_equals_the_per_head_sum():
+    """``ssd_bwd_dcb``'s dcb, summed once over a group's heads, equals the
+    sum of each head's (dy X^T) o lmat taken head by head; its d_intra is
+    each head's row sums less column sums of that head's term times C B^T;
+    and dC = dcb B, dB = dcb^T C give the per-head products' sums."""
+    rng = np.random.default_rng(16)
+    B, S, H, P, G, N, chunk = 1, 128, 6, 16, 2, 32, 64
+    _, (x, a, b, c) = _ssd_inputs(rng, B, S, H, P, G, N, "float32")
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    _, _, a_cum = tssd.ssd_bwd_chunk_state(x, a, b, c, dy, chunk)
+    cb, dcb, d_intra = tssd.ssd_bwd_dcb(x, dy, b, c, a_cum, chunk)
+    nc, rep = S // chunk, H // G
+    xb, dyb = x.reshape(B, nc, chunk, H, P), dy.reshape(B, nc, chunk, H, P)
+    bb, cc = b.reshape(B, nc, chunk, G, N), c.reshape(B, nc, chunk, G, N)
+    lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    want = torch.zeros_like(dcb)
+    want_dc, want_db = torch.zeros_like(cc), torch.zeros_like(bb)
+    for h in range(H):
+        g = h // rep
+        lmat = torch.where(lower, torch.exp(a_cum[:, h, :, :, None] - a_cum[:, h, :, None, :]),
+                           0.0)                                         # (B, nc, l, s)
+        term = torch.einsum("bclp,bcsp->bcls", dyb[:, :, :, h], xb[:, :, :, h]) * lmat
+        want[:, :, g] += term
+        t = term * cb[:, :, g]
+        torch.testing.assert_close(d_intra[:, h], t.sum(-1) - t.sum(-2), atol=2e-5, rtol=2e-5)
+        want_dc[:, :, :, g] += torch.einsum("bcls,bcsn->bcln", term, bb[:, :, :, g])
+        want_db[:, :, :, g] += torch.einsum("bcls,bcln->bcsn", term, cc[:, :, :, g])
+    torch.testing.assert_close(dcb, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(torch.einsum("bcgls,bcsgn->bclgn", dcb, bb), want_dc,
+                               atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(torch.einsum("bcgls,bclgn->bcsgn", dcb, cc), want_db,
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_split_bf16_planes_sum_back_to_float32():
+    """``split_bf16``'s hi, mid and lo planes (the layout of the backward's
+    prev and dst) are bf16 and sum back to the float32 tensor within 2^-24
+    of each element's size; a plane is the rounding of what the planes
+    before it left over."""
+    t = torch.from_numpy(np.random.default_rng(17).standard_normal((3, 2, 16, 32))
+                         .astype(np.float32)) * 10.0 ** torch.arange(-3, 3).repeat(16)[:32]
+    planes = tssd.split_bf16(t)
+    assert planes.shape == (3, 2, 3, 16, 32) and planes.dtype == torch.bfloat16
+    back = planes.double().sum(-3)
+    assert bool(((back - t.double()).abs() <= t.double().abs() * 2.0 ** -24).all())
+    assert torch.equal(planes[..., 0, :, :], t.to(torch.bfloat16))
+    assert tssd.bwd_slices(64, 128) == 8 and tssd.bwd_slices(16, 16) == 1
+
+
+def test_ssd_bwd_variants_edit_the_kernel_source_once():
+    """Each text edit of ``tools/ssd_bwd_variants.py`` (timed on the card
+    against the unedited backward) matches the CUDA source exactly once, so
+    the tool cannot silently time an unedited copy."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("ssd_bwd_variants",
+                                                  root / "tools" / "ssd_bwd_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "src" / "repro_torch" / "csrc" / "ssd_scan_bwd.cu").read_text()
+    for name, edits in tool.VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
 # ---------------------------------------------------------------- rglru
 @pytest.mark.parametrize("B,S,W,bt", [
     (2, 512, 256, 128),
