@@ -89,18 +89,31 @@ phases:
    leaf's max); a small float32 h2o-family
    model through the same plan, card against CPU; and the serve launcher
    (``launch/serve.py``, h2o-danube-1.8b at full depth, edge_cluster,
-   ``--dynamics``) with its launches checked exactly;
+   ``--dynamics``) with its launches checked exactly; then a catalogue
+   scenario beyond Table 3 (``CATALOGUE``, vehicle_platoon): the serve
+   launcher on it (launches exact), granite-8b planned on it through
+   ``dora.serve``, each event of its timeline fed to the control plane
+   (``on_dynamics``, a replan each) and the plan it holds then run through
+   the executor as above (bitwise against the plain order, launches exact),
+   and the planning stack's host code without jax: ``python -m
+   repro_torch.scenarios --run vehicle_platoon --simulate --requests`` in a
+   process of its own (a finite p99) and ``dora.compare`` (dora meets the
+   QoE, as in the JAX package);
 7. calibration (``repro_torch.calibrate``, the reference's defaults: archs
-   qwen3_32b and mamba2_780m, a logical fleet of 4 on the card):
-   ``calibrate_host`` (the measurements, the compute factor, the step
+   qwen3_32b and mamba2_780m, a logical fleet of 4 on the card), reached
+   through ``repro_torch.dora.calibrate``: ``calibrate_host`` (the
+   measurements, the compute factor, the step
    ratios; each kernel's launches must be the count that ``measure_host``'s
    repeats and the reduced configs' layers make), the fidelity
    suite over ``CASES`` then ``QUICK_CASES`` (each case's measured time
    beside its calibrated and uncalibrated predictions; calibration must
    lower the mean error), the regression gate against the committed
-   ``calibration/h100_fidelity.json`` where it exists, and traffic_monitor
-   planned with ``costs="profiled:<artifact>"``. The artifact and the
-   fidelity record go to build/calibration and are printed on one line.
+   ``calibration/h100_fidelity.json`` where it exists, traffic_monitor
+   planned with ``costs="profiled:<artifact>"``, and
+   ``dora.calibrate("smart_home_2")`` from the same cache (it must measure
+   nothing more) with smart_home_2 planned under its factors. The artifact
+   and the fidelity record go to build/calibration and are printed on one
+   line.
 
 The h2o paths draw wq and wk at the fan-in of d_model (``fan_in_qk``):
 with the reference init's the random model is chaotic and its gradients
@@ -1704,6 +1717,13 @@ PIPE_SMALL, PIPE_SMALL_SEQ = dict(head_dim=80, n_layers=8, attn_chunk=64, window
 LAUNCHER_ARCH, LAUNCHER_GEN = "h2o_danube_1_8b", 32
 LAUNCHER_ARGS = ["--arch", LAUNCHER_ARCH, "--prompt-len", str(PLAN_SEQ), "--gen-len",
                  str(LAUNCHER_GEN), "--setting", "edge_cluster", "--dynamics"]
+# the catalogue part: a registered scenario beyond Table 3 (four genio520 boards on
+# V2V links, two link events in its timeline), served by the launcher, granite-8b
+# planned on it with the forward plan's workload and replanned by the control
+# plane, then the scenario CLI and ``compare`` (host code)
+CATALOGUE = "vehicle_platoon"
+CATALOGUE_LAUNCHER_ARGS = LAUNCHER_ARGS[:-3] + ["--setting", CATALOGUE, "--dynamics"]
+CATALOGUE_STRATEGIES = ["dora", "throughput_max", "chain_split"]
 
 
 def phase_plan(torch, card: str, what: str) -> dict:
@@ -2098,7 +2118,7 @@ def phase_pipeline_small(torch, card: str, planned: dict) -> dict:
                 launches=counts)
 
 
-def phase_plan_launcher(torch, card: str) -> dict:
+def phase_plan_launcher(torch, card: str, args=LAUNCHER_ARGS) -> dict:
     """The serve launcher, the user's entry point, planning and serving on
     the card with ``--dynamics``; its launches checked exactly."""
     from repro_torch import kernels
@@ -2107,7 +2127,7 @@ def phase_plan_launcher(torch, card: str) -> dict:
 
     cfg = get_config(LAUNCHER_ARCH)
     kernels.reset_launches()
-    out = serve.main(LAUNCHER_ARGS)
+    out = serve.main(args)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = {k: 0 for k in kernels.KERNELS}
@@ -2119,21 +2139,113 @@ def phase_plan_launcher(torch, card: str) -> dict:
     if not all(map(math.isfinite, (out["prefill_ms"], out["p50_ms"], out["p99_ms"]))):
         raise AssertionError(f"the launcher's times are not finite: {out}")
     dyn = out["dynamics"]
-    log(card, f"serve launcher {' '.join(LAUNCHER_ARGS)}: plan {out['plan_summary']} (planning "
+    log(card, f"serve launcher {' '.join(args)}: plan {out['plan_summary']} (planning "
               f"{out['planning_s'] * 1e3:.1f} ms of the host CPU); prefill {out['prefill_ms']:.1f} "
               f"ms, decode p50 {out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms (host clock); "
               f"adapter action {dyn['action']}, plan latency {out['plan'].latency * 1e3:.0f} -> "
               f"{dyn['plan'].latency * 1e3:.0f} ms (the planner's model of the edge fleet, not "
               f"this card); launches {counts}")
-    return dict(arch=LAUNCHER_ARCH, args=LAUNCHER_ARGS, plan=out["plan_summary"],
+    return dict(arch=LAUNCHER_ARCH, args=args, plan=out["plan_summary"],
                 planning_s=out["planning_s"], prefill_ms=out["prefill_ms"], p50_ms=out["p50_ms"], p99_ms=out["p99_ms"],
                 action=dyn["action"], plan_latency_s=out["plan"].latency,
                 plan_latency_after_s=dyn["plan"].latency, launches=counts)
 
 
+def phase_catalogue_replan(torch, card: str) -> dict:
+    """The forward plan's model and workload on ``CATALOGUE`` through the
+    facade (``dora.serve``, the control plane armed), each event of the
+    scenario's timeline fed to ``on_dynamics``, then the plan the session
+    holds run through the executor as ``phase_pipeline_forward`` runs
+    phase 6's (bitwise against the plain order, launches exact)."""
+    from repro_torch import dora
+    from repro_torch.configs import get_config
+    from repro_torch.core import QoESpec, Workload
+    from repro_torch.models.registry import planning_graph
+    from repro_torch.runtime.pipeline import PipelineSpec
+    from repro_torch.scenarios import get_scenario
+
+    arch, _, (gb, mb, training), (t_qoe, lam) = PLANS["forward"]
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    session = dora.serve(CATALOGUE, graph=planning_graph(cfg, PLAN_SEQ),
+                         qoe=QoESpec(t_qoe=t_qoe, lam=lam),
+                         workload=Workload(global_batch=gb, microbatch_size=mb, training=training))
+    wall = time.perf_counter() - t0
+    first = session.current
+    log(card, f"dora.serve({CATALOGUE!r}) of {cfg.name} (serve: batch {gb} of {mb}, t_qoe "
+              f"{t_qoe} s, lambda {lam}, sequence {PLAN_SEQ}): {first.summary()}; planning "
+              f"{wall * 1e3:.1f} ms of the host CPU with the graph")
+    actions = []
+    for label, ev in get_scenario(CATALOGUE).timeline:
+        before = session.current.latency
+        plan, action, react = session.on_dynamics(ev)
+        actions.append(dict(label=label, action=action, react_s=react,
+                            latency_before_s=before, latency_after_s=plan.latency,
+                            plan=plan.summary()))
+        log(card, f"control plane, {label!r} at t={ev.t:g} s: {action} in {react * 1e3:.1f} ms "
+                  f"(host CPU); plan latency {before * 1e3:.1f} -> {plan.latency * 1e3:.1f} ms "
+                  f"(the planner's model of the platoon); {plan.summary()}")
+    if [a["action"] for a in actions] != ["replan"] * len(actions) or not actions:
+        raise AssertionError(f"the control plane's actions {[a['action'] for a in actions]}, "
+                             f"not a replan for each timeline event as in the JAX package")
+    plan = session.current
+    spec = PipelineSpec.from_plan(plan, cfg.n_layers)
+    if plan.n_stages < 2 or plan.microbatch_size != mb:
+        raise AssertionError(f"the replanned plan {plan.summary()} is not the >= 2 stages of "
+                             f"microbatch {mb} at which phase 2 holds the kernels")
+    log(card, f"replanned plan executed: {plan.summary()}; {spec}")
+    fwd = phase_pipeline_forward(torch, card, dict(arch=arch, setting=CATALOGUE, cfg=cfg,
+                                                   plan=plan, spec=spec))
+    return dict(arch=arch, setting=CATALOGUE, plan_before=first.summary(), actions=actions,
+                plan=plan.summary(), layers_per_stage=list(spec.layers_per_stage),
+                planning_wall_s=wall, forward=fwd, launches=fwd["launches"])
+
+
+def phase_catalogue_host(card: str) -> dict:
+    """Host code of the planning stack on the card machine, which has no
+    jax: the scenario CLI (``python -m repro_torch.scenarios``, a process
+    of its own) and ``dora.compare`` in this one."""
+    from repro_torch import dora
+
+    cmd = [sys.executable, "-m", "repro_torch.scenarios", "--run", CATALOGUE, "--simulate",
+           "--requests"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    m = re.search(r"latency p50/p95/p99: ([\d.]+) ms / ([\d.]+) ms / ([\d.]+) ms", res.stdout)
+    if not m or not all(math.isfinite(float(x)) for x in m.groups()):
+        raise AssertionError(f"no finite p50/p95/p99 in the CLI's output:\n{res.stdout}")
+    p50, p95, p99 = map(float, m.groups())
+    log(card, f"python {' '.join(cmd[1:])} ({cli_s:.1f} s, host): request run p50 {p50:g} ms, "
+              f"p95 {p95:g} ms, p99 {p99:g} ms; "
+              + "; ".join(line.strip() for line in res.stdout.splitlines()
+                          if line.strip().startswith(("best:", "QoE target", "SLO attainment"))))
+    t0 = time.perf_counter()
+    rep = dora.compare(CATALOGUE, strategies=CATALOGUE_STRATEGIES)
+    compare_s = time.perf_counter() - t0
+    for line in rep.summary().splitlines():
+        log(card, f"compare: {line}")
+    rows = rep.to_dict()["strategies"]
+    bad = [n for n, r in rows.items() if not r["ok"] or not math.isfinite(r["latency_s"])]
+    if bad or set(rows) != set(CATALOGUE_STRATEGIES):
+        raise AssertionError(f"compare on {CATALOGUE}: strategies without a finite plan {bad}")
+    if not rep.meets_qoe("dora"):
+        raise AssertionError(f"dora misses {CATALOGUE}'s QoE, which it meets in the JAX package")
+    jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if jax:
+        raise AssertionError(f"the planning stack imported {jax}")
+    return dict(cli=" ".join(cmd[1:]), cli_s=cli_s, p50_ms=p50, p95_ms=p95, p99_ms=p99,
+                compare_s=compare_s, compare=rows)
+
+
 def phase_dora(torch, card: str) -> dict:
     """Phase 6: plan, then run the plans' pipeline stages and the planning
-    launcher on the card; each part frees what it made."""
+    launcher on the card, then the catalogue part; each part frees what it
+    made."""
     planned = {what: phase_plan(torch, card, what) for what in PLANS}
     out = {"plans": {w: {k: v for k, v in p.items() if k not in ("cfg", "plan", "spec")}
                      for w, p in planned.items()}}
@@ -2141,10 +2253,17 @@ def phase_dora(torch, card: str) -> dict:
                      ("gradients",
                       lambda: phase_pipeline_grads(torch, card, planned["gradients"])),
                      ("small", lambda: phase_pipeline_small(torch, card, planned["gradients"])),
-                     ("launcher", lambda: phase_plan_launcher(torch, card))):
+                     ("launcher", lambda: phase_plan_launcher(torch, card)),
+                     ("catalogue_launcher",
+                      lambda: phase_plan_launcher(torch, card, CATALOGUE_LAUNCHER_ARGS)),
+                     ("catalogue_replan", lambda: phase_catalogue_replan(torch, card)),
+                     ("catalogue_host", lambda: phase_catalogue_host(card))):
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        log(card, f"phase 6 part {name} took {out[name]['seconds']:.1f} s (host clock)")
     return out
 
 
@@ -2154,6 +2273,7 @@ def phase_dora(torch, card: str) -> dict:
 CAL_DIR = os.path.join(REPO, "build", "calibration")
 CAL_FLEET = 4          # logical devices, all on the one card (the executor's stages)
 CAL_SETTING = "traffic_monitor"
+CAL_SCENARIO = "smart_home_2"      # dora.calibrate(scenario): the factors as a global correction
 
 
 def calibration_launches() -> Dict[str, int]:
@@ -2193,14 +2313,14 @@ def phase_calibrate(torch, card: str) -> dict:
     cache = timing.MeasurementCache(path=None, fleet=fleet)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    costs = host.calibrate_host(cache, path=art)
+    costs = dora.calibrate(quick=False, path=art, cache=cache)     # calibrate_host's defaults
     host_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     measure = measure_host(cache)            # every value from the cache now
     for k, v in measure.items():
         log(card, f"calibration measurement {k}: {v:.6g}")
     factor = next(iter(costs.compute_factor.values()))
-    log(card, f"calibrate_host ({timing.backend_key(fleet)}, {host_s:.1f} s): compute factor "
+    log(card, f"dora.calibrate ({timing.backend_key(fleet)}, {host_s:.1f} s): compute factor "
               f"{factor:.6g} on {len(costs.compute_factor)} logical devices (claimed "
               f"{costs.provenance['claimed_effective_flops']} FLOP/s, achieved "
               f"{costs.provenance['achieved_contended_flops']}), hostmem bandwidth factor "
@@ -2258,7 +2378,7 @@ def phase_calibrate(torch, card: str) -> dict:
     for where, topo in (("Table 3 fleet", None),
                         ("measured fleet", host.host_topology(measure, CAL_FLEET))):
         for label, c in (("analytic", None), ("profiled", f"profiled:{art}")):
-            planner, wl = dora.planner_for(CAL_SETTING, topology=topo, costs=c)
+            planner, _, wl = dora.planner_for(CAL_SETTING, topology=topo, costs=c)
             best = planner.plan(wl).best
             plans[f"{where} {label}"] = dict(latency_s=best.latency, stages=best.n_stages)
         log(card, f"{CAL_SETTING} on the {where}: best plan's latency "
@@ -2267,8 +2387,27 @@ def phase_calibrate(torch, card: str) -> dict:
                   f"'profiled:build/calibration/h100.json' "
                   f"({plans[f'{where} profiled']['stages']} stages)")
     counts = kernels.launch_counts()
+
+    # the card's factors applied to a catalogue scenario from the same cache:
+    # nothing is measured again
+    misses = cache.misses
+    scen = dora.calibrate(CAL_SCENARIO, quick=False, cache=cache)
+    if cache.misses != misses or kernels.launch_counts() != counts:
+        raise AssertionError(f"dora.calibrate({CAL_SCENARIO!r}) measured again ({cache.misses - misses} "
+                             f"cache misses, launches {kernels.launch_counts()})")
+    analytic, profiled = dora.plan(CAL_SCENARIO), dora.plan(CAL_SCENARIO, costs=scen)
+    log(card, f"dora.calibrate({CAL_SCENARIO!r}) from the same cache ({cache.misses - misses} "
+              f"misses): {scen.name}, default compute factor {scen.default_compute:.6g}, "
+              f"bandwidth factor {scen.default_bandwidth:.6g}; {CAL_SCENARIO}'s best plan "
+              f"{analytic.latency * 1e3:.3f} ms analytic, {profiled.latency * 1e3:.3f} ms with "
+              f"those factors ({profiled.best.n_stages} stages)")
+    plans[f"{CAL_SCENARIO} analytic"] = dict(latency_s=analytic.latency,
+                                             stages=analytic.best.n_stages)
+    plans[f"{CAL_SCENARIO} profiled"] = dict(latency_s=profiled.latency,
+                                             stages=profiled.best.n_stages)
     return dict(measure=measure, costs=json.loads(costs.to_json()), fidelity=records,
-                regression_gate=gate, plans=plans, launches=counts)
+                regression_gate=gate, plans=plans, launches=counts,
+                scenario_costs=json.loads(scen.to_json()))
 
 
 def _to(tree, device):
@@ -2449,25 +2588,43 @@ def main() -> int:
     if spills:
         raise AssertionError(f"the flash backward kernels spill: {spills}")
 
+    phase_s = {"build": time.perf_counter() - t_start}
+
+    def timed(name: str, t0: float) -> None:
+        phase_s[name] = time.perf_counter() - t0
+        log(card, f"phase {name} took {phase_s[name]:.1f} s (host clock)")
+
+    t0 = time.perf_counter()
     kern = phase_kernels(torch, card)        # phase 2
+    timed("2 kernels", t0)
+    t0 = time.perf_counter()
     serve = {}
     for path in PATHS:                       # phase 3
         serve[path.arch] = phase_serve(torch, card, path)
         gc.collect()
         torch.cuda.empty_cache()
+    timed("3 serving", t0)
+    t0 = time.perf_counter()
     small = [phase_small_model(torch, card, *spec) for spec in SMALL]   # phase 4
     small_train = [phase_small_train(torch, card, *spec) for spec in SMALL_TRAIN]
+    timed("4 small models", t0)
+    t0 = time.perf_counter()
     train = {}
     for tpath in TRAIN_PATHS:                # phase 5
         gc.collect()
         torch.cuda.empty_cache()
         train[tpath.arch] = phase_train(torch, card, tpath)
+    timed("5 training", t0)
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     dora = phase_dora(torch, card)           # phase 6
+    timed("6 Dora plans", t0)
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     calibration = phase_calibrate(torch, card)   # phase 7
+    timed("7 calibration", t0)
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -2500,7 +2657,10 @@ def main() -> int:
         by_path.update({f"{dora[k]['arch']} {label}": dora[k]["launches"][name]
                         for k, label in (("forward", "pipeline forward"),
                                          ("gradients", "pipeline gradients"),
-                                         ("launcher", "planning launcher"))})
+                                         ("launcher", "planning launcher"),
+                                         ("catalogue_launcher", f"{CATALOGUE} launcher"),
+                                         ("catalogue_replan",
+                                          f"{CATALOGUE} replanned pipeline forward"))})
         by_path["calibration"] = calibration["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
@@ -2513,7 +2673,7 @@ def main() -> int:
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
               "small_train": small_train, "train": train, "dora": dora,
-              "calibration": calibration, "ptxas": ptxas,
+              "calibration": calibration, "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

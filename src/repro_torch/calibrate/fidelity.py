@@ -46,8 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.cost_model import (PAPER_SERVE_WORKLOAD, PAPER_TRAIN_WORKLOAD, CostRef,
-                               Workload, resolve_costs)
+from ..core.cost_model import CostRef, Workload, resolve_costs
 from ..core.device import Topology
 from ..core.partitioner import PartitionerConfig
 from ..core.planner import DoraPlanner
@@ -78,17 +77,6 @@ LATENCY_QOE = QoESpec(t_qoe=0.0, lam=1e15)
 #: takes 2-90 ms on the card, where fresh processes' readings spread less at
 #: 10 than at 3 (``tools/fidelity_spread.py``; PERF.md section 6).
 CASE_REPEATS = 10
-
-#: Each case's workload, as the JAX package's scenario catalogue
-#: (``src/repro/scenarios/catalog.py``) gives it; the rest of that
-#: registry is not ported yet (ROADMAP: Queue 1 'Scenarios').
-WORKLOADS: Dict[str, Workload] = {
-    "traffic_monitor": PAPER_SERVE_WORKLOAD,
-    "hospital_ward": PAPER_SERVE_WORKLOAD,
-    "vehicle_platoon": PAPER_SERVE_WORKLOAD,
-    "smart_home_2": PAPER_TRAIN_WORKLOAD,
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class FidelityCase:
@@ -250,10 +238,11 @@ def run_case(case: FidelityCase, cache: Optional[MeasurementCache] = None, *,
              quick: bool = False) -> Dict[str, object]:
     """Measure one fidelity case end to end (see module docstring)."""
     from ..runtime.pipeline import PipelineSpec
+    from ..scenarios import get_scenario
 
     cache = cache if cache is not None else MeasurementCache()
     fleet = cache.fleet
-    wl = WORKLOADS[case.scenario]
+    wl = get_scenario(case.scenario).workload
     graph = proxy_graph(case)
     rep = 2 if quick else 4
     dim = 512 if quick else 1024

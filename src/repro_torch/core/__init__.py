@@ -2,10 +2,9 @@
 
 Each module here is a verbatim copy of its counterpart under
 ``src/repro/core/`` (the port imports nothing of the JAX package, not even
-its jax-free planner); the one edit is ``adapter.py``, which keeps the
-control plane's ``react_once`` beside ``RuntimeAdapter.on_dynamics``.
-``tests/test_torch_planner.py`` holds the copies to the originals and the
-plans to the JAX package's. The facade is ``repro_torch.dora``:
+its jax-free planner). ``tests/test_torch_planner.py`` holds the copies to
+the originals and the plans to the JAX package's. The facade is
+``repro_torch.dora``:
 
     graph   = repro_torch.models.registry.planning_graph(cfg, seq_len=4096)
     session = repro_torch.dora.serve("smart_home_2", graph=graph, ...)

@@ -46,7 +46,7 @@ class DynamicsEvent:
     The remaining fields are **unannounced faults** — ground-truth
     changes the runtime cannot observe at ``t`` and only acts on once
     the heartbeat detector notices (``miss_limit × beat_interval``
-    later; see ``repro.resilience``):
+    later; see ``repro_torch.resilience``):
 
     * ``crash`` — devices that stop silently (no leave announcement,
       no further heartbeats); repair is announced via a later ``join``.
@@ -364,9 +364,10 @@ class RuntimeAdapter:
         Without ``state`` the event is taken as the complete picture
         (the legacy single-event behavior). The fluctuation threshold
         compares the event against the accumulated state, not nominal.
-        (Thin adapter over :func:`react_once` below, the port's copy of
-        the JAX package's control-plane function.)
+        (Thin adapter over :func:`repro_torch.control.plane.react_once` —
+        the reaction layer lives in the control plane.)
         """
+        from ..control.plane import react_once
         return react_once(self, current, event, replan_fn, state)
 
     def react(self, current: ParallelismPlan, conditions: RuntimeState,
@@ -421,18 +422,3 @@ class RuntimeAdapter:
                                            bandwidth_scale=dict(bw))
                      for p in self.all_plans]
         self.plans = pareto_filter(refreshed)
-
-
-# A copy of ``react_once`` from src/repro/control/plane.py:104-113; the port
-# has no ``control`` package yet (ROADMAP: "The facade's other verbs, the
-# strategies and the control plane").
-def react_once(adapter, current: ParallelismPlan, event: DynamicsEvent,
-               replan_fn=None, state: Optional[RuntimeState] = None
-               ) -> Tuple[ParallelismPlan, str, float]:
-    """Session-less single-event reaction (the legacy
-    ``RuntimeAdapter.on_dynamics`` semantics): merge the event into the
-    accumulated ``state`` (or take it as the complete picture) and let
-    the adapter's pricing primitive react to the merged conditions."""
-    prior = state if state is not None else RuntimeState()
-    return adapter.react(current, prior.apply(event), prior.delta(event),
-                         replan_fn)

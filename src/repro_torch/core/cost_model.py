@@ -79,8 +79,8 @@ class Workload:
 
 
 # The paper's §5 evaluation workloads — the single source of truth for
-# the scenario catalogue (repro.scenarios.catalog) and the benchmark
-# harnesses (repro.sim.runner.workload_for). Edge tuning keeps bf16
+# the scenario catalogue (repro_torch.scenarios.catalog) and the benchmark
+# harnesses (repro_torch.sim.runner.workload_for). Edge tuning keeps bf16
 # params + grads + momentum → 3× param bytes of tuning state.
 PAPER_TRAIN_WORKLOAD = Workload(global_batch=32, microbatch_size=4,
                                 training=True, optimizer_mult=3.0)

@@ -38,7 +38,7 @@ class DeviceProfile:
     compute_efficiency: float = 0.45  # achievable fraction of peak (MFU-ish)
     #: finite battery budget in joules (None = wall-powered); drained by
     #: the serving kernel's energy attribution when battery tracking is
-    #: armed (:class:`repro.control.plane.ControlConfig`)
+    #: armed (:class:`repro_torch.control.plane.ControlConfig`)
     battery_j: Optional[float] = None
 
     def effective_flops(self, tp_degree: int = 1) -> float:

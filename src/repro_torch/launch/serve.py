@@ -8,8 +8,10 @@ feeds a mid-run slowdown to the runtime adapter and prints its decision
     python -m repro_torch.launch.serve --arch qwen3_32b [--reduced] [--device cuda]
         [--setting smart_home_2] [--dynamics]
 
-The model runs on one device; the plan is printed, and the pipeline
-executor that runs a plan's stages is ``repro_torch.runtime.pipeline``.
+``--setting`` takes any registered scenario (``python -m
+repro_torch.scenarios --list``). The model runs on one device; the plan is
+printed, and the pipeline executor that runs a plan's stages is
+``repro_torch.runtime.pipeline``.
 An infeasible plan raises, as in the JAX package (qwen3_32b at the 200 ms
 default does: ``--t-qoe-ms`` loosens the target).
 """

@@ -29,6 +29,7 @@ from repro.calibrate import microbench as jmb
 from repro.core.profiler import ProfiledCosts as JProfiledCosts
 from repro.scenarios import get_scenario
 from repro_torch import dora
+from repro_torch.scenarios import get_scenario as tget_scenario
 from repro_torch import kernels
 from repro_torch.calibrate import fidelity, host, microbench, timing
 from repro_torch.calibrate.timing import Fleet, MeasurementCache
@@ -105,7 +106,7 @@ def test_host_costs_equal_jax(contended):
 # -- every fidelity case ----------------------------------------------------------
 @pytest.mark.parametrize("case", ALL_CASES)
 def test_proxy_graph_and_fleet_memory_equal_jax(case):
-    wl = fidelity.WORKLOADS[case.scenario]
+    wl = tget_scenario(case.scenario).workload
     got, want = fidelity.proxy_graph(case), jfid.proxy_graph(_jcase(case))
     assert [dataclasses.asdict(n) for n in got.nodes] == \
         [dataclasses.asdict(n) for n in want.nodes]
@@ -116,7 +117,7 @@ def test_proxy_graph_and_fleet_memory_equal_jax(case):
 
 
 def _planned(case):
-    wl = fidelity.WORKLOADS[case.scenario]
+    wl = tget_scenario(case.scenario).workload
     jwl = get_scenario(case.scenario).workload
     graph, jgraph = fidelity.proxy_graph(case), jfid.proxy_graph(_jcase(case))
     topo = host.host_topology(MEASURE, case.n_devices,
@@ -152,9 +153,11 @@ def test_evaluate_layout_equals_jax(case):
 
 
 def test_workload_table_equals_the_catalogue():
-    assert set(fidelity.WORKLOADS) == {c.scenario for c in fidelity.CASES + fidelity.QUICK_CASES}
-    for name, wl in fidelity.WORKLOADS.items():
-        assert dataclasses.asdict(wl) == dataclasses.asdict(get_scenario(name).workload), name
+    """The workload each fidelity case runs is read from the port's scenario
+    catalogue, as the JAX package reads its own."""
+    for name in {c.scenario for c in fidelity.CASES + fidelity.QUICK_CASES}:
+        assert dataclasses.asdict(tget_scenario(name).workload) == \
+            dataclasses.asdict(get_scenario(name).workload), name
     assert (fidelity.CASES, fidelity.QUICK_CASES) == \
         tuple(tuple(fidelity.FidelityCase(**dataclasses.asdict(c)) for c in cases)
               for cases in (jfid.CASES, jfid.QUICK_CASES))
@@ -294,7 +297,7 @@ def test_rates_and_transfers_on_the_cpu():
 def test_execute_layout_on_the_cpu(name):
     case = next(c for c in fidelity.QUICK_CASES if c.scenario == name)
     case = dataclasses.replace(case, d_model=64, d_ff=128)
-    wl = fidelity.WORKLOADS[name]
+    wl = tget_scenario(name).workload
     before = kernels.launch_counts()
     assert fidelity.execute_layout(case, [([0, 1, 2], 0), ([3, 4, 5], 1)], wl, warmup=0,
                                    repeats=1, fleet=CPU4) > 0
@@ -340,9 +343,9 @@ def test_committed_h100_calibration_loads_and_plans():
     assert os.path.exists(path)
     pc = resolve_costs(f"profiled:{path}")
     assert pc.compute_factor and "H100" in pc.provenance["backend"]
-    planner, wl = dora.planner_for("traffic_monitor", costs=f"profiled:{path}")
+    planner, _, wl = dora.planner_for("traffic_monitor", costs=f"profiled:{path}")
     profiled = planner.plan(wl).best
-    analytic_planner, _ = dora.planner_for("traffic_monitor")
+    analytic_planner, _, _ = dora.planner_for("traffic_monitor")
     assert profiled.n_stages >= 1 and profiled.latency > 0
     assert analytic_planner.plan(wl).best.latency > 0
 

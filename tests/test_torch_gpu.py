@@ -622,3 +622,63 @@ def test_pipeline_executor_on_card_matches_sequential():
         assert float((got - g_s).abs().max()) <= 1e-5 * float(g_s.abs().max())
         for s, n in enumerate(ex.spec.layers_per_stage):
             assert bool((g_p[s, n:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_catalogue_plan_replanned_by_the_control_plane_runs_on_card():
+    """granite-8b planned on vehicle_platoon through ``dora.serve`` (the
+    serve launcher's workload and QoE), each event of the scenario's
+    timeline fed to the control plane (a replan each, as in the JAX
+    package), then the plan the session holds run through the executor on
+    the card at full width and 8 of 36 layers (bf16, 4 microbatches of 1 x
+    1024, attn_chunk 512 so the flash kernel runs): bitwise equal to the
+    same layers applied in plain order, one flash launch a layer and
+    microbatch."""
+    from repro_torch import dora
+    from repro_torch.configs import get_config
+    from repro_torch.core import QoESpec, Workload
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import planning_graph
+    from repro_torch.models.transformer import apply_block
+    from repro_torch.runtime.pipeline import DoraPipelineExecutor
+    from repro_torch.scenarios import get_scenario
+
+    _card()
+    full = get_config("granite_8b")
+    session = dora.serve("vehicle_platoon", graph=planning_graph(full, 4096),
+                         qoe=QoESpec(t_qoe=0.2, lam=100.0),
+                         workload=Workload(global_batch=4, microbatch_size=1, training=False))
+    timeline = get_scenario("vehicle_platoon").timeline
+    assert [session.on_dynamics(ev)[1] for _, ev in timeline] == ["replan"] * len(timeline)
+    plan = session.current
+    assert [len(s.node_ids) for s in plan.stages] == [10, 28]
+    cfg = dataclasses.replace(full, n_layers=8, attn_chunk=512)
+    layer_fn = lambda lp, x: apply_block(lp, x, cfg, "dense", mode="train")  # noqa: E731
+    ex = DoraPipelineExecutor(plan, cfg.n_layers, layer_fn)
+    assert ex.spec.layers_per_stage == (2, 6)
+    M, S = ex.spec.n_microbatches, 1024
+    params = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (M, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    stack = params["stack"]["u0"]
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    with torch.no_grad():
+        x = params["embed"][toks].view(M, 1, S, cfg.d_model)
+        ref = []
+        for m in range(M):
+            y = x[m]
+            for i in range(cfg.n_layers):
+                y = layer_fn(layer(stack, i), y)
+            ref.append(y)
+        ref = torch.stack(ref)
+        packed = ex.pack_params(stack)
+        kernels.reset_launches()
+        out = ex.forward(packed, x)
+        torch.cuda.synchronize()
+    assert str(out.dtype) == f"torch.{cfg.dtype}" and bool(torch.isfinite(out).all())
+    assert torch.equal(out, ref)
+    want = {k: 0 for k in kernels.KERNELS}
+    want["flash_attention"] = cfg.n_layers * M
+    assert kernels.launch_counts() == want

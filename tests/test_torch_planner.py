@@ -10,9 +10,12 @@ relative. The cases are the four Table 3 settings x granite-8b,
 h2o-danube-1.8b, qwen3-32b and reduced qwen3-32b at 4096 tokens x the
 serve launcher's workload (batch 4 of 1, 200 ms, lambda 100) and a train
 workload (batch 8 of 2, 8 s, lambda 50); the infeasible cases (qwen3-32b
-serving in every setting among them) must raise the same error. The runtime adapter's reaction to the launcher's
-dynamics event must give the same action and plan (react seconds are wall
-time and are not compared).
+serving in every setting among them) must raise the same error. The runtime
+adapter's reaction to the launcher's dynamics event must give the same
+action and plan (react seconds are wall time and are not compared). Two
+catalogue scenarios beyond Table 3 (retail_analytics, vehicle_platoon) plan
+and launch as the JAX package's; the rest of the planning stack is held in
+``tests/test_torch_facade.py`` and ``tests/test_torch_sim.py``.
 """
 import difflib
 import inspect
@@ -35,13 +38,15 @@ from repro.models.registry import planning_graph as jplanning_graph
 from repro_torch import dora
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.core import DynamicsEvent, QoESpec, Workload
+from repro_torch.control import plane as tplane
 from repro_torch.core import adapter as tadapter
 from repro_torch.launch import serve
 from repro_torch.models.registry import planning_graph
+from repro_torch.scenarios import get_scenario
+from torch_parity import same_plan
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
-REL = 1e-9
 CORE = ["planning_graph", "plans", "qoe", "device", "profiler", "cost_model", "engine", "cep",
         "scheduler", "partitioner", "adapter", "planner", "graph_builders"]
 SETTINGS = ["smart_home_1", "smart_home_2", "traffic_monitor", "edge_cluster"]
@@ -57,11 +62,10 @@ EVENT = dict(compute_speed={0: 0.6}, bandwidth_scale={"wifi": 0.7})
 @pytest.mark.parametrize("name", CORE)
 def test_core_module_is_a_verbatim_copy(name):
     """Each module of ``repro_torch/core`` is its JAX counterpart after a
-    two-line header, with ``repro.core.`` read as ``repro_torch.core.`` in
-    its docstrings; ``adapter.py`` also trades the control plane's lazy
-    import for the local copy of ``react_once``."""
+    two-line header, with ``repro.`` read as ``repro_torch.`` in its
+    docstrings."""
     with open(os.path.join(SRC, "repro", "core", f"{name}.py"), encoding="utf-8") as f:
-        want = f.read().replace("repro.core.", "repro_torch.core.").splitlines()
+        want = re.sub(r"\brepro\.", "repro_torch.", f.read()).splitlines()
     with open(os.path.join(SRC, "repro_torch", "core", f"{name}.py"), encoding="utf-8") as f:
         got = f.read().splitlines()
     assert got[0] == f"# A copy of src/repro/core/{name}.py (the port imports nothing of the " \
@@ -69,18 +73,15 @@ def test_core_module_is_a_verbatim_copy(name):
     got = got[2:]
     diff = [d for d in difflib.unified_diff(want, got, lineterm="", n=0)
             if d[:1] in "+-" and d[:3] not in ("+++", "---")]
-    if name != "adapter":
-        assert diff == []
-        return
-    removed = [d[1:].strip() for d in diff if d.startswith("-")]
-    assert removed == ["(Thin adapter over :func:`repro.control.plane.react_once` —",
-                       "the reaction layer lives in the control plane.)",
-                       "from ..control.plane import react_once"]
+    assert diff == []
 
 
 def test_react_once_is_a_copy():
-    body = inspect.getsource(tadapter.react_once)
-    assert body == inspect.getsource(jreact_once)
+    """The adapter reaches its reaction through the port's control plane,
+    whose ``react_once`` is the reference's."""
+    assert inspect.getsource(tplane.react_once) == inspect.getsource(jreact_once)
+    assert "from ..control.plane import react_once" in inspect.getsource(
+        tadapter.RuntimeAdapter.on_dynamics)
 
 
 # -- planning graphs -------------------------------------------------------------------
@@ -126,15 +127,6 @@ def _plan_both(setting, model, kind):
     return got, want
 
 
-def _assert_same_plan(got, want, ctx):
-    assert [(list(s.node_ids), list(s.devices)) for s in got.stages] == \
-        [(list(s.node_ids), list(s.devices)) for s in want.stages], ctx
-    assert (got.microbatch_size, got.n_microbatches) == \
-        (want.microbatch_size, want.n_microbatches), ctx
-    for attr in ("objective", "latency", "energy"):
-        assert getattr(got, attr) == pytest.approx(getattr(want, attr), rel=REL), (ctx, attr)
-
-
 @pytest.mark.parametrize("kind", sorted(WORKLOADS))
 @pytest.mark.parametrize("model", MODELS)
 @pytest.mark.parametrize("setting", SETTINGS)
@@ -143,7 +135,7 @@ def test_plan_matches_jax(setting, model, kind):
     if want is None:                  # both raised the same error
         return
     ctx = (setting, model, kind)
-    _assert_same_plan(got.report.result.best, want.report.result.best, ctx)
+    same_plan(got.report.result.best, want.report.result.best, ctx)
     assert got.current.summary() == want.current.summary()
     assert len(got.report.result.pareto) == len(want.report.result.pareto), ctx
     assert len(got.report.result.candidates) == len(want.report.result.candidates), ctx
@@ -151,7 +143,7 @@ def test_plan_matches_jax(setting, model, kind):
     p_got, a_got, _ = got.adapter.on_dynamics(got.current, DynamicsEvent(t=1.0, **EVENT))
     p_want, a_want, _ = want.adapter.on_dynamics(want.current, JDynamicsEvent(t=1.0, **EVENT))
     assert a_got == a_want, ctx
-    _assert_same_plan(p_got, p_want, ctx + ("dynamics",))
+    same_plan(p_got, p_want, ctx + ("dynamics",))
 
 
 def test_the_issue_plans_have_the_stages_the_card_runs():
@@ -175,16 +167,31 @@ def test_setting_defaults_match_the_scenario_catalogue(setting):
     """With no overrides a Table 3 setting plans its catalogue model,
     workload and QoE, as ``repro.dora.serve(name)`` does."""
     got, want = dora.serve(setting), jdora.serve(setting)
-    _assert_same_plan(got.current, want.current, setting)
-    assert got.report.workload == dora.TABLE3[setting].workload
+    same_plan(got.current, want.current, setting)
+    assert got.report.workload == get_scenario(setting).workload
     assert vars(got.report.workload) == vars(want.report.workload)
     assert vars(got.report.qoe) == vars(want.report.qoe)
 
 
 @pytest.mark.parametrize("name", ["retail_analytics", "vehicle_platoon", "nowhere"])
 def test_a_setting_outside_table3_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP: Queue 1 'Scenarios'"):
-        dora.serve(name)
+    """Settings beyond Table 3 plan as the JAX package plans them; only an
+    unregistered name raises, with the reference's ``KeyError``."""
+    try:
+        want = jdora.serve(name)
+    except KeyError as e:
+        with pytest.raises(KeyError) as got:
+            dora.serve(name)
+        assert str(got.value) == str(e)
+        with pytest.raises(KeyError) as got:
+            get_scenario(name)
+        assert str(got.value) == str(e)
+        return
+    got = dora.serve(name)
+    same_plan(got.current, want.current, name)
+    assert got.current.summary() == want.current.summary()
+    assert vars(got.report.workload) == vars(want.report.workload)
+    assert vars(got.report.qoe) == vars(want.report.qoe)
 
 
 # -- the serve launcher ----------------------------------------------------------------------
@@ -202,10 +209,10 @@ def test_launcher_prints_jaxs_plan_and_dynamics(capsys, setting):
     best = want.report.result.best
     assert f"Dora plan: {best.summary()}" in text
     assert out["plan_summary"] == best.summary()
-    _assert_same_plan(out["plan"], best, setting)
+    same_plan(out["plan"], best, setting)
     plan, action, _ = want.adapter.on_dynamics(best, JDynamicsEvent(t=1.0, **EVENT))
     assert out["dynamics"]["action"] == action
-    _assert_same_plan(out["dynamics"]["plan"], plan, (setting, "dynamics"))
+    same_plan(out["dynamics"]["plan"], plan, (setting, "dynamics"))
     assert f"[dynamics] adapter action={action}" in text
     assert "planning took" in text and "p99=" in text
 
@@ -215,9 +222,21 @@ def test_launcher_without_dynamics_reports_none():
     assert out["dynamics"] is None and out["plan"].n_stages >= 1
 
 
-def test_launcher_outside_table3_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP: Queue 1 'Scenarios'"):
-        serve.main(LAUNCH + ["--setting", "retail_analytics"])
+def test_launcher_outside_table3_raises(capsys):
+    """The launcher on a catalogue scenario beyond Table 3 prints the plan
+    and the reaction that the JAX package's facade gives."""
+    out = serve.main(LAUNCH + ["--setting", "vehicle_platoon", "--dynamics"])
+    text = capsys.readouterr().out
+    want = jdora.serve("vehicle_platoon",
+                       graph=jplanning_graph(jreduced_config("qwen3_32b"), 12),
+                       qoe=JQoESpec(t_qoe=0.2, lam=100.0),
+                       workload=JWorkload(global_batch=2, microbatch_size=1, training=False))
+    best = want.report.result.best
+    assert f"Dora plan: {best.summary()}" in text
+    same_plan(out["plan"], best, "vehicle_platoon")
+    plan, action, _ = want.adapter.on_dynamics(best, JDynamicsEvent(t=1.0, **EVENT))
+    assert out["dynamics"]["action"] == action
+    same_plan(out["dynamics"]["plan"], plan, ("vehicle_platoon", "dynamics"))
 
 
 def test_launcher_raises_on_an_infeasible_plan():
@@ -227,7 +246,10 @@ def test_launcher_raises_on_an_infeasible_plan():
 
 def test_planner_modules_import_without_jax_or_the_jax_package():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
-            "import repro_torch.dora, repro_torch.runtime.pipeline, repro_torch.launch.serve\n")
+            "import repro_torch.dora, repro_torch.runtime.pipeline, repro_torch.launch.serve\n"
+            "import repro_torch.scenarios, repro_torch.strategies, repro_torch.control\n"
+            "import repro_torch.sim, repro_torch.fleet, repro_torch.resilience\n"
+            "repro_torch.dora.plan('vehicle_platoon')\n")
     res = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=SRC),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

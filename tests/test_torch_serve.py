@@ -44,9 +44,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('repro_torch')))\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 20
+    count, names = res.stdout.splitlines()[-2:]
+    assert int(count.split()[0]) >= 90
+    # the planning stack's subpackages, the scenario CLI among them
+    for mod in ("scenarios.__main__", "strategies.splits", "control.plane", "sim.fleet",
+                "fleet.session", "resilience.engine", "core.events", "runtime.heartbeat"):
+        assert f"repro_torch.{mod}" in names.split(), mod
