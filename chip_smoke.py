@@ -17,7 +17,8 @@ phases:
    prefill (also at 8192 tokens, where its 4096 window binds) and decode,
    granite-20b's 48 query heads on one KV head, mamba2-780m's SSD scan
    with each of its four bf16 stages timed by the profiler,
-   recurrentgemma-9b's RG-LRU scan) plus ragged, windowed, grouped,
+   recurrentgemma-9b's RG-LRU scan at its prefill and training shapes) plus
+   ragged, windowed, grouped,
    empty-split and float32 cases, each error printed beside its bound
    (see ``check``), with times of the kernel, the plain version and,
    where one PyTorch call computes the same function, that call as a
@@ -29,7 +30,13 @@ phases:
    split across blocks (G = 48, one key tile) and float32, each of its
    three kernels (dsum, the wgmma kernel, the convert) timed by the
    profiler, with its split plan and block count, against
-   scaled_dot_product_attention's backward; the flash forward and
+   scaled_dot_product_attention's backward; the bf16 flash backward at
+   head_dim 256 (its own 64-key instance) at recurrentgemma-9b's training
+   shape (B=2, S=4096, 16 heads on one KV head, window 2048), ragged, a
+   window of 40 and a group split over every head; the RG-LRU scan's
+   backward at the training shape (B=2, S=4096, W=4096) and off its step
+   group and channel block, with and without h_last's cotangent and without
+   h's, against its plain version (float32); the flash forward and
    backward at phase 6's microbatch shapes (granite-8b's 1 x 4096, 32 heads
    on 8 of 128; h2o-danube-1.8b's 2 x 4096 in bf16 and float32); decode at
    head_dim 16 (calibration's reduced qwen3 decode step in float32, longer
@@ -58,22 +65,30 @@ phases:
    float32 train step of a small qwen3-family model (head_dim 64) and of a
    small h2o-family model (head_dim 80, a window below S), each with
    attn_chunk 64 < S = 256 so the flash forward and backward kernels run,
-   and of the reduced mamba2 (S = 128, chunk 32: the SSD scan's forward
+   of the reduced recurrentgemma (head_dim 64, S = 256 above its window of
+   32: the RG-LRU scan's and the flash kernels, forward and backward), and
+   of the reduced mamba2 (S = 128, chunk 32: the SSD scan's forward
    and backward kernels), on the card against the CPU: loss, grad norm and
    every gradient;
 5. training through ``make_train_step`` and ``TokenPipeline`` (bf16,
    remat="full", 10 steps each): qwen3-32b at full width (depth cut to 4
    layers, batch 2 x 4096), then h2o-danube-1.8b at full width and depth
    (24 layers, batch 2 x 8192, above its 4096 window), then mamba2-780m at
-   full width and depth (48 layers, batch 4 x 4096): each step's loss
-   (the last below the first), its launches checked exactly (two forwards
-   of the layer's kernel a layer, forward and recompute, and one
-   backward), the median
+   full width and depth (48 layers, batch 4 x 4096), then
+   recurrentgemma-9b at full width (depth cut to 8 layers: two (rec, rec,
+   local_attn) units and the two-layer rec tail; batch 2 x 4096 above its
+   2048 window; wq and wk at the fan-in of d_model): each step's loss
+   (the last below the first), its launches checked exactly (a stacked
+   layer's kernel two forwards, forward and recompute, and one backward;
+   a tail layer's, which is not rematerialised, one of each), the median
    step time, tokens/s, the model-FLOP share of 989 TFLOP/s, peak memory,
    a profiler window over one step with the flash forward's and
    backward's shares; after qwen3's steps a Checkpointer round trip of the
    trained parameters and AdamW state, restored onto the card bit for
-   bit;
+   bit; and the train launcher (``python -m repro_torch.launch.train --arch
+   recurrentgemma_9b --reduced --steps 20``, through its ``main``): the loss
+   falls and every rec layer launches the RG-LRU scan forward and backward
+   once a step;
 6. a Dora plan on the card: the port's planner plans granite-8b on
    smart_home_2 (serve) and h2o-danube-1.8b on traffic_monitor (train),
    each plan's summary, stage layout and planning time (host CPU)
@@ -115,7 +130,8 @@ phases:
    and the fidelity record go to build/calibration and are printed on one
    line.
 
-The h2o paths draw wq and wk at the fan-in of d_model (``fan_in_qk``):
+The h2o paths and recurrentgemma's training path draw wq and wk at the
+fan-in of d_model (``fan_in_qk``):
 with the reference init's the random model is chaotic and its gradients
 explode with depth, and phases 3 and 5 print those figures beside their
 own. Each phase frees its parameters and caches before the next. Every number
@@ -164,6 +180,10 @@ H2O_TRAIN_BATCH, H2O_TRAIN_SEQ = 2, 8192
 G48_HEADS = 48
 # mamba2-780m's training path: all 48 layers, batch 4 x 4096, bf16
 MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 4, 4096
+# recurrentgemma-9b's training path (the JAX package's train_4k shape): depth cut
+# to 8 layers (two (rec, rec, local_attn) units and the two-layer rec tail),
+# batch 2 x 4096 above its 2048 window, bf16
+RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ = 8, 2, 4096
 # calibration's steps on the reduced configs (batch 2, sequence 32, float32):
 # mamba2's SSD scan (B, S, H, P, G, N, chunk) in training, and qwen3's decode
 # attention (B, T, H, KV, d) at the first position of a 32-slot cache
@@ -790,21 +810,25 @@ def kernels_ssd_bwd(kp: KernelPhase) -> None:
 
 
 def kernels_rglru(kp: KernelPhase) -> None:
-    """rglru_scan at recurrentgemma-9b's prefill shape, a small one, ragged,
-    phase 7's calibration shape."""
+    """rglru_scan at recurrentgemma-9b's prefill and training shapes, a
+    small one, ragged, phase 7's calibration shape; rglru_scan_bwd at the
+    training shape, S off its 16-step groups, W off its 128-channel blocks,
+    with and without h_last's cotangent and without h's."""
     from repro_torch import kernels
     from repro_torch.calibrate import microbench as mb
     from repro_torch.kernels import ref
     torch, card, rec, cases_out, rand, launched, _ = kp.unpack()
+    mod = kernels.rglru_scan
 
     # inputs as tests/test_kernels.py draws them: a_log = -0.5 |N(0, 1)|, b ~ N(0, 1);
     # the last is phase 7's calibration, kernel_rates' shape
     for name, (B, S, W) in [("main path", (BATCH, RG_PROMPT, RG_WIDTH)),
+                            ("train path", (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH)),
                             ("S 256 W 512", (2, 256, 512)), ("ragged", (3, 77, 96)),
                             ("calibration rate", mb.RGLRU_SHAPE)]:
         a = -rand((B, S, W), torch.float32).abs() * 0.5
         b = rand((B, S, W), torch.float32)
-        hh, hl = launched(kernels.rglru_scan, lambda: kernels.rglru_scan.rglru_scan(a, b))
+        hh, hl = launched(mod, lambda: mod.rglru_scan(a, b))
         he, hle = ref.rglru_scan_ref(a, b)
         err, share = check(torch, hh, he, "float32")
         err_l, share_l = check(torch, hl, hle, "float32")
@@ -814,24 +838,64 @@ def kernels_rglru(kp: KernelPhase) -> None:
         log(card, f"rglru_scan {name}: B={B} S={S} W={W} float32: h max abs err {err:.3e}, "
                   f"worst element at {share:.3f} of its bound, h_last {err_l:.3e} / "
                   f"{share_l:.3f} ({TOL['float32']})")
-        if name == "main path":
+        if name in ("main path", "train path"):
             nbytes = 4 * (3 * B * S * W + B * W)
             # the TPU kernel's work per element: exp, ceil(log2 bt) doubling rounds of
             # 3 operations, and the carried state's 2
             ops_n = float(B * S * W * (3 * math.ceil(math.log2(min(256, S))) + 3))
             bound_ms, bound_by = bound(ops_n, nbytes, "float32")
-            ms = cuda_ms(torch, lambda: kernels.rglru_scan.rglru_scan(a, b), reps=20, warmup=3)
+            ms = cuda_ms(torch, lambda: mod.rglru_scan(a, b), reps=20, warmup=3)
             plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b), reps=3)
-            rec["rglru_scan"] = dict(
+            rec["rglru_scan" if name == "main path" else "rglru_scan_train"] = dict(
                 shape=dict(B=B, S=S, W=W, dtype="float32"), ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ops=ops_n,
                 bytes=nbytes, max_abs_err=max(err, err_l), bound_share=max(share, share_l),
                 tol=TOL["float32"])
         del a, b, hh, hl, he, hle
-    r = rec["rglru_scan"]
-    log(card, f"rglru_scan at the main path's shape: kernel {r['ms']:.4f} ms, plain "
+    for key, what in (("rglru_scan", "the main path's shape"),
+                      ("rglru_scan_train", "the training path's shape")):
+        r = rec[key]
+        log(card, f"rglru_scan at {what}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"no single PyTorch call computes it, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+
+    # the backward on the forward kernel's h, against its plain version (float32)
+    for name, (B, S, W), with_dh, with_last in [
+            ("train path", (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH), True, False),
+            ("train path with dh_last", (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH), True, True),
+            ("S 300 off the step group", (2, 300, 512), True, True),
+            ("W 200 off the channel block", (3, 256, 200), True, False),
+            ("dh_last alone", (2, 77, 256), False, True)]:
+        a = -rand((B, S, W), torch.float32).abs() * 0.5
+        h = mod.rglru_scan(a, rand((B, S, W), torch.float32))[0]
+        dh = rand((B, S, W), torch.float32) if with_dh else None
+        dl = rand((B, W), torch.float32) if with_last else None
+        got = launched(mod, lambda: mod.rglru_scan_bwd(a, h, dh, dl), "bwd_launches")
+        exp = ref.rglru_scan_bwd_ref(a, h, dh, dl)
+        errs = {n: check(torch, g, e, "float32") for n, g, e in zip(("da_log", "db"), got, exp)}
+        err, share = max(e for e, _ in errs.values()), max(sh for _, sh in errs.values())
+        cases_out.append(dict(kernel="rglru_scan_bwd", case=name, dtype="float32",
+                              max_abs_err=err, bound_share=share, tol=TOL["float32"]))
+        log(card, f"rglru_scan_bwd {name}: B={B} S={S} W={W} float32, dh {with_dh}, dh_last "
+                  f"{with_last}: " + ", ".join(f"{n} max abs err {e:.3e} at {sh:.3f} of its "
+                                               f"bound" for n, (e, sh) in errs.items())
+                  + f" ({TOL['float32']})")
+        if name == "train path":
+            # reads a_log, h, dh; writes da_log, db; a few operations an element
+            nbytes = 4 * 5 * B * S * W
+            bound_ms, bound_by = bound(6.0 * B * S * W, nbytes, "float32")
+            ms = cuda_ms(torch, lambda: mod.rglru_scan_bwd(a, h, dh, dl), reps=20, warmup=3)
+            plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_bwd_ref(a, h, dh, dl), reps=3)
+            rec["rglru_scan_bwd"] = dict(
+                shape=dict(B=B, S=S, W=W, dtype="float32", dh_last=with_last), ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                ops=6.0 * B * S * W, bytes=nbytes, max_abs_err=err, bound_share=share,
+                tol=TOL["float32"])
+        del a, h, dh, dl, got, exp
+    r = rec["rglru_scan_bwd"]
+    log(card, f"rglru_scan_bwd at the training path's shape: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.3f} ms, no single PyTorch call computes it, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB)")
     torch.cuda.empty_cache()
 
 
@@ -859,10 +923,18 @@ BWD_CASES = [
     # phase 6's h2o-danube-1.8b microbatch, in bf16 and in float32 (the CUDA-core kernels)
     ("d80 plan", (H2O_MB, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), H2O_WINDOW, "bfloat16"),
     ("f32 d80 plan", (H2O_MB, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), H2O_WINDOW,
-     "float32")]
+     "float32"),
+    # recurrentgemma-9b's training shape: head_dim 256 (its own 64-key instance), 16
+    # heads on one KV head, the 2048 window at S = 4096 (the plan splits the group in
+    # two); ragged S; a small window; one key tile, its group split over every head
+    ("d256 train path", (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_HEADS, 1, RG_HEAD_DIM), RG_PROMPT,
+     "bfloat16"),
+    ("d256 ragged S", (2, 333, RG_HEADS, 1, RG_HEAD_DIM), None, "bfloat16"),
+    ("d256 window 40", (1, 1000, RG_HEADS, 1, RG_HEAD_DIM), 40, "bfloat16"),
+    ("d256 split one tile", (1, 64, RG_HEADS, 1, RG_HEAD_DIM), None, "bfloat16")]
 # the cases timed against their bound and the library, by record key
 BWD_MAINS = {"train path": "flash_attention_bwd", "d80 train path": "flash_attention_bwd_d80",
-             "G=48": "flash_attention_bwd_g48"}
+             "G=48": "flash_attention_bwd_g48", "d256 train path": "flash_attention_bwd_d256"}
 
 
 def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
@@ -884,10 +956,11 @@ def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
 
 
 def kernels_flash_bwd(kp: KernelPhase) -> None:
-    """flash_attention_bwd at qwen3-32b's and h2o-danube-1.8b's training
-    shapes, head_dim 64 and 80, G = 1, 8 and 48, windows at S = 4096 and
-    8192, ragged S, float32, h2o-danube-1.8b's pipeline microbatch in bf16
-    and float32; each against its plain version on the same
+    """flash_attention_bwd at qwen3-32b's, h2o-danube-1.8b's and
+    recurrentgemma-9b's training shapes, head_dim 64, 80 and 256, G = 1, 8,
+    16 and 48, windows at S = 4096 and 8192, ragged S, float32,
+    h2o-danube-1.8b's pipeline microbatch in bf16 and float32, a group split
+    over every head at head_dim 256; each against its plain version on the same
     inputs (the forward kernel's output and log-sum-exp, which is itself
     held against the plain log-sum-exp)."""
     import torch.nn.functional as F
@@ -922,8 +995,8 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                   + f" ({tol}); the forward's lse {err_l:.3e}, {share_l:.3f} of "
                     f"{TOL['float32']}")
         if name in BWD_MAINS:
-            n_split = mod.bwd_split_plan(B, S, kv, h // kv)
-            blocks = -(-S // mod.BWD_KEY_TILE) * kv * B * n_split
+            n_split = mod.bwd_split_plan(B, S, kv, h // kv, d)
+            blocks = -(-S // mod.bwd_key_tile(d)) * kv * B * n_split
             log(card, f"flash_attention_bwd {name}: split plan {n_split} (query heads of a "
                       f"group per block {h // kv // n_split}), {blocks} blocks of the wgmma kernel")
             live = live_pairs(S, S, True, window)
@@ -1323,21 +1396,44 @@ SMALL = [
 # (arch, overrides, S, wq and wk at the fan-in of d_model) of the small float32
 # train steps, card against CPU: attn_chunk 64 < S, so the flash forward and
 # backward kernels run; the reduced mamba2 (4 layers, chunk 32) at S = 128 runs
-# the SSD scan's forward and backward kernels
+# the SSD scan's forward and backward kernels, the reduced recurrentgemma the
+# RG-LRU scan's
 SMALL_TRAIN = [
     ("qwen3_32b", dict(head_dim=64, attn_chunk=64), 256, False),
+    # the reduced recurrentgemma (a (rec, rec, local_attn) unit and two rec tail layers),
+    # head_dim 64: its window of 32 binds in the flash kernels, and the RG-LRU scan's
+    # forward and backward kernels run (6 + 4 a step; flash 2 + 1). wq and wk at the
+    # fan-in of d_model: with the reference init's a 1e-7 change of the embedding moves
+    # the CPU's gradients by 3.0e-4 of a leaf's max, above the 1e-4 tolerance (4.5e-6
+    # with fan_in_qk)
+    ("recurrentgemma_9b", dict(head_dim=64, attn_chunk=64), 256, True),
     # head_dim 80, and a window below S that binds in both kernels
     ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 256, True),
     ("mamba2_780m", {}, 128, False),
 ]
 
 
+# the forward and backward kernel of each layer kind
+KIND_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
+                "local_attn": ("flash_attention", "flash_attention_bwd"),
+                "ssm": ("ssd_scan", "ssd_scan_bwd"), "rec": ("rglru_scan", "rglru_scan_bwd")}
+
+
 def train_launches(cfg) -> Dict[str, int]:
-    """The kernel launches of one train step with remat="full": each layer's
-    kernel runs forward twice (forward and recompute) and backward once."""
-    fwd, bwd = ("ssd_scan", "ssd_scan_bwd") if cfg.ssm else ("flash_attention",
-                                                             "flash_attention_bwd")
-    return {fwd: 2 * cfg.n_layers, bwd: cfg.n_layers}
+    """The kernel launches of one train step with remat="full", by layer
+    kind: a stacked unit's layer runs its kernel forward twice (forward and
+    the unit's recompute) and backward once; a tail layer, which
+    ``LM.apply`` does not rematerialise, forward once and backward once.
+    (Every caller's S is above attn_chunk, so attention layers launch.)"""
+    from repro_torch.models import build_model
+    unit, n_units, tail = build_model(cfg, device="cpu").scan_groups()
+    out: Dict[str, int] = {}
+    for kinds, fwd_calls, reps in ((unit, 2, n_units), (tail, 1, 1)):
+        for kind in kinds:
+            fwd, bwd = KIND_KERNELS[kind]
+            out[fwd] = out.get(fwd, 0) + fwd_calls * reps
+            out[bwd] = out.get(bwd, 0) + reps
+    return out
 
 
 # The reference init (``dense_init``, as the JAX package's) reads the fan-in
@@ -1510,9 +1606,11 @@ def _fill_like(tree, value: float):
 
 def train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 x (parameters in matrix
-    products: the layers' projections and MLP and the head; the embedding is
-    a lookup) x tokens, plus attention's scores and P V (4 d operations a
-    live pair and head) three times (forward and backward); for an SSM
+    products: the layers' projections (attention's, or the RG-LRU block's)
+    and MLP and the head; the embedding is a lookup) x tokens, plus the
+    attention layers' scores and P V (4 d operations a live pair and head)
+    three times (forward and backward; the RG-LRU scan's few operations an
+    element are not counted); for an SSM
     (mamba2) the layers' in and out projections and the SSD scan's linear
     form (``kernels/flops.ssd_scan_flops``) three times; the recomputation
     of remat="full" is not counted."""
@@ -1525,10 +1623,15 @@ def train_flops(cfg, batch: int, seq: int) -> float:
                                    cfg.ssm_state)
         return 6.0 * (cfg.n_layers * per_layer + d * cfg.padded_vocab) * batch * seq \
             + 3 * ssd * cfg.n_layers
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    per_layer = 2 * d * h * hd + 2 * d * kv * hd + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
-    matmul = cfg.n_layers * per_layer + d * cfg.padded_vocab
-    attn = 3 * 4 * hd * h * batch * live_pairs(seq, seq, True, cfg.window) * cfg.n_layers
+    from repro_torch.models import build_model
+    d, h, kv, hd, w = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.lru_dim
+    mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    mixer = {"dense": 2 * d * h * hd + 2 * d * kv * hd, "local_attn": 2 * d * h * hd + 2 * d * kv * hd,
+             "rec": 3 * d * w + 2 * w * w}       # RG-LRU: w_in, gate branch, w_out; wa, wx
+    kinds = build_model(cfg, device="cpu").layer_kinds()
+    matmul = sum(mixer[k] + mlp for k in kinds) + d * cfg.padded_vocab
+    n_attn = sum(k != "rec" for k in kinds)
+    attn = 3 * 4 * hd * h * batch * live_pairs(seq, seq, True, cfg.window) * n_attn
     return 6.0 * matmul * batch * seq + attn
 
 
@@ -1555,6 +1658,10 @@ TRAIN_PATHS = [
               True),
     # all 48 SSD layers: the ssd_scan forward and backward kernels
     TrainPath("mamba2_780m", None, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, TRAIN_STEPS, False),
+    # 8 of 38 layers: the RG-LRU scan's and, above the 2048 window, the d = 256 flash
+    # forward and backward kernels; wq and wk at the fan-in of d_model
+    TrainPath("recurrentgemma_9b", RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ, TRAIN_STEPS,
+              False, True),
 ]
 
 
@@ -1584,7 +1691,9 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
                                     seed=0), device=DEVICE)
     width = (f"{cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
              f"{cfg.ssm_chunk}" if cfg.ssm else f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV "
-             f"heads of {cfg.hd}, d_ff {cfg.d_ff}")
+             f"heads of {cfg.hd}, d_ff {cfg.d_ff}"
+             + (f", lru width {cfg.lru_dim}, layers {'/'.join(model.layer_kinds())}"
+                if "rec" in cfg.block_pattern else ""))
     log(card, f"training {cfg.name} at full width (d_model {cfg.d_model}, {width}, vocab "
               f"{cfg.vocab_size}, {cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: "
               f"{n_params / 1e9:.3f} B "
@@ -1639,6 +1748,8 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
                                    "ssd_chunk_scan_"), "ssd_scan backward": "ssd_bwd_"} \
         if cfg.ssm else {"flash_attention forward": "flash_wgmma_kernel",
                          "flash_attention backward": "flash_bwd_"}
+    if "rec" in cfg.block_pattern:
+        groups.update({"rglru_scan forward": "rglru_kernel", "rglru_scan backward": "rglru_bwd_kernel"})
     prof = profile(torch, lambda: train_step(params, opt, batch, steps), card,
                    f"one {cfg.name} train step ({B}x{S})", groups=groups)
     data.close()
@@ -1658,7 +1769,9 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
     grads = _fill_like(params, 1e-3)
     out["profile_adamw"] = profile(torch, lambda: adamw_update(grads, opt, params, 1e-5), card,
                                    f"one AdamW update of the {n_params / 1e9:.3f} B parameters")
-    del grads
+    del grads, params, opt        # the trained state is not needed past here
+    gc.collect()
+    torch.cuda.empty_cache()
     if path.qk_fan_in:      # the first batch's gradient with the reference init's wq and wk
         data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                         seed=0), device=DEVICE)
@@ -1705,6 +1818,41 @@ def checkpoint_round_trip(torch, card: str, name: str, step: int, params, opt) -
               f"(async save, then wait), restored onto the card and equal bit for bit in "
               f"{restore_s:.1f} s")
     return dict(bytes=written, save_s=save_s, restore_s=restore_s)
+
+
+# the train launcher's run on the card: the reduced recurrentgemma (remat "none",
+# batch 8 x 128, below attn_chunk: the RG-LRU scan's kernels alone)
+TRAIN_LAUNCHER_ARGS = ["--arch", "recurrentgemma_9b", "--reduced", "--steps", "20"]
+
+
+def phase_train_launcher(torch, card: str, args=TRAIN_LAUNCHER_ARGS) -> dict:
+    """``python -m repro_torch.launch.train`` on the card, through its
+    ``main`` in this process so that its launches can be counted: the loss
+    must fall, and every rec layer must launch the RG-LRU scan forward and
+    backward once a step (the launcher trains with remat="none")."""
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import build_model
+
+    n_rec = build_model(reduced_config(args[1]), device="cpu").layer_kinds().count("rec")
+    steps = int(args[args.index("--steps") + 1])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = ttrain.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(rglru_scan=steps * n_rec, rglru_scan_bwd=steps * n_rec)
+    log(card, f"train launcher {' '.join(args)}: loss {out['first']:.4f} -> {out['final']:.4f} "
+              f"(means of the first and last 10 steps), {wall_s:.1f} s; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"the train launcher launched {counts}, expected {want}")
+    if not (all(math.isfinite(x) for x in out["losses"]) and out["final"] < out["first"]):
+        raise AssertionError(f"the train launcher's loss did not fall: {out['losses']}")
+    return dict(args=args, first=out["first"], final=out["final"], losses=out["losses"],
+                wall_s=wall_s, launches=counts)
 
 
 # ==============================================================================
@@ -2288,7 +2436,7 @@ def calibration_launches() -> Dict[str, int]:
     lq, lm = reduced_config("qwen3_32b").n_layers, reduced_config("mamba2_780m").n_layers
     return {"flash_attention": rate, "flash_attention_bwd": 0,
             "decode_attention": rate + step * lq, "ssd_scan": rate + step * lm,
-            "ssd_scan_bwd": step * lm, "rglru_scan": rate}
+            "ssd_scan_bwd": step * lm, "rglru_scan": rate, "rglru_scan_bwd": 0}
 
 
 def phase_calibrate(torch, card: str) -> dict:
@@ -2558,9 +2706,8 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    names = ["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
-             "ssd_scan_bwd", "rglru_scan"]
-    logs = _build.build(names)
+    logs = _build.build(["flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+                         "ssd_scan_bwd", "rglru_scan"])
     log(card, f"built the kernels in {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}")
     ptxas = ptxas_record(logs)
     for r in ptxas:
@@ -2581,7 +2728,7 @@ def main() -> int:
     # the bf16 flash backward's main kernel runs on wgmma, in every instance
     hgmma = {r["function"]: r.get("hgmma", 0) for r in ptxas
              if r["function"].startswith("flash_bwd_wgmma_kernel")}
-    if len(hgmma) != 3 or not all(hgmma.values()):
+    if len(hgmma) != 4 or not all(hgmma.values()):
         raise AssertionError(f"flash_bwd_wgmma_kernel instances without HGMMA: {hgmma}")
     spills = [r["function"] for r in ptxas if r["source"] == "flash_attention_bwd"
               and (r.get("spill_stores", 0) or r.get("spill_loads", 0))]
@@ -2614,6 +2761,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train[tpath.arch] = phase_train(torch, card, tpath)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launcher = phase_train_launcher(torch, card)
     timed("5 training", t0)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2640,7 +2790,11 @@ def main() -> int:
                "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
                                 "src/repro/models/ssm.py:28"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
-                              "src/repro/kernels/rglru_scan.py:34")}
+                              "src/repro/kernels/rglru_scan.py:34"),
+               # no Pallas kernel: the gradient the JAX package takes through its
+               # associative-scan oracle
+               "rglru_scan_bwd": ("src/repro_torch/csrc/rglru_scan.cu",
+                                  "src/repro/models/rglru.py:52")}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
             "bound_share", "tol", "shape")
     kernels_line = {"kernels": []}
@@ -2648,10 +2802,10 @@ def main() -> int:
     # timed shapes ride beside it, each with the same keys
     extra = {"flash_attention": ("d256", "d80", "g48"),
              "decode_attention": ("d256", "d80", "g48", "d16"),
-             "flash_attention_bwd": ("d80", "g48")}
+             "flash_attention_bwd": ("d80", "g48", "d256"), "rglru_scan": ("train",)}
     extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
-                 "d16": "head_dim_16"}
-    for name in names:
+                 "d16": "head_dim_16", "train": "training_shape"}
+    for name in sources:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})
         by_path.update({f"{dora[k]['arch']} {label}": dora[k]["launches"][name]
@@ -2662,6 +2816,7 @@ def main() -> int:
                                          ("catalogue_replan",
                                           f"{CATALOGUE} replanned pipeline forward"))})
         by_path["calibration"] = calibration["launches"][name]
+        by_path["train launcher"] = train_launcher["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
@@ -2672,7 +2827,8 @@ def main() -> int:
             entry["stages_ms"] = kern[name]["stages_ms"]
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
-              "small_train": small_train, "train": train, "dora": dora,
+              "small_train": small_train, "train": train, "train_launcher": train_launcher,
+              "dora": dora,
               "calibration": calibration, "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")

@@ -84,6 +84,29 @@
 // shared memory, S^T and dP^T issue only the 5 k-steps that hold data, dV,
 // dK and dQ run at n = 128 and 80 columns are written; nothing is padded
 // in device memory.
+// head_dim 256 (recurrentgemma-9b, bf16 only: the f32 forward has no 256) is
+// its own instance, `flash_bwd_wgmma_kernel<256, 256>`, an explicit
+// specialization with another layout, since the D = 128 one does not fit:
+// dK and dV of a consumer's 64 keys would take 256 f32 registers a thread
+// (budget 240), and 128-key K and V (128 KB) with a two-stage Q/dO ring
+// (128 KB) exceed 227 KB of shared memory. So a block holds 64 keys, and
+// its two consumer warpgroups split the work instead of the keys:
+//   S^T, dP^T  each consumer the 64 keys x its 32 of the step's 64 queries
+//              (wgmma SS m64n32, K-major both), then P^T and dS^T for those
+//              pairs, both written to shared memory as bf16 [key][query]
+//              (128-byte swizzle); a named barrier of the two consumers;
+//   dV, dK     each consumer its 128 of the 256 columns, over all 64 queries
+//              (wgmma SS m64n128: A = P^T or dS^T K-major from shared
+//              memory, B = dO or Q MN-major): 64 + 64 f32 registers;
+//   dQ         each consumer its 128 columns of dS K over the 64 keys
+//              (wgmma SS m64n128, both MN-major), 64 more registers, added
+//              from the registers into the f32 accumulator with float2
+//              `atomicAdd`s (a 64 x 264 f32 tile for a bulk reduce would not
+//              fit beside the two-stage ring).
+// No product is computed twice: 10 d operations a live pair, as above.
+// Shared memory: K and V 64 KB, the ring 2 x 64.5 KB, P^T and dS^T 16 KB:
+// 210 KB. The split plan uses 64-key tiles at this head_dim (at B = 2,
+// S = 4096, KV = 1: 128 blocks, so the 16-head group is split in two).
 // The wgmma, TMA and mbarrier helpers below are copies of those in
 // csrc/flash_attention.cu (kept apart so that the forward's build and
 // register record do not depend on this file).
@@ -112,6 +135,7 @@ using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DSUM_ROWS = 8;      // rows per dsum block: one warp each
 constexpr int BKEYS = 128;        // keys per block of the wgmma kernel (two consumers x 64)
+constexpr int WKEYS = 64;         // keys per block at head_dim 256 (the two consumers share them)
 constexpr int BQ = 64;            // queries per step
 constexpr int STAGES = 2;         // Q / dO ring depth
 constexpr int WG_THREADS = 384;   // producer + two consumer warpgroups
@@ -288,6 +312,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"               \
   " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
+#define WGMMA_D16                                                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),     \
+      "+f"(d[15])
+#define REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (m64n32 f32) {+}= A (64x16 bf16, shared, K-major) * B (32x16 bf16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D16
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n128 f32) {+}= A (64x16 bf16, shared, K-major) * B (16x128 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_kt_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64 ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : WGMMA_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n128 f32) {+}= A (64x16 bf16, shared, MN-major) * B (16x128 bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_ss_tt_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64 ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : WGMMA_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (m64n64 f32) {+}= A (64x16 bf16, shared, K-major) * B (64x16 bf16, shared, K-major)^T
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -395,6 +455,28 @@ struct BwdSmem {                 // byte offsets from a 1024-aligned base
   static constexpr size_t bar = dsum + size_t(STAGES) * BQ * 4;         // mbarriers
   static constexpr size_t bytes = bar + 8 * (2 * STAGES + 1) + 1024;    // + alignment slack
 };
+
+// head_dim 256: 64 keys, P^T and dS^T in shared memory, no dQ tile (see the header)
+template <>
+struct BwdSmem<256, 256> {
+  static constexpr int NSLAB = 4;
+  static constexpr int DP = 256 + 8;                                    // f32 row of dq_acc
+  static constexpr size_t kv_tile = size_t(NSLAB) * WKEYS * 128;        // [4][64 keys][64]
+  static constexpr size_t q_tile = size_t(NSLAB) * BQ * 128;            // [4][64 queries][64]
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + kv_tile;
+  static constexpr size_t q = v + kv_tile;                              // [STAGES] Q tiles
+  static constexpr size_t dout = q + STAGES * q_tile;                   // [STAGES] dO tiles
+  static constexpr size_t p = dout + STAGES * q_tile;                   // P^T [64 keys][64] bf16
+  static constexpr size_t ds = p + size_t(WKEYS) * 128;                 // dS^T [64 keys][64] bf16
+  static constexpr size_t lse = ds + size_t(WKEYS) * 128;               // [STAGES][64] f32, log2
+  static constexpr size_t dsum = lse + size_t(STAGES) * BQ * 4;         // [STAGES][64] f32
+  static constexpr size_t bar = dsum + size_t(STAGES) * BQ * 4;         // mbarriers
+  static constexpr size_t bytes = bar + 8 * (2 * STAGES + 1) + 1024;    // + alignment slack
+};
+
+// keys per block of the wgmma kernel at tile width D
+constexpr int bwd_keys(int D) { return D == 256 ? WKEYS : BKEYS; }
 
 template <int D, int DO>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -634,6 +716,235 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     const size_t off = ((size_t(b) * S + key) * KV + kvh) * DO + c2;
 #pragma unroll
     for (int n = 0; n < DO / 8; ++n) {
+      const int e = 4 * n + 2 * r;
+      if (n_split == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
+            __floats2bfloat162_rn(dka[e] * scale, dka[e + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) = __floats2bfloat162_rn(dva[e], dva[e + 1]);
+      } else {
+        atomicAdd(dk_acc + off + 8 * n, dka[e]);
+        atomicAdd(dk_acc + off + 8 * n + 1, dka[e + 1]);
+        atomicAdd(dv_acc + off + 8 * n, dva[e]);
+        atomicAdd(dv_acc + off + 8 * n + 1, dva[e + 1]);
+      }
+    }
+  }
+}
+
+// head_dim 256: the two consumers share the block's 64 keys and split the
+// step's queries (S^T, dP^T) and the 256 columns (dV, dK, dQ); see the header
+template <>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_wgmma_kernel<256, 256>(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_do,
+                                 const float* __restrict__ lse2, const float* __restrict__ dsum,
+                                 float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                                 bf16* __restrict__ dv, float* __restrict__ dk_acc,
+                                 float* __restrict__ dv_acc, int S, int S_pad, int H, int KV,
+                                 int window, float scale, float scale2, int B, int n_split) {
+  using L = BwdSmem<256, 256>;
+  constexpr int D = 256, NSLAB = L::NSLAB, DP = L::DP;
+  extern __shared__ unsigned char smem_bwd[];
+  const uint32_t raw = smem_u32(smem_bwd);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_bwd + (base - raw);
+  const uint32_t sK = base + L::k, sV = base + L::v, sQ = base + L::q, sO = base + L::dout;
+  const uint32_t sP = base + L::p, sDS = base + L::ds, sL = base + L::lse, sD = base + L::dsum;
+  const uint32_t sBar = base + L::bar;
+  auto full = [&](int s) { return sBar + 8u * s; };
+  auto empty = [&](int s) { return sBar + 8u * (STAGES + s); };
+  const uint32_t kv_full = sBar + 8u * (2 * STAGES);
+
+  int x = blockIdx.x;
+  const int kvh = x % KV;
+  x /= KV;
+  const int b = x % B;
+  x /= B;
+  const int sp = x % n_split;
+  const int k0 = (x / n_split) * WKEYS;            // key tile 0 sees the most queries: it runs first
+  const int G = H / KV;
+  const int h0 = kvh * G + sp * G / n_split;
+  const int n_h = kvh * G + (sp + 1) * G / n_split - h0;
+  const int2 qs = query_span(k0, WKEYS, S, window);
+  const int qt0 = qs.x / BQ, n_qt = (qs.y + BQ - 1) / BQ - qt0;
+  const int n_steps = n_h * n_qt;
+  const bool down = window < 0 || window >= S;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);                      // lane 0 of each consumer warp
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(kv_full, 2 * WKEYS * D * 2);
+      for (int sl = 0; sl < NSLAB; ++sl) {
+        tma_load4(sK + sl * WKEYS * 128, &tm_k, kv_full, sl * 64, kvh, k0, b);
+        tma_load4(sV + sl * WKEYS * 128, &tm_v, kv_full, sl * 64, kvh, k0, b);
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % STAGES;
+        const int2 hq = walk(i, down, h0, n_h, qt0, n_qt);
+        const int h = hq.x, q0 = hq.y;
+        if (i >= STAGES) mbar_wait(empty(s), ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * BQ * D * 2 + 2 * BQ * 4);
+        for (int sl = 0; sl < NSLAB; ++sl) {
+          tma_load4(sQ + s * L::q_tile + sl * BQ * 128, &tm_q, full(s), sl * 64, h, q0, b);
+          tma_load4(sO + s * L::q_tile + sl * BQ * 128, &tm_do, full(s), sl * 64, h, q0, b);
+        }
+        const size_t row = (size_t(b) * H + h) * S_pad + q0;
+        bulk_load(sL + s * BQ * 4, lse2 + row, BQ * 4, full(s));
+        bulk_load(sD + s * BQ * 4, dsum + row, BQ * 4, full(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw scores queries 32 cw .. + 31 of each step and
+  // owns columns 128 cw .. + 127 (slabs 2 cw, 2 cw + 1) of dK, dV and dQ
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int cw = wg - 1;
+  const int lane = tid & 31, wl = (tid >> 5) & 3;
+  const int rl = 16 * wl + (lane >> 2);            // this thread's fragment rows: rl, rl + 8
+  const int c2 = (lane & 3) * 2;                   // and column pairs 8 j + c2
+  const int qh = 32 * cw;                          // first query of this consumer's half
+  const int slab0 = 2 * cw;                        // first 64-column slab of its columns
+  const float* lse_s = reinterpret_cast<const float*>(gbase + L::lse);
+  const float* dsum_s = reinterpret_cast<const float*>(gbase + L::dsum);
+
+  float dka[64], dva[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dka[e] = dva[e] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int2 hq = walk(i, down, h0, n_h, qt0, n_qt);
+    const int h = hq.x, q0 = hq.y;
+    const uint32_t sQs = sQ + st * L::q_tile, sOs = sO + st * L::q_tile;
+    const float* lse_t = lse_s + st * BQ + qh;
+    const float* dsum_t = dsum_s + st * BQ + qh;
+    mbar_wait(full(st), ph);
+
+    // S^T = K Q^T and dP^T = V dO^T over this consumer's 32 queries, two commit groups
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int sl = 0; sl < NSLAB; ++sl)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n32(s, gmma_desc(sK + sl * WKEYS * 128 + kk * 32, 16, 1024),
+                     gmma_desc(sQs + sl * BQ * 128 + qh * 128 + kk * 32, 16, 1024), sl | kk);
+    wgmma_commit();
+#pragma unroll
+    for (int sl = 0; sl < NSLAB; ++sl)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n32(dp, gmma_desc(sV + sl * WKEYS * 128 + kk * 32, 16, 1024),
+                     gmma_desc(sOs + sl * BQ * 128 + qh * 128 + kk * 32, 16, 1024), sl | kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence<16>(s);
+
+    // P^T: s[e] is key k0 + rl + 8 ((e >> 1) & 1), query q0 + qh + 8 (e >> 2) + c2 + (e & 1)
+    const int qa = q0 + qh;
+    const bool full_tile = qa + 32 <= S && k0 + WKEYS - 1 <= qa &&
+                           (window < 0 || k0 > qa + 31 - window);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j + c2);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        float p = fast_exp2(s[e] * scale2 - ((e & 1) ? l2.y : l2.x));
+        if (!full_tile && !live(qa + 8 * j + c2 + (e & 1), k0 + rl + 8 * ((e >> 1) & 1), S, window))
+          p = 0.f;
+        s[e] = p;
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence<16>(dp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dsum_t + 8 * j + c2);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        dp[e] = s[e] * (dp[e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    // P^T and dS^T to shared memory as bf16, [key][query] under the 128-byte swizzle
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = rl + 8 * r, qq = qh + 8 * j + c2;
+        const int off = key * 128 + ((((qq >> 3) ^ (key & 7)) << 4) | ((qq & 7) * 2));
+        *reinterpret_cast<uint32_t*>(gbase + L::p + off) = pack_bf16(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(gbase + L::ds + off) = pack_bf16(dp[4 * j + 2 * r], dp[4 * j + 2 * r + 1]);
+      }
+    fence_proxy_async();
+    consumer_sync(1);                              // P^T and dS^T of all 64 queries are in place
+
+    // dV += P^T dO, dK += dS^T Q and dQ_partial = dS K on this consumer's 128 columns
+    float dqa[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) dqa[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_kt_n128(dva, gmma_desc(sP + kk * 32, 16, 1024),
+                       gmma_desc(sOs + slab0 * BQ * 128 + kk * 16 * 128, BQ * 128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_kt_n128(dka, gmma_desc(sDS + kk * 32, 16, 1024),
+                       gmma_desc(sQs + slab0 * BQ * 128 + kk * 16 * 128, BQ * 128, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < WKEYS / 16; ++kk)
+      wgmma_ss_tt_n128(dqa, gmma_desc(sDS + kk * 16 * 128, WKEYS * 128, 1024),
+                       gmma_desc(sK + slab0 * WKEYS * 128 + kk * 16 * 128, WKEYS * 128, 1024), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence<64>(dva);
+    reg_fence<64>(dka);
+    reg_fence<64>(dqa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));         // Q, dO, lse and D of this stage are read
+
+    // dqa[e] is query q0 + rl + 8 ((e >> 1) & 1), column 128 cw + 8 (e >> 2) + c2 + (e & 1)
+    float* dq_rows = dq_acc + ((size_t(b) * H + h) * S_pad + q0) * DP + 128 * cw + c2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      if (q0 + row >= S) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        atomicAdd(reinterpret_cast<float2*>(dq_rows + size_t(row) * DP + 8 * j),
+                  make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]));
+    }
+    consumer_sync(2);                              // both consumers' products have read P^T, dS^T
+  }
+
+  // dK and dV leave the registers once: dka[e] is key k0 + rl + 8 ((e >> 1) & 1),
+  // column 128 cw + 8 (e >> 2) + c2 + (e & 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + rl + 8 * r;
+    if (key >= S) continue;
+    const size_t off = ((size_t(b) * S + key) * KV + kvh) * D + 128 * cw + c2;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
       const int e = 4 * n + 2 * r;
       if (n_split == 1) {
         *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
@@ -990,10 +1301,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tdo;
+  constexpr int KEYS = bwd_keys(D);
   if (!make_map(enc, &tq, q, DO, H, S, B, BQ) || !make_map(enc, &tdo, dout, DO, H, S, B, BQ) ||
-      !make_map(enc, &tk, k, DO, KV, S, B, BKEYS) || !make_map(enc, &tv, v, DO, KV, S, B, BKEYS))
+      !make_map(enc, &tk, k, DO, KV, S, B, KEYS) || !make_map(enc, &tv, v, DO, KV, S, B, KEYS))
     return cudaErrorInvalidValue;
-  const long long blocks = (long long)((S + BKEYS - 1) / BKEYS) * KV * B * n_split;
+  const long long blocks = (long long)((S + KEYS - 1) / KEYS) * KV * B * n_split;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if ((err = set_smem(flash_bwd_wgmma_kernel<D, DO>, L::bytes)) != cudaSuccess) return err;
   flash_bwd_wgmma_kernel<D, DO><<<unsigned(blocks), WG_THREADS, L::bytes, st>>>(
@@ -1044,7 +1356,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D = 64, 80 or 128. Causal self-attention:
+// dtype: 0 = float32, 1 = bfloat16; D = 64, 80 or 128, and 256 in bfloat16.
+// Causal self-attention:
 // q, o, dout, dq (B,S,H,D); k, v, dk, dv (B,S,KV,D); lse (B,H,S) float32;
 // scratch float32 of flash_attention_bwd_scratch_floats(...) elements.
 // window < 0 means no window. n_split: the bf16 kernel's split of each KV
@@ -1055,8 +1368,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
                         void* dv, int B, int S, int H, int KV, int D, int dtype, int window,
                         int n_split, float scale, void* stream) {
   if (S <= 0 || B <= 0) return int(cudaSuccess);
-  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 80 && D != 128) || (dtype != 0 && dtype != 1) ||
-      n_split < 1 || n_split > H / KV)
+  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 80 && D != 128 && !(D == 256 && dtype == 1)) ||
+      (dtype != 0 && dtype != 1) || n_split < 1 || n_split > H / KV)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
@@ -1064,6 +1377,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
 #define BWD_ARGS q, k, v, o, dout, lp, sc, dq, dk, dv, B, S, H, KV, window, n_split, scale, st
   if (dtype == 1 && D == 64) return int(launch_bf16<64>(BWD_ARGS));
   if (dtype == 1 && D == 80) return int(launch_bf16<128, 80>(BWD_ARGS));
+  if (dtype == 1 && D == 256) return int(launch_bf16<256>(BWD_ARGS));
   if (dtype == 1) return int(launch_bf16<128>(BWD_ARGS));
   if (D == 64) return int(launch_f32<64>(BWD_ARGS));
   if (D == 80) return int(launch_f32<80>(BWD_ARGS));
@@ -1084,6 +1398,7 @@ int flash_attention_bwd_smem_bytes(int dtype, int D, int kernel) {
     if (D == 64) return int(BwdSmem<64, 64>::bytes);
     if (D == 80) return int(BwdSmem<128, 80>::bytes);
     if (D == 128) return int(BwdSmem<128, 128>::bytes);
+    if (D == 256) return int(BwdSmem<256, 256>::bytes);
   }
   if (dtype == 0) {
     if (D == 64) return int(kernel == 0 ? FDkvSmem<64>::bytes : FDqSmem<64>::bytes);

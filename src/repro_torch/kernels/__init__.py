@@ -6,7 +6,8 @@ module with its plain PyTorch version and a launch counter:
 * ``decode_attention`` — one token against the KV cache (decode)
 * ``ssd_scan``         — Mamba-2 SSD chunked scan (mamba2 prefill, training)
 * ``ssd_scan_bwd``     — its gradient (training; in the same module)
-* ``rglru_scan``       — RG-LRU linear recurrence (recurrentgemma prefill)
+* ``rglru_scan``       — RG-LRU linear recurrence (recurrentgemma prefill, training)
+* ``rglru_scan_bwd``   — its gradient (training; in the same module)
 
 The public entry points are in ``ops``; the submodule names stay free for
 the modules, so ``kernels.flash_attention.launches`` is the counter.
@@ -19,7 +20,8 @@ KERNELS = {"flash_attention": (flash_attention, "launches"),
            "flash_attention_bwd": (flash_attention, "bwd_launches"),
            "decode_attention": (decode_attention, "launches"),
            "ssd_scan": (ssd_scan, "launches"), "ssd_scan_bwd": (ssd_scan, "bwd_launches"),
-           "rglru_scan": (rglru_scan, "launches")}
+           "rglru_scan": (rglru_scan, "launches"),
+           "rglru_scan_bwd": (rglru_scan, "bwd_launches")}
 
 
 def reset_launches() -> None:

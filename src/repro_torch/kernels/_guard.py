@@ -1,9 +1,11 @@
-"""The no-grad guard of the kernels that have no backward on the card yet.
+"""The no-grad guard of the one kernel that has no backward on the card:
+``decode_attention``, which only serving calls (the JAX package takes no
+gradient through its decode either).
 
-Their CUDA wrappers return fresh tensors that autograd cannot see through,
+Its CUDA wrapper returns fresh tensors that autograd cannot see through,
 so a call that needs a gradient would silently drop every path through the
-kernel. Such a call raises instead, naming the ROADMAP item that brings the
-backward. CPU tensors take the plain versions, which autograd differentiates.
+kernel. Such a call raises instead, naming the ROADMAP item it would need.
+CPU tensors take the plain version, which autograd differentiates.
 """
 from __future__ import annotations
 

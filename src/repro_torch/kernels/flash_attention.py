@@ -15,7 +15,8 @@ differentiates. On the card, when grad is needed, it goes through
 the backward is ``flash_attention_bwd`` (three kernels a call: dsum, the
 main kernel, and a convert of its f32 accumulators; ``bwd_split_plan``
 splits a KV head's query group across blocks where the key tiles alone
-do not fill the card).
+do not fill the card). The backward takes head_dim 64, 80, 128 and, in
+bfloat16, 256 (``BWD_HEAD_DIMS``).
 ``flash_attention_fwd`` returns the forward's two outputs (out, lse), which
 the backward reads; the plain versions are ``flash_attention_ref``,
 ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` (the
@@ -35,9 +36,10 @@ from .decode_attention import SMS
 
 NEG_INF = -2.0e38
 HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256), torch.float32: (64, 80, 128)}
-BWD_HEAD_DIMS = (64, 80, 128)
+BWD_HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256), torch.float32: (64, 80, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BWD_KEY_TILE = 128     # keys per block of the bf16 backward kernel
+BWD_KEY_TILE = 128     # keys per block of the bf16 backward kernel up to head_dim 128
+BWD_KEY_TILE_256 = 64  # and at head_dim 256 (csrc/flash_attention_bwd.cu's header)
 
 launches = 0
 bwd_launches = 0
@@ -116,14 +118,20 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bwd_split_plan(B: int, S: int, KV: int, G: int) -> int:
+def bwd_key_tile(head_dim: int) -> int:
+    """Keys per block of the bf16 backward kernel at this head_dim."""
+    return BWD_KEY_TILE_256 if head_dim == 256 else BWD_KEY_TILE
+
+
+def bwd_split_plan(B: int, S: int, KV: int, G: int, head_dim: int = 128) -> int:
     """How many blocks share one (key tile, KV head, b) of the bf16
     backward, each taking a contiguous share of the G query heads: 1 where
-    the key tiles x KV x B blocks already fill the H100's ``SMS`` SMs,
-    else the smallest divisor of G that does (G itself if none does).
-    Split ``sp`` of ``n`` takes query heads [sp G // n, (sp + 1) G // n) of
-    the group. Depends on the shapes alone."""
-    blocks = -(-S // BWD_KEY_TILE) * KV * B
+    the key tiles (``bwd_key_tile(head_dim)`` keys each) x KV x B blocks
+    already fill the H100's ``SMS`` SMs, else the smallest divisor of G
+    that does (G itself if none does). Split ``sp`` of ``n`` takes query
+    heads [sp G // n, (sp + 1) G // n) of the group. Depends on the shapes
+    alone."""
+    blocks = -(-S // bwd_key_tile(head_dim)) * KV * B
     if blocks >= SMS:
         return 1
     want = -(-SMS // blocks)
@@ -219,20 +227,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,S,H,d), k/v (B,T,KV,d) with H % KV == 0 -> (B,S,H,d) in q's type.
     On the card the forward takes head_dim 64, 80, 128 or 256 in bfloat16
     and 64, 80 or 128 in float32 (``HEAD_DIMS``). Differentiable: on the
-    card, when grad is needed, only causal self-attention (S == T) at
-    head_dim 64, 80 or 128 (``BWD_HEAD_DIMS``) has a backward; anything else
-    raises before the forward runs."""
+    card, when grad is needed, only causal self-attention (S == T) has a
+    backward, at head_dim 64, 80, 128 or 256 in bfloat16 and 64, 80 or 128
+    in float32 (``BWD_HEAD_DIMS``); anything else raises before the forward
+    runs."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check_inputs(q, k, v, HEAD_DIMS.get(q.dtype, ()))
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if not causal or q.shape[1] != k.shape[1] or q.shape[-1] not in BWD_HEAD_DIMS:
+        bwd_dims = BWD_HEAD_DIMS[q.dtype]
+        if not causal or q.shape[1] != k.shape[1] or q.shape[-1] not in bwd_dims:
             raise NotImplementedError(
                 f"flash_attention: no backward on the card for causal={causal}, S="
-                f"{q.shape[1]}, T={k.shape[1]}, head_dim {q.shape[-1]} (causal self-attention "
-                f"at head_dim {BWD_HEAD_DIMS} only; ROADMAP: 'Backward kernels')")
+                f"{q.shape[1]}, T={k.shape[1]}, head_dim {q.shape[-1]} {q.dtype} (causal "
+                f"self-attention at head_dim {bwd_dims} only; ROADMAP: 'Backward kernels')")
         return FlashAttentionFn.apply(q, k, v, window, scale)
     return _forward(q, k, v, causal, window, scale, with_lse=False)[0]
 
@@ -267,7 +277,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
                                        scale=scale)
-    _check_inputs(q, k, v, BWD_HEAD_DIMS)
+    _check_inputs(q, k, v, BWD_HEAD_DIMS.get(q.dtype, ()))
     B, S, H, d = q.shape
     KV = k.shape[2]
     if not causal or k.shape[1] != S:
@@ -285,7 +295,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: tensors must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dtype = _DTYPES[q.dtype]
-    n_split = bwd_split_plan(B, S, KV, H // KV) if q.dtype == torch.bfloat16 else 1
+    n_split = bwd_split_plan(B, S, KV, H // KV, d) if q.dtype == torch.bfloat16 else 1
     lib = _bwd_lib()
     # f32 scratch: the row sums D, and in bf16 also lse in log2 units and the
     # f32 accumulators (zeroed by the first kernel)

@@ -8,9 +8,13 @@ Temporal mixing = Conv1D(width 4) → RG-LRU, gated by a GeLU branch:
     a_t = exp(−c · softplus(Λ) · r_t)
     h_t = a_t h_{t−1} + sqrt(1 − a_t²) · (i_t ⊙ x_t)
 
-Prefill from zero state calls ``ops.rglru_scan``: the kernel on a CUDA
-tensor, at any length and width, and its plain version on the CPU. Decode,
-which carries {lru, conv} state, takes ``_rglru_scan``.
+Prefill and training, from zero state, call ``ops.rglru_scan``: on a CUDA
+tensor the kernel at any length and width, and when grad is needed its
+autograd Function (``kernels.rglru_scan.RglruScanFn``, whose backward is
+the ``rglru_scan_bwd`` kernel); on the CPU its plain version, through which
+autograd differentiates. Decode, which carries {lru, conv} state, takes
+``_rglru_scan`` (the plain scan), as the JAX package's decode takes its
+oracle and not the Pallas kernel.
 The functions are pure: the transformer writes the returned state into
 the cache in place.
 """

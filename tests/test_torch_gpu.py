@@ -235,6 +235,48 @@ def test_rglru_scan_kernel_matches_plain():
 
 
 @pytest.mark.gpu
+def test_rglru_scan_bwd_kernel_matches_plain():
+    """rglru_scan_bwd against rglru_scan_bwd_ref on the same values (the
+    forward kernel's h): recurrentgemma-9b's training shape, S off the
+    kernel's 16-step groups, W off its 128-channel blocks, with and without
+    dh_last and without dh; float32 at 2e-5."""
+    gen = _card()
+    for (B, S, W), with_dh, with_last in [((2, 4096, 4096), True, False),
+                                          ((2, 300, 256), True, True), ((3, 77, 200), True, False),
+                                          ((2, 64, 128), False, True), ((1, 5, 128), True, True)]:
+        a = -torch.randn((B, S, W), generator=gen, device="cuda").abs() * 0.5
+        b = torch.randn((B, S, W), generator=gen, device="cuda")
+        h, _ = kernels.rglru_scan.rglru_scan(a, b)
+        dh = torch.randn((B, S, W), generator=gen, device="cuda") if with_dh else None
+        dl = torch.randn((B, W), generator=gen, device="cuda") if with_last else None
+        n0 = kernels.rglru_scan.bwd_launches
+        got = ops.rglru_scan_bwd(a, h, dh, dl)
+        torch.cuda.synchronize()
+        assert kernels.rglru_scan.bwd_launches == n0 + 1
+        for g, e in zip(got, ref.rglru_scan_bwd_ref(a, h, dh, dl)):
+            torch.testing.assert_close(g, e, **F32_TOL)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_fn_gradients_match_autograd_on_cpu():
+    """Through RglruScanFn (the forward and backward kernels) the gradients
+    of a loss of h and of h_last, of h alone (h_last's cotangent left out)
+    and of h_last alone match autograd through the plain scan on the CPU."""
+    gen = _card()
+    a0 = -torch.randn((2, 200, 160), generator=gen, device="cuda").abs() * 0.5
+    b0 = torch.randn((2, 200, 160), generator=gen, device="cuda")
+    for use_h, use_last in ((True, True), (True, False), (False, True)):
+        grads = []
+        for dev in ("cuda", "cpu"):
+            a, b = (t.to(dev).requires_grad_(True) for t in (a0, b0))
+            h, hl = ops.rglru_scan(a, b)
+            loss = (h.square().sum() if use_h else 0) + (hl.sum() if use_last else 0)
+            grads.append([g.cpu() for g in torch.autograd.grad(loss, (a, b))])
+        for g, e in zip(*grads):
+            torch.testing.assert_close(g, e, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
 def test_rglru_prefill_launches_the_kernel_at_any_length():
     """apply_rglru from zero state takes the kernel on the card at a length
     and width off the TPU kernel's (256, 512) tiling (S = 300, W = 640), and
@@ -324,6 +366,36 @@ def test_flash_attention_bwd_kernel_matches_plain(dtype):
 
 
 @pytest.mark.gpu
+def test_flash_attention_bf16_bwd_head_dim_256_ragged_and_windowed():
+    """The bf16 backward at head_dim 256 (its own 64-key instance) against
+    flash_attention_bwd_ref in float32 on the same values, within the bf16
+    bound plus BWD_FLOOR: recurrentgemma-9b's 16 heads on one KV head with
+    its 2048 window at S = 4096 (the training shape at B = 1, split in four),
+    a ragged S, a small window, two KV heads, and one key tile whose group
+    the split plan spreads over every head."""
+    gen = _card()
+    fa = kernels.flash_attention
+    for (B, S, H, KV), window in [((1, 4096, 16, 1), 2048), ((2, 333, 8, 1), None),
+                                  ((1, 1000, 16, 1), 40), ((1, 200, 4, 2), 100),
+                                  ((1, 64, 16, 1), None)]:
+        q, k, v = (torch.randn((B, S, n, 256), generator=gen, device="cuda").bfloat16()
+                   for n in (H, KV, KV))
+        dout = torch.randn((B, S, H, 256), generator=gen, device="cuda").bfloat16()
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+        if S == 64:
+            assert fa.bwd_split_plan(B, S, KV, H // KV, 256) == H // KV
+        b0 = fa.bwd_launches
+        got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert fa.bwd_launches == b0 + 1
+        exp = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, out)), lse,
+                                          dout.float(), causal=True, window=window)
+        for g, e in zip(got, exp):
+            assert g.dtype == torch.bfloat16
+            _assert_within_bf16_bound(g, e, BWD_FLOOR)
+
+
+@pytest.mark.gpu
 def test_flash_attention_autograd_on_card_runs_both_kernels():
     gen = _card()
     q, k, v = (torch.randn((1, 200, n, 64), generator=gen, device="cuda").requires_grad_(True)
@@ -337,28 +409,36 @@ def test_flash_attention_autograd_on_card_runs_both_kernels():
     exp = torch.autograd.grad(ref.flash_attention_ref(qc, kc, vc).square().sum(), (qc, kc, vc))
     for g, e in zip(grads, exp):
         torch.testing.assert_close(g.cpu(), e, atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):     # no backward at d = 256
+    with pytest.raises(NotImplementedError, match="ROADMAP"):     # no backward for S != T
         q256 = torch.zeros((1, 16, 2, 256), device="cuda", dtype=torch.bfloat16,
                            requires_grad=True)
-        ops.flash_attention(q256, q256.detach(), q256.detach())
+        kv = torch.zeros((1, 32, 2, 256), device="cuda", dtype=torch.bfloat16)
+        ops.flash_attention(q256, kv, kv)
 
 
 @pytest.mark.gpu
 def test_kernels_without_backward_refuse_grad():
-    """decode_attention and rglru_scan have no backward on the card: a call
-    that needs a gradient raises instead of dropping it (ssd_scan has one
-    since its backward kernel came)."""
+    """decode_attention has no backward on the card: a call that needs a
+    gradient raises instead of dropping it. rglru_scan (like ssd_scan) has
+    one: a call that needs a gradient runs the forward and backward kernels
+    and gives the plain version's gradients."""
     _card()
     q = torch.zeros((1, 1, 4, 64), device="cuda", requires_grad=True)
     kc = torch.zeros((1, 32, 4, 64), device="cuda")
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.decode_attention(q, kc, kc, lens)
-    a = torch.zeros((1, 64, 4), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.rglru_scan(a.requires_grad_(True), a.detach())
-    with torch.no_grad():                              # without grad they run
+    with torch.no_grad():                              # without grad it runs
         ops.decode_attention(q, kc, kc, lens)
+    a = torch.full((1, 64, 4), -0.1, device="cuda").requires_grad_(True)
+    b = torch.ones((1, 64, 4), device="cuda").requires_grad_(True)
+    n0, b0 = kernels.rglru_scan.launches, kernels.rglru_scan.bwd_launches
+    got = torch.autograd.grad(ops.rglru_scan(a, b)[0].sum(), (a, b))
+    assert (kernels.rglru_scan.launches, kernels.rglru_scan.bwd_launches) == (n0 + 1, b0 + 1)
+    ac, bc = (t.detach().cpu().requires_grad_(True) for t in (a, b))
+    exp = torch.autograd.grad(ref.rglru_scan_ref(ac, bc)[0].sum(), (ac, bc))
+    for g, e in zip(got, exp):
+        torch.testing.assert_close(g.cpu(), e, **F32_TOL)
 
 
 @pytest.mark.gpu

@@ -142,6 +142,28 @@ def test_flash_attention_bwd_plain_matches_jax_vjp_head_dim_80(B, S, H, KV, wind
         np.testing.assert_allclose(_np(got), _np(exp), **_tol(dtype))
 
 
+@pytest.mark.parametrize("B,S,window", [
+    (1, 96, 24),                  # the window binds from row 24 on
+    (2, 70, 40),                  # ragged S
+])
+def test_flash_attention_bwd_plain_matches_jax_vjp_head_dim_256(B, S, window):
+    """The plain backward at recurrentgemma-9b's attention layout (head_dim
+    256, 16 query heads on one KV head, a window that binds) against
+    jax.vjp of the JAX package's reference, in float32 at 2e-5."""
+    H, KV, d = 16, 1, 256
+    rng = np.random.default_rng(11)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, (B, S, n, d), "float32") for n in (H, KV, KV, H))
+    jout, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, causal=True,
+                                                                 window=window), jq, jk, jv)
+    out = ref.flash_attention_ref(tq, tk, tv, causal=True, window=window)
+    lse = ref.flash_attention_lse_ref(tq, tk, causal=True, window=window)
+    grads = ref.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, causal=True, window=window)
+    for got, exp in zip((out,) + grads, (jout,) + vjp(jdo)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), _np(exp), atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("window", [None, 20])
 def test_flash_attention_autograd_on_cpu_equals_plain_bwd(window):
     """On CPU tensors autograd differentiates the plain forward; it agrees
@@ -197,6 +219,17 @@ def test_bwd_split_plan_at_the_training_and_granite_shapes():
     n = plan(1, 4096, 1, 48)
     assert 48 % n == 0 and 4096 // tile * n >= 132
     assert plan(1, 100, 1, 8) == 8      # one key tile: every head its own block
+
+
+def test_bwd_split_plan_at_recurrentgemma_training_shape():
+    """head_dim 256 takes 64-key tiles: recurrentgemma-9b's B = 2, S = 4096
+    on one KV head is 128 blocks, under 132, so its 16-head group is split
+    in two (256 blocks); the other head dims keep 128-key tiles."""
+    fa = kernels.flash_attention
+    assert fa.bwd_key_tile(256) == 64 and fa.bwd_key_tile(128) == fa.bwd_key_tile(80) == 128
+    assert fa.bwd_split_plan(2, 4096, 1, 16, 256) == 2
+    assert fa.bwd_split_plan(2, 4096, 1, 16) == 4          # at 128-key tiles: 64 blocks
+    assert fa.bwd_split_plan(2, 8192, 1, 16, 256) == 1     # 256 blocks fill the card
 
 
 @pytest.mark.parametrize("B,S,H,KV,d,window", [
@@ -628,6 +661,24 @@ def test_split_bf16_planes_sum_back_to_float32():
     assert tssd.bwd_slices(64, 128) == 8 and tssd.bwd_slices(16, 16) == 1
 
 
+def test_flash_bwd_variants_edit_the_kernel_source():
+    """Each text edit of ``tools/bwd_variants.py`` (timed on the card)
+    still matches ``csrc/flash_attention_bwd.cu``; the head_dim-256 ones
+    match exactly once (its instance alone)."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("bwd_variants", root / "tools" / "bwd_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    for name, edits in tool.VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) >= 1 and old != new, name
+            if name.endswith("_d256"):
+                assert src.count(old) == 1, name
+
+
 def test_ssd_bwd_variants_edit_the_kernel_source_once():
     """Each text edit of ``tools/ssd_bwd_variants.py`` (timed on the card
     against the unedited backward) matches the CUDA source exactly once, so
@@ -664,6 +715,90 @@ def test_rglru_scan_plain_matches_jax_oracle(B, S, W, bt):
                     jrglru_pallas(ja, jb, block_t=bt, interpret=True)):
         np.testing.assert_allclose(_np(h), _np(he), atol=2e-5, rtol=2e-5)
         np.testing.assert_allclose(_np(hl), _np(hle), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (2, 37, 24),                  # S off 16 (the card kernel's step group)
+    (1, 64, 128),
+    (3, 130, 40),
+    (1, 1, 8),                    # one step: h_{-1} = 0, no a_{t+1}
+])
+@pytest.mark.parametrize("with_last", [False, True])
+def test_rglru_scan_bwd_plain_matches_jax_vjp_and_autograd(B, S, W, with_last):
+    """rglru_scan_bwd_ref (the reverse doubling scan, float32, no autograd),
+    with and without h_last's cotangent, at 2e-5: against torch autograd
+    through rglru_scan_ref, and against jax.vjp of the JAX package's oracle
+    ``repro.kernels.ref.rglru_scan_ref`` taken in float64. The oracle divides
+    b by the input gate sqrt(1 - a^2) and its scan multiplies it back, so in
+    float32 its a_log gradient is the difference of two terms of size
+    |b| gate' / gate (~100 |b| where a nears 1) that cancel only to noise
+    above 2e-5; in float64 that noise is ~1e-13."""
+    rng = np.random.default_rng(12)
+    a = (-np.abs(rng.standard_normal((B, S, W))) * 0.5).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    dh = rng.standard_normal((B, S, W)).astype(np.float32)
+    dl = rng.standard_normal((B, W)).astype(np.float32) if with_last else None
+    tdh, tdl = torch.from_numpy(dh), None if dl is None else torch.from_numpy(dl)
+    ta, tb = (torch.from_numpy(x).requires_grad_(True) for x in (a, b))
+    h, hl = ref.rglru_scan_ref(ta, tb)
+    da, db = ref.rglru_scan_bwd_ref(ta.detach(), h.detach(), tdh, tdl)
+    assert da.dtype == db.dtype == torch.float32
+    loss = (h * tdh).sum() + (0 if tdl is None else (hl * tdl).sum())
+    auto = torch.autograd.grad(loss, (ta, tb), allow_unused=True)   # S = 1 does not use a_log
+    auto = [torch.zeros_like(x) if g is None else g for g, x in zip(auto, (ta, tb))]
+    with jax.enable_x64(True):
+        _, vjp = jax.vjp(jref.rglru_scan_ref, jnp.asarray(a, jnp.float64),
+                         jnp.asarray(b, jnp.float64))
+        jgrads = [np.asarray(g) for g in vjp((jnp.asarray(dh, jnp.float64),
+                                              jnp.zeros((B, W), jnp.float64) if dl is None
+                                              else jnp.asarray(dl, jnp.float64)))]
+    for exp in (auto, jgrads):
+        for got, e in zip((da, db), exp):
+            np.testing.assert_allclose(_np(got), _np(e), atol=2e-5, rtol=2e-5)
+
+
+def test_rglru_scan_bwd_plain_reads_a_missing_cotangent_as_zero():
+    """dh None is a zero dh (only h_last used); dh_last None a zero dh_last."""
+    rng = np.random.default_rng(13)
+    a = torch.from_numpy((-np.abs(rng.standard_normal((2, 21, 16))) * 0.5).astype(np.float32))
+    h = torch.from_numpy(rng.standard_normal((2, 21, 16)).astype(np.float32))
+    dl = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32))
+    for got, exp in zip(ops.rglru_scan_bwd(a, h, None, dl),
+                        ref.rglru_scan_bwd_ref(a, h, torch.zeros_like(h), dl)):
+        assert torch.equal(got, exp)
+    for got, exp in zip(ops.rglru_scan_bwd(a, h, h, None),
+                        ref.rglru_scan_bwd_ref(a, h, h, torch.zeros_like(dl))):
+        torch.testing.assert_close(got, exp, atol=0, rtol=0)
+
+
+def test_rglru_scan_fn_saves_a_log_and_h_and_calls_the_backward(monkeypatch):
+    """RglruScanFn on stand-ins for the kernels (the plain versions, on CPU
+    tensors): it saves a_log and the forward's h, hands the backward both
+    cotangents (None where autograd leaves one out) and returns its
+    (da_log, db); its gradients equal autograd's through the plain scan."""
+    from repro_torch.kernels import rglru_scan as trg
+    calls = []
+
+    def fake_bwd(a_log, h, dh, dh_last=None):
+        calls.append((dh is None, dh_last is None))
+        return ref.rglru_scan_bwd_ref(a_log, h, dh, dh_last)
+    monkeypatch.setattr(trg, "_forward", lambda a_log, b: ref.rglru_scan_ref(a_log, b))
+    monkeypatch.setattr(trg, "rglru_scan_bwd", fake_bwd)
+    rng = np.random.default_rng(14)
+    a0 = torch.from_numpy((-np.abs(rng.standard_normal((2, 33, 8))) * 0.5).astype(np.float32))
+    b0 = torch.from_numpy(rng.standard_normal((2, 33, 8)).astype(np.float32))
+    for use_h, use_last in ((True, False), (False, True), (True, True)):
+        a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        h, hl = trg.RglruScanFn.apply(a, b)
+        loss = (h.square().sum() if use_h else 0) + (hl.sum() if use_last else 0)
+        got = torch.autograd.grad(loss, (a, b))
+        ar, br = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        hr, hlr = ref.rglru_scan_ref(ar, br)
+        exp = torch.autograd.grad((hr.square().sum() if use_h else 0)
+                                  + (hlr.sum() if use_last else 0), (ar, br))
+        assert calls[-1] == (not use_h, not use_last)
+        for g, e in zip(got, exp):
+            torch.testing.assert_close(g, e, atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------- dispatch

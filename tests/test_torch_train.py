@@ -3,7 +3,11 @@
 
 Both packages start from one set of weights (the JAX init, through numpy,
 with wq and wk scaled by 0.3 as in tests/test_torch_models.py, which keeps
-these narrow float32 models well conditioned). Tolerances: the loss at
+these narrow float32 models well conditioned; in recurrentgemma's rec
+blocks the recurrent branch's input projection w_in is scaled by 0.3 too:
+at the plain init a 1e-7 relative change of the embedding alone moves the
+port's wa gradient by 1.46 x the tolerance below, so any two float32
+orders of summation could disagree by that much; with w_in scaled, 0.3 x). Tolerances: the loss at
 2e-5 relative and every gradient within 2e-5 of its leaf's largest
 magnitude (float32 sums in another order through four layers and their
 backward); a train step's loss, lr and grad_norm at 1e-4 relative. The
@@ -16,7 +20,10 @@ fair comparison. attn_chunk below S sends attention down the chunked path
 attention in the JAX package), above S the plain GQA path. mamba2_780m's
 reduced config (S = 32, one chunk of 32) trains through the SSD scan, whose
 backward on the card is the ``ssd_scan_bwd`` kernel and here autograd
-through its plain version.
+through its plain version. recurrentgemma_9b's reduced config (a (rec, rec,
+local_attn) unit and two rec tail layers) trains through the RG-LRU scan,
+whose backward on the card is the ``rglru_scan_bwd`` kernel and here
+autograd through its plain version, and through its local attention.
 """
 import dataclasses
 import os
@@ -48,7 +55,8 @@ B, S = 2, 32
 
 
 def _weights(arch, **overrides):
-    """The JAX package's init as numpy, wq and wk scaled by 0.3."""
+    """The JAX package's init as numpy, wq and wk scaled by 0.3 (and w_in of
+    the rec blocks, stacked and tail)."""
     jm = JLM(dataclasses.replace(j_reduced(arch), **overrides))
     weights = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
     for block in weights["stack"].values():
@@ -57,6 +65,11 @@ def _weights(arch, **overrides):
                 continue
             w = block["mixer"][name]
             block["mixer"][name] = (w * np.float32(0.3)).astype(w.dtype)
+    for group in ("stack", "tail"):
+        for block in weights.get(group, {}).values():
+            if "w_in" in block["mixer"]:            # an RG-LRU block (recurrentgemma)
+                w = block["mixer"]["w_in"]
+                block["mixer"]["w_in"] = (w * np.float32(0.3)).astype(w.dtype)
     return jm, weights
 
 
@@ -98,6 +111,10 @@ def _walk(t, j, fn):
     ("granite_8b", 64, "none", True),
     ("mamba2_780m", 64, "full", False),    # the SSD scan's backward (its plain version here)
     ("mamba2_780m", 64, "none", True),
+    ("recurrentgemma_9b", 64, "full", False),    # the RG-LRU scan's backward (plain here)
+    ("recurrentgemma_9b", 8, "full", False),     # and the flash kernel's plain version
+    ("recurrentgemma_9b", 64, "none", False),
+    ("recurrentgemma_9b", 8, "none", True),
 ])
 def test_loss_and_grads_match_jax(arch, attn_chunk, remat, mask):
     jm, weights = _weights(arch, attn_chunk=attn_chunk)
@@ -134,7 +151,8 @@ def test_remat_dots_names_its_roadmap_item():
 
 @pytest.mark.parametrize("arch,attn_chunk,remat", [("qwen3_32b", 8, "full"),
                                                    ("granite_8b", 64, "none"),
-                                                   ("mamba2_780m", 64, "full")])
+                                                   ("mamba2_780m", 64, "full"),
+                                                   ("recurrentgemma_9b", 8, "full")])
 def test_train_step_matches_jax(arch, attn_chunk, remat):
     kw = dict(peak_lr=1e-3, warmup=2, total=10, remat=remat)
     jm, weights = _weights(arch, attn_chunk=attn_chunk)
@@ -177,6 +195,17 @@ def test_train_launcher_improves_and_resumes(tmp_path, capsys):
     assert "restored checkpoint step 20" in printed
     assert out["step0"] == 20 and len(out["losses"]) == 5
     assert "step    20 loss" in printed
+
+
+def test_train_launcher_trains_recurrentgemma_on_cpu():
+    """The reduced recurrentgemma (RG-LRU and local attention) through the
+    launcher on the CPU: the loss falls and no kernel launches."""
+    before = launch_counts()
+    out = ttrain.main(["--arch", "recurrentgemma_9b", "--reduced", "--device", "cpu",
+                       "--steps", "20", "--seq", "64", "--global-batch", "4"])
+    assert launch_counts() == before
+    assert len(out["losses"]) == 20 and all(np.isfinite(out["losses"]))
+    assert out["final"] < out["first"]
 
 
 def test_train_launcher_stubs_raise():

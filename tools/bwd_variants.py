@@ -7,12 +7,15 @@ Each variant is ``csrc/flash_attention_bwd.cu`` with a few text edits
 (``VARIANTS``). All copies are compiled side by side (one ``nvcc`` each,
 in parallel) into the git-ignored ``build/variants/``, loaded with
 ``ctypes`` and called as ``kernels.flash_attention.flash_attention_bwd``
-calls the built library. At qwen3-32b's and h2o-danube-1.8b's training
-shapes and granite-20b's 48-head group, each variant is timed in turns
+calls the built library. At qwen3-32b's, h2o-danube-1.8b's and
+recurrentgemma-9b's (head_dim 256) training shapes and granite-20b's
+48-head group, each variant is timed in turns
 with the unedited copy (``chip_smoke.paired_ms``: variant, base, base,
 variant; medians), so that a difference is read within one call on one
-card. Edits that drop work (``no_reduce``, ``no_dq``) give wrong results
-and only split a step's time. Needs a CUDA card and ``nvcc``.
+card. Edits that drop work (``no_reduce``, ``no_dq``, and at head_dim 256
+``no_dq_atomics_d256``, ``no_dq_d256``) give wrong results and only split
+a step's time; an edit of one instance leaves the others' shapes as they
+were. Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -41,17 +44,51 @@ GRID_KT = """  const int n_kt = (S + BKEYS - 1) / BKEYS;
   x /= KV;
   const int b = x % B;
   const int sp = x / B;"""
+# the head_dim-256 instance: its dQ float2 atomics, and its dQ product with them
+DQ_ATOMICS_256 = """        atomicAdd(reinterpret_cast<float2*>(dq_rows + size_t(row) * DP + 8 * j),
+                  make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]));"""
+DQ_MMA_256 = """    for (int kk = 0; kk < WKEYS / 16; ++kk)
+      wgmma_ss_tt_n128(dqa,"""
+DQ_LOOP_256 = """    float* dq_rows = dq_acc + ((size_t(b) * H + h) * S_pad + q0) * DP + 128 * cw + c2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      if (q0 + row >= S) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        atomicAdd(reinterpret_cast<float2*>(dq_rows + size_t(row) * DP + 8 * j),
+                  make_float2(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]));
+    }"""
+# lanes l and l ^ 1 hold columns c2, c2 + 1 and c2 + 2, c2 + 3 of rows rl and rl + 8: the
+# even lane takes row rl's four, the odd lane row rl + 8's, one float4 atomic each
+DQ_LOOP_256_F4 = """    const bool odd = lane & 1;
+    const int dq_row = rl + (odd ? 8 : 0);
+    float* dq_rows = dq_acc + ((size_t(b) * H + h) * S_pad + q0 + dq_row) * DP + 128 * cw + (c2 & ~3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float o0 = __shfl_xor_sync(0xffffffffu, odd ? dqa[4 * j] : dqa[4 * j + 2], 1);
+      const float o1 = __shfl_xor_sync(0xffffffffu, odd ? dqa[4 * j + 1] : dqa[4 * j + 3], 1);
+      const float4 v = odd ? make_float4(o0, o1, dqa[4 * j + 2], dqa[4 * j + 3])
+                           : make_float4(dqa[4 * j], dqa[4 * j + 1], o0, o1);
+      if (q0 + dq_row < S) atomicAdd(reinterpret_cast<float4*>(dq_rows + 8 * j), v);
+    }"""
 VARIANTS = {
     "walk_up": [(WALK, "const bool down = false;")],        # each head's tiles upward
     "walk_down": [(WALK, "const bool down = true;")],       # tiles from S down, heads inner
     "grid_kt_fastest": [(GRID, GRID_KT)],                   # a group's key tiles side by side
     "no_reduce": [(REDUCE, "    if (false)\n      bulk_reduce_add(")],
     "no_dq": [(DQ, "    if (false) {")],
+    "no_dq_atomics_d256": [(DQ_ATOMICS_256,        # dqa stays live; nothing is stored
+                            "        if (dqa[4 * j + 2 * r] == 1e30f) dq_rows[0] = 0.f;")],
+    "no_dq_d256": [(DQ_ATOMICS_256, "        ;"),
+                   (DQ_MMA_256, DQ_MMA_256.replace("kk < WKEYS / 16", "kk < 0"))],
+    "dq_float4_d256": [(DQ_LOOP_256, DQ_LOOP_256_F4)],       # right results, half the atomics
 }
 # (name, (B, S, H, KV, d), window): the timed shapes of chip_smoke.py
 SHAPES = [("qwen3_32b train", (2, 4096, 64, 8, 128), None),
           ("h2o_danube_1_8b train", (2, 8192, 32, 8, 80), 4096),
-          ("granite_20b G=48", (1, 4096, 48, 1, 128), None)]
+          ("granite_20b G=48", (1, 4096, 48, 1, 128), None),
+          ("recurrentgemma_9b train", (2, 4096, 16, 1, 256), 2048)]
 
 
 def build(names):
@@ -92,7 +129,7 @@ def caller(torch, lib, q, k, v, out, lse, dout, window):
     from repro_torch.kernels.flash_attention import bwd_split_plan
     B, S, H, d = q.shape
     KV = k.shape[2]
-    n_split = bwd_split_plan(B, S, KV, H // KV)
+    n_split = bwd_split_plan(B, S, KV, H // KV, d)
     scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, S, H, KV, d, 1, n_split),
                           dtype=torch.float32, device=q.device)
     grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
