@@ -101,7 +101,15 @@ phases:
    gradients, the loss, times; against float32 ``LM.loss`` the gradients
    may use at most 1.5 times the share of the backward's bound that bf16
    ``LM.loss``'s use) and in float32 (every gradient within 1e-4 of its
-   leaf's max); a small float32 h2o-family
+   leaf's max); then both plans again through the executor across
+   processes (``DistributedPipelineExecutor``, one gloo rank a stage, all
+   on cuda:0, started by ``runtime.ranks.run_ranks``) against the
+   in-process executor's runs: granite-8b's forward bitwise (else within
+   the bf16 bound), h2o-danube-1.8b's gradients in bf16 (the same gate
+   against float32 ``LM.loss``) and float32 (1e-4 of each leaf's max), the
+   launches summed over the ranks equal to the in-process counts, each
+   rank's stage time, bytes sent and peak memory, and the wall time beside
+   the in-process executor's (not gated: the ranks share the card); a small float32 h2o-family
    model through the same plan, card against CPU; and the serve launcher
    (``launch/serve.py``, h2o-danube-1.8b at full depth, edge_cluster,
    ``--dynamics``) with its launches checked exactly; then a catalogue
@@ -1934,10 +1942,11 @@ def _hold(torch, what: str, out, exp, dt: str, floor: float = 0.0):
         raise AssertionError(f"{what}: {e}") from None
 
 
-def phase_pipeline_forward(torch, card: str, planned: dict) -> dict:
+def phase_pipeline_forward(torch, card: str, planned: dict, keep: Optional[dict] = None) -> dict:
     """The forward plan's model at full width and depth through the
     executor on the card (bf16, no grad), held against the same layers
-    applied microbatch by microbatch in plain order; launches exact."""
+    applied microbatch by microbatch in plain order; launches exact.
+    ``keep`` receives the output on the host (``out``)."""
     from repro_torch import kernels
     from repro_torch.models import build_model
     from repro_torch.models.transformer import apply_block
@@ -1993,6 +2002,8 @@ def phase_pipeline_forward(torch, card: str, planned: dict) -> dict:
             raise AssertionError(f"pipeline output {tuple(out.shape)} is not finite or misshaped")
         bitwise = bool(torch.equal(out, ref))
         err, share = _hold(torch, "pipeline forward against the plain order", out, ref, "bfloat16")
+        if keep is not None:
+            keep["out"] = out.cpu()
         del out, ref
         ex_ms = [_wall_ms(torch, lambda: ex.forward(packed, x)) for _ in range(3)]
     med_ex, med_plain = statistics.median(ex_ms), statistics.median(plain_ms)
@@ -2071,7 +2082,7 @@ def _worst_share(torch, got: dict, ref: dict):
     return (worst,) + rows[worst]
 
 
-def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
+def phase_pipeline_grads(torch, card: str, planned: dict, keep: Optional[dict] = None) -> dict:
     """The gradients plan's model at full width and depth trained through
     the executor on the card (each stage remat'd), against
     ``LM.loss(remat="full")`` on the same batch: in bf16 the launches (exact),
@@ -2083,7 +2094,10 @@ def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
     itself: bf16 dq is summed in another order each run); both bf16
     gradient sets are held against float32 ``LM.loss`` instead, and the
     executor's share of the bound may be at most ``PIPE_BF16_RATIO`` times
-    ``LM.loss``'s."""
+    ``LM.loss``'s. ``keep`` receives, on the host, the float32 executor's
+    loss and gradients (``loss``, ``grads``), float32 ``LM.loss``'s
+    gradients (``lm_grads``) and the bf16 gate's share limit
+    (``bf16_limit``)."""
     from repro_torch import kernels
     from repro_torch.models import build_model
     from repro_torch.models.transformer import apply_block
@@ -2205,6 +2219,10 @@ def phase_pipeline_grads(torch, card: str, planned: dict) -> dict:
                 raise AssertionError(f"the executor's bf16 gradients use {bf['executor'][2]:.3g} x "
                                      f"the backward's bound against float32 LM.loss, over "
                                      f"{PIPE_BF16_RATIO} x bf16 LM.loss's {bf['lm'][2]:.3g} x")
+            if keep is not None:
+                keep.update(loss=float(loss), grads={k: g.cpu() for k, g in grads.items()},
+                            lm_grads={k: g.cpu() for k, g in grads_ref.items()},
+                            bf16_limit=limit)
         out[dtype] = rec
         del params, tree, grads_ref, model, ex, res
         gc.collect()
@@ -2264,6 +2282,402 @@ def phase_pipeline_small(torch, card: str, planned: dict) -> dict:
     return dict(overrides=PIPE_SMALL, seq=S, layers_per_stage=list(spec.layers_per_stage),
                 loss_rel_err=loss_err, grad_rel_err=grad_err, conditioning=cond, tol=tol,
                 launches=counts)
+
+
+# -- phase 6, one rank a stage -------------------------------------------------------------
+RANKS_TIMEOUT = 600      # seconds for one run_ranks call; the group's own ops time out too
+
+
+def _rank_executor(torch, plan, cfg):
+    """The plan's ``DistributedPipelineExecutor`` over cfg's dense blocks,
+    timing each stage call (forward; recompute and backward) by CUDA events
+    on the card, the host clock on the CPU, and counting the bytes this rank
+    sends."""
+    from repro_torch.models.transformer import apply_block
+    from repro_torch.runtime.pipeline import DistributedPipelineExecutor
+
+    class Timed(DistributedPipelineExecutor):
+        def reset_stats(self):
+            self.calls, self.sent = {"forward": [], "backward": []}, 0
+
+        def _timed(self, kind, on_card, fn, *args):
+            if on_card:
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                y = fn(*args)
+                b.record()
+            else:
+                a = time.perf_counter()
+                y = fn(*args)
+                b = time.perf_counter()
+            self.calls[kind].append((a, b))
+            return y
+
+        def _stage_fn(self, x, layers, kept=None):
+            return self._timed("forward", x.is_cuda, super()._stage_fn, x, layers, kept)
+
+        def _stage_grad(self, kept, layers, g):
+            return self._timed("backward", g.is_cuda, super()._stage_grad, kept, layers, g)
+
+        def _send(self, t, dst):
+            self.sent += t.numel() * t.element_size()
+            super()._send(t, dst)
+
+        def stats(self):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            return {k: sum(a.elapsed_time(b) if hasattr(a, "elapsed_time") else (b - a) * 1e3
+                           for a, b in v) for k, v in self.calls.items()}, self.sent
+
+    ex = Timed(plan, cfg.n_layers, lambda lp, x: apply_block(lp, x, cfg, "dense", mode="train"))
+    ex.reset_stats()
+    return ex
+
+
+def _rank_params(torch, cfg, spec, rank: int, world: int, top_keys, device):
+    """This rank's (pad, ...) block of the model's stack and its
+    ``top_keys`` leaves, drawn from the seed the in-process parts use. The
+    ranks draw the full model in turns, so one full copy at a time is on
+    the card."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.runtime.pipeline import stage_block
+
+    block = top = None
+    for turn in range(world):
+        if turn == rank:
+            params = fan_in_qk(cfg, build_model(cfg, device=device).init(
+                torch.Generator(device=device).manual_seed(0)))
+            block = stage_block(params["stack"]["u0"], spec, rank)
+            top = {k: params[k] for k in top_keys}
+            del params
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return block, top
+
+
+def _rank_run(torch, device, fn):
+    """(fn(), host-clock ms) between barriers, the card synchronised at
+    both ends: the wall time until the last rank is done."""
+    import torch.distributed as dist
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    dist.barrier()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rank_start(torch, device):
+    """Reset the launch counters and the peak-memory reading."""
+    from repro_torch import kernels
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+
+
+def _rank_record(torch, device, ex, rank: int) -> dict:
+    from repro_torch import kernels
+
+    stage_ms, sent = ex.stats()
+    return dict(rank=rank, layers=ex.spec.layers_per_stage[rank], stage_ms=stage_ms,
+                sent_bytes=sent, launches=kernels.launch_counts(),
+                peak_bytes=torch.cuda.max_memory_allocated() if device.type == "cuda" else 0)
+
+
+def ranks_forward(rank: int, world: int, cfg, plan, seq: int, devices) -> dict:
+    """One rank of the forward plan (run by ``run_ranks``): its stage of
+    the model at full width and depth, the checked forward, then three
+    timed ones. Rank 0 returns the output it got back from the last rank;
+    every rank a checksum of its copy."""
+    import torch
+
+    begin = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(devices[rank])
+    ex = _rank_executor(torch, plan, cfg)
+    M, mb = ex.spec.n_microbatches, plan.microbatch_size
+    block, top = _rank_params(torch, cfg, ex.spec, rank, world,
+                              ("embed",) if rank == 0 else (), device)
+    toks = torch.randint(0, cfg.vocab_size, (M * mb, seq), device=device,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    with torch.no_grad():
+        x = (top["embed"][toks].view(M, mb, seq, cfg.d_model) if rank == 0 else
+             torch.empty((M, mb, seq, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                         device=device))
+    del top
+    _rank_start(torch, device)
+    ready = time.time()
+    out, wall = _rank_run(torch, device, lambda: ex.forward(block, x))
+    rec = _rank_record(torch, device, ex, rank)
+    rec.update(checksum=int(out.view(torch.int16).long().sum()) if out.dtype == torch.bfloat16
+               else float(out.double().sum()), out=out if rank == 0 else None, checked_ms=wall,
+               wall_ms=[_rank_run(torch, device, lambda: ex.forward(block, x))[1]
+                        for _ in range(3)])
+    rec["clock"] = dict(begin=begin, ready=ready, done=time.time())
+    return rec
+
+
+def ranks_grads(rank: int, world: int, cfg0, plan, seq: int, devices) -> dict:
+    """One rank of the gradients plan (run by ``run_ranks``), in bf16 and
+    then in float32: embed (rank 0), its stage, the final norm, head and
+    NLL (last rank), by ``loss_and_grads``; the checked pass, in bf16 two
+    more timed ones. Returns the loss, this rank's gradients (the block's
+    under ``/stack/u0``, (pad, ...)) and its stage records."""
+    import torch
+    from repro_torch.models import build_model
+
+    begin = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(devices[rank])
+    top_keys = (("embed",) if rank == 0 else ()) + (("ln_f", "unembed") if rank == world - 1
+                                                     else ())
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(cfg0, dtype=dtype)
+        ex = _rank_executor(torch, plan, cfg)
+        M, mb = ex.spec.n_microbatches, plan.microbatch_size
+        B, d = M * mb, cfg.d_model
+        block, top = _rank_params(torch, cfg, ex.spec, rank, world, top_keys, device)
+        p = {k: v.detach().requires_grad_(True) for k, v in top.items()}
+        del top
+        model = build_model(cfg, device=device)
+        toks = torch.randint(0, cfg.vocab_size, (B, seq + 1), device=device, dtype=torch.int32,
+                             generator=torch.Generator(device=device).manual_seed(2))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def run():
+            for v in p.values():
+                v.grad = None
+            if rank == 0:
+                xe = p["embed"][batch["tokens"].long()].view(M, mb, seq, d)
+                x = xe.detach()
+            else:
+                x = torch.empty((M, mb, seq, d), dtype=getattr(torch, cfg.dtype), device=device)
+            loss, g_block, g_x = ex.loss_and_grads(
+                block, x, lambda o: model.loss_from_hidden(p, o.reshape(B, seq, d), batch))
+            if rank == 0:
+                xe.backward(g_x)
+            return loss, g_block
+        _rank_start(torch, device)
+        ready = time.time()
+        (loss, g_block), wall = _rank_run(torch, device, run)
+        rec = _rank_record(torch, device, ex, rank)
+        grads = {"/stack/u0" + k: g for k, g in _named(g_block)}
+        grads.update({"/" + k: v.grad for k, v in p.items()})
+        checked = time.time()
+        rec.update(loss=float(loss), grads={k: g.cpu() for k, g in grads.items()},
+                   checked_ms=wall, wall_ms=[wall])
+        del g_block, grads
+        copied = time.time()
+        if dtype == "bfloat16":
+            rec["wall_ms"] += [_rank_run(torch, device, run)[1] for _ in range(2)]
+        rec["clock"] = dict(begin=begin, ready=ready, checked=checked, copied=copied,
+                            done=time.time())
+        begin = rec["clock"]["done"]
+        out[dtype] = rec
+        del block, p, model, ex
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _sum_launches(per_rank) -> Dict[str, int]:
+    return {k: sum(r["launches"][k] for r in per_rank) for k in per_rank[0]["launches"]}
+
+
+def _rank_lines(card: str, what: str, per_rank) -> list:
+    """One printed line a rank; the records without tensors."""
+    rows = []
+    for r in per_rank:
+        log(card, f"{what}, rank {r['rank']} ({r['layers']} layers): stage calls "
+                  + ", ".join(f"{k} {v:.1f} ms" for k, v in r["stage_ms"].items() if v)
+                  + f" (CUDA events around each call, the checked pass); passes "
+                  f"{r['checked_ms']:.1f} ms (checked), "
+                  + ", ".join(f"{t:.1f}" for t in r["wall_ms"]) + " ms (host clock between "
+                  f"barriers; clock {', '.join(f'{k} {v - r['clock']['begin']:.1f} s' for k, v in r['clock'].items() if k != 'begin')}); sent "
+                  f"{r['sent_bytes'] / 1e6:.1f} MB to its neighbours; peak memory "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB (this rank's "
+                  f"torch.cuda.max_memory_allocated over the checked pass)")
+        rows.append({k: v for k, v in r.items() if k not in ("out", "grads")})
+    return rows
+
+
+def _assemble(torch, per_rank, spec):
+    """The ranks' gradients as ``pipeline_grads`` gives them: each stack
+    leaf's (pad, ...) blocks stacked, checked for zero padded slots and
+    unpacked to (L, ...); the other leaves from the rank that has them.
+    Returns (grads, whether every padded slot is exactly zero)."""
+    out, zero = {}, True
+    for key in per_rank[0]["grads"]:
+        if key.startswith("/stack/"):
+            blocks = [r["grads"][key] for r in per_rank]
+            zero &= all(bool((b[n:] == 0).all()) for b, n in zip(blocks, spec.layers_per_stage))
+            out[key] = torch.cat([b[:n] for b, n in zip(blocks, spec.layers_per_stage)])
+    for r in per_rank:
+        out.update({k: g for k, g in r["grads"].items() if not k.startswith("/stack/")})
+    return out, zero
+
+
+def _speedup(card: str, what: str, in_process_ms: float, ranks_ms: float, S: int, M: int):
+    """Print the ranks' speedup over the in-process executor beside the
+    GPipe ideal S M / (M + S - 1); recorded, not gated."""
+    ideal = S * M / (M + S - 1)
+    log(card, f"pipeline ranks {what}: speedup over the in-process executor "
+              f"{in_process_ms / ranks_ms:.3f} x, GPipe ideal S M / (M + S - 1) = {ideal:.3f} x, "
+              f"ratio {in_process_ms / ranks_ms / ideal:.3f} (not gated)")
+
+
+def _on_device(torch, tree: dict) -> dict:
+    return {k: v.to(DEVICE) for k, v in tree.items()}
+
+
+def phase_pipeline_ranks(torch, card: str, planned: dict, done: dict, kept: dict,
+                         backend: str = "gloo", devices=None) -> dict:
+    """Phase 6's two plans through ``DistributedPipelineExecutor``, one
+    rank a stage (``run_ranks``; on one card every rank on cuda:0 over
+    gloo, which NCCL refuses), against the in-process executor's runs:
+    ``done`` holds their records, ``kept`` their outputs and float32
+    gradients on the host. Gates: the forward bitwise equal (else within
+    the bf16 bound), float32 gradients within ``PIPE_GRAD_TOL`` of each
+    leaf's max, the bf16 gradients' share of the bound within the
+    in-process gate's limit, padded slots exactly zero, and the launches
+    summed over the ranks equal to the in-process counts."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    out = {}
+    for what, fn in (("forward", ranks_forward), ("gradients", ranks_grads)):
+        p = planned[what]
+        spec, S = p["spec"], p["spec"].n_stages
+        devs = list(devices[:S]) if devices else [DEVICE + ":0" if DEVICE == "cuda" else DEVICE] * S
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(card, f"pipeline ranks {what}: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on "
+                  f"cuda:0 before the ranks start (this process holds "
+                  f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)")
+        t0, w0 = time.perf_counter(), time.time()
+        res = run_ranks(fn, S, (p["cfg"], p["plan"], PLAN_SEQ, devs), backend=backend,
+                        timeout=RANKS_TIMEOUT, devices=devs)
+        run_s = time.perf_counter() - t0
+        clocks = [r["clock"] for r in res] if what == "forward" else \
+            [r[dt]["clock"] for dt in ("bfloat16", "float32") for r in res]
+        log(card, f"pipeline ranks {what}: run_ranks took {run_s:.1f} s (host clock): the "
+                  f"ranks up after {max(c['begin'] for c in clocks[:S]) - w0:.1f} s; the "
+                  f"model draws and passes "
+                  + ", ".join(f"{max(c['ready'] for c in clocks[i:i + S]) - max(c['begin'] for c in clocks[i:i + S]):.1f} s and "
+                              f"{max(c['done'] for c in clocks[i:i + S]) - max(c['ready'] for c in clocks[i:i + S]):.1f} s"
+                              for i in range(0, len(clocks), S))
+                  + f"; the results back {w0 + run_s - max(c['done'] for c in clocks):.1f} s "
+                  f"after the last rank's end")
+        where = (f"{p['cfg'].name}'s {S} stages {list(spec.layers_per_stage)} on {S} {backend} "
+                 f"ranks ({', '.join(devs)})")
+        if what == "forward":
+            counts, want = _sum_launches(res), done["forward"]["launches"]
+            got, ref = res[0]["out"], kept["forward"]["out"]
+            bitwise = bool(torch.equal(got, ref))
+            err, share = _hold(torch, "the ranks' forward against the in-process executor's",
+                               got.to(DEVICE), ref.to(DEVICE), "bfloat16")
+            sums = {r["checksum"] for r in res}
+            med, med_in = statistics.median(res[0]["wall_ms"]), done["forward"]["executor_ms_median"]
+            rows = _rank_lines(card, f"pipeline ranks forward of {p['cfg'].name}", res)
+            _speedup(card, "forward", med_in, med, S, spec.n_microbatches)
+            log(card, f"pipeline ranks forward of {where}, {spec.n_microbatches} microbatches of "
+                      f"{p['plan'].microbatch_size} x {PLAN_SEQ}: against the in-process "
+                      f"executor {'bitwise equal' if bitwise else 'not bitwise equal'} (max abs "
+                      f"err {err:.3e}, {share:.3g} of the bound), every rank's copy the same: "
+                      f"{len(sums) == 1}; launches summed over the ranks {counts} (in-process "
+                      f"{want}); wall {med:.1f} ms against the in-process executor's "
+                      f"{med_in:.1f} ms (median of 3 each, host clock between barriers; the ranks "
+                      f"share the card: {'no speedup expected, not gated' if not devices else 'one card a rank'}); "
+                      f"the run took {run_s:.1f} s with the processes' start")
+            if counts != want:
+                raise AssertionError(f"the ranks' forward launched {counts}, in-process {want}")
+            if len(sums) != 1:
+                raise AssertionError(f"the ranks' copies of the output differ: {sums}")
+            out[what] = dict(arch=p["arch"], backend=backend, devices=devs, bitwise=bitwise,
+                             max_abs_err=err, bound_share=share, launches=counts, ranks=rows,
+                             wall_ms=res[0]["wall_ms"], wall_ms_median=med,
+                             in_process_ms_median=med_in, run_s=run_s)
+            continue
+        rec = {"arch": p["arch"], "backend": backend, "devices": devs, "run_s": run_s}
+        for dtype in ("bfloat16", "float32"):
+            per = [r[dtype] for r in res]
+            counts, want = _sum_launches(per), done["gradients"][dtype]["launches"]
+            grads, zero = _assemble(torch, per, spec)
+            losses = {r["loss"] for r in per}
+            loss = per[-1]["loss"]
+            rows = _rank_lines(card, f"pipeline ranks gradients of {p['cfg'].name} ({dtype})", per)
+            if counts != want:
+                raise AssertionError(f"the ranks' gradients ({dtype}) launched {counts}, "
+                                     f"in-process {want}")
+            if not zero or len(losses) != 1:
+                raise AssertionError(f"ranks' gradients ({dtype}): padded slots zero {zero}, "
+                                     f"losses {losses}")
+            if sorted(grads) != sorted(kept["gradients"]["grads"]):
+                raise AssertionError(f"gradient leaves {sorted(grads)}")
+            if dtype == "bfloat16":
+                ref_loss = done["gradients"]["bfloat16"]["loss"]
+                loss_err, _ = _hold(torch, "the ranks' bf16 loss",
+                                    torch.tensor([loss], device=DEVICE),
+                                    torch.tensor([ref_loss], device=DEVICE), dtype, BWD_FLOOR)
+                worst = _worst_share(torch, _on_device(torch, grads),
+                                     _on_device(torch, kept["gradients"]["lm_grads"]))
+                limit = kept["gradients"]["bf16_limit"]
+                med = statistics.median(per[0]["wall_ms"])
+                med_in = done["gradients"]["bfloat16"]["executor_ms_median"]
+                _speedup(card, "gradients (bf16)", med_in, med, S, spec.n_microbatches)
+                log(card, f"pipeline ranks gradients of {where} (bf16), "
+                          f"{spec.n_microbatches} microbatches of {p['plan'].microbatch_size} x "
+                          f"{PLAN_SEQ}: loss {loss:.6f} against the in-process executor's "
+                          f"{ref_loss:.6f} (abs err {loss_err:.3e}); padded slots' gradients "
+                          f"exactly zero; gradients against float32 LM.loss: worst {worst[0]} at "
+                          f"{worst[2]:.3g} x the backward's bound (gate {limit:.3g} x, the "
+                          f"in-process gate's limit); launches summed over the ranks {counts}; "
+                          f"wall {med:.1f} ms against the in-process executor's {med_in:.1f} ms "
+                          f"(median of 3 each, host clock between barriers)")
+                if worst[2] > limit:
+                    raise AssertionError(f"the ranks' bf16 gradients use {worst[2]:.3g} x the "
+                                         f"backward's bound, over {limit:.3g} x")
+                rec[dtype] = dict(loss=loss, loss_abs_err=loss_err, launches=counts, ranks=rows,
+                                  worst_grad=dict(path=worst[0], max_abs_err=worst[1],
+                                                  bound_share=worst[2]), share_limit=limit,
+                                  wall_ms=per[0]["wall_ms"], wall_ms_median=med,
+                                  in_process_ms_median=med_in)
+            else:
+                ref_loss = kept["gradients"]["loss"]
+                loss_err = abs(loss - ref_loss) / abs(ref_loss)
+                leaf, grad_err = _rel_to_max(torch, _on_device(torch, grads),
+                                             _on_device(torch, kept["gradients"]["grads"]))
+                log(card, f"pipeline ranks gradients of {where} in float32 (TF32 off): loss "
+                          f"{loss:.6f} against the in-process executor's {ref_loss:.6f} (rel err "
+                          f"{loss_err:.3e}), worst gradient {leaf} at {grad_err:.3e} of its "
+                          f"leaf's max (tol {PIPE_GRAD_TOL}); padded slots' gradients exactly "
+                          f"zero; launches summed over the ranks {counts}; wall "
+                          f"{per[0]['wall_ms'][0]:.1f} ms against the in-process executor's "
+                          f"{done['gradients']['float32']['executor_ms'][0]:.1f} ms (one pass "
+                          f"each)")
+                if max(loss_err, grad_err) > PIPE_GRAD_TOL:
+                    raise AssertionError("the ranks' float32 gradients disagree with the "
+                                         "in-process executor's")
+                rec[dtype] = dict(loss=loss, loss_rel_err=loss_err, launches=counts, ranks=rows,
+                                  worst_grad=dict(path=leaf, rel_to_max=grad_err),
+                                  tol=PIPE_GRAD_TOL, wall_ms=per[0]["wall_ms"],
+                                  in_process_ms=done["gradients"]["float32"]["executor_ms"])
+            del grads
+        rec["launches"] = rec["bfloat16"]["launches"]
+        out[what] = rec
+        del res
+    return out
 
 
 def phase_plan_launcher(torch, card: str, args=LAUNCHER_ARGS) -> dict:
@@ -2397,9 +2811,13 @@ def phase_dora(torch, card: str) -> dict:
     planned = {what: phase_plan(torch, card, what) for what in PLANS}
     out = {"plans": {w: {k: v for k, v in p.items() if k not in ("cfg", "plan", "spec")}
                      for w, p in planned.items()}}
-    for name, fn in (("forward", lambda: phase_pipeline_forward(torch, card, planned["forward"])),
+    kept = {"forward": {}, "gradients": {}}      # the in-process runs' results, for the ranks
+    for name, fn in (("forward", lambda: phase_pipeline_forward(torch, card, planned["forward"],
+                                                                kept["forward"])),
                      ("gradients",
-                      lambda: phase_pipeline_grads(torch, card, planned["gradients"])),
+                      lambda: phase_pipeline_grads(torch, card, planned["gradients"],
+                                                   kept["gradients"])),
+                     ("ranks", lambda: phase_pipeline_ranks(torch, card, planned, out, kept)),
                      ("small", lambda: phase_pipeline_small(torch, card, planned["gradients"])),
                      ("launcher", lambda: phase_plan_launcher(torch, card)),
                      ("catalogue_launcher",
@@ -2412,6 +2830,8 @@ def phase_dora(torch, card: str) -> dict:
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
         log(card, f"phase 6 part {name} took {out[name]['seconds']:.1f} s (host clock)")
+        if name == "ranks":
+            kept.clear()
     return out
 
 
@@ -2815,6 +3235,8 @@ def main() -> int:
                                          ("catalogue_launcher", f"{CATALOGUE} launcher"),
                                          ("catalogue_replan",
                                           f"{CATALOGUE} replanned pipeline forward"))})
+        by_path.update({f"{dora['ranks'][k]['arch']} pipeline ranks {k}":
+                        dora["ranks"][k]["launches"][name] for k in ("forward", "gradients")})
         by_path["calibration"] = calibration["launches"][name]
         by_path["train launcher"] = train_launcher["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],

@@ -17,9 +17,12 @@ layers of a ``(S, pad, ...)`` packed tree. Padded slots are identity and
 launch nothing (the JAX executor computes them and discards the result);
 their gradients are zero, as the JAX executor's are.
 
-All stages run in one process; an executor across processes over
-``torch.distributed`` is not ported yet (ROADMAP: Queue 1 'The executor
-across processes').
+``DoraPipelineExecutor`` runs all stages in one process.
+``DistributedPipelineExecutor`` runs the same schedule with one process a
+stage (rank r is stage r of a ``torch.distributed`` group, see ``ranks``):
+activations and their gradients go to the neighbouring ranks by
+point-to-point ``send``/``recv``, and since those carry no autograd it runs
+its own backward schedule.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..core.plans import ParallelismPlan
@@ -90,6 +94,19 @@ def pack_params(stacked: Any, spec: PipelineSpec) -> Any:
         for s in range(spec.n_stages):
             lo, hi = int(bounds[s]), int(bounds[s + 1])
             out[s, : hi - lo].copy_(x[lo:hi])
+        return out
+    with torch.no_grad():
+        return _map(fn, stacked)
+
+
+def stage_block(stacked: Any, spec: PipelineSpec, s: int) -> Any:
+    """Stage ``s``'s (pad, ...) block of the (L, ...) stacked params,
+    zero-padded: block ``s`` of ``pack_params``, without the other blocks."""
+    lo, n = sum(spec.layers_per_stage[:s]), spec.layers_per_stage[s]
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        out = x.new_zeros((spec.pad,) + tuple(x.shape[1:]))
+        out[:n].copy_(x[lo:lo + n])
         return out
     with torch.no_grad():
         return _map(fn, stacked)
@@ -171,3 +188,186 @@ class DoraPipelineExecutor:
              loss_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
         """``loss_fn`` applied once to the whole (M, mb, ...) output."""
         return loss_fn(self.forward(stage_params, x))
+
+
+def _block_grads(block: Any, layers: List[Any]) -> Any:
+    """The (pad, ...) gradient of ``block`` from its true layers' leaf
+    views (``layers``): their ``.grad`` in the first slots, exact zeros in
+    the padded ones."""
+    if isinstance(block, dict):
+        return {k: _block_grads(v, [lp[k] for lp in layers]) for k, v in block.items()}
+    out = torch.zeros_like(block)
+    for i, leaf in enumerate(layers):
+        if leaf.grad is not None:
+            out[i].copy_(leaf.grad)
+    return out
+
+
+class DistributedPipelineExecutor:
+    """GPipe executor with one rank a stage over ``torch.distributed``.
+
+    Built on every rank of the default process group, whose size must be
+    the plan's stage count. Rank r runs stage r on the device of its block
+    of parameters (``stage_block(stacked, spec, r)``: (pad, ...) leaves,
+    padded slots skipped as in ``DoraPipelineExecutor``). Microbatches
+    follow the JAX executor's GPipe schedule: rank s takes microbatch m from
+    rank s - 1, runs its layers and hands the output to rank s + 1, so it
+    runs microbatch t - s at tick t of M + S - 1.
+
+    The hand-off: on an ``nccl`` group the device tensors themselves (one
+    rank a card). gloo carries host memory only, so on a ``gloo`` group
+    CUDA tensors are copied to a pinned host buffer before ``send`` and
+    back to the device after ``recv``; compute stays on the rank's device.
+    """
+
+    def __init__(self, plan: ParallelismPlan, n_layers: int,
+                 layer_fn: Callable[[Any, torch.Tensor], torch.Tensor]):
+        self.spec = PipelineSpec.from_plan(plan, n_layers)
+        self.layer_fn = layer_fn
+        world = dist.get_world_size()
+        if world != self.spec.n_stages:
+            raise ValueError(f"plan has {self.spec.n_stages} stages but the process group "
+                             f"has {world} ranks")
+        self.rank = dist.get_rank()
+        self._nccl = dist.get_backend() == "nccl"
+
+    # -- hand-off ----------------------------------------------------------------------
+    def _staged(self, t: torch.Tensor) -> bool:
+        return t.is_cuda and not self._nccl
+
+    def _pinned(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def _send(self, t: torch.Tensor, dst: int) -> None:
+        if self._staged(t):
+            t = self._pinned(t).copy_(t)
+        dist.send(t.contiguous(), dst)
+
+    def _recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        buf = self._pinned(like) if self._staged(like) else torch.empty_like(like)
+        dist.recv(buf, src)
+        return buf.to(like.device)
+
+    def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` as on rank ``src``, on every rank (``t`` gives the shape and
+        dtype elsewhere); sent as bytes, so any dtype goes."""
+        staged = self._staged(t)
+        buf = self._pinned(t) if staged else t.contiguous()
+        if staged and self.rank == src:
+            buf.copy_(t)
+        dist.broadcast(buf.view(-1).view(torch.uint8), src)
+        return buf.to(t.device)
+
+    # -- forward -----------------------------------------------------------------------
+    def _stage_fn(self, x: torch.Tensor, layers: List[Any],
+                  kept: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """One stage call; ``kept`` collects each layer's input."""
+        for lp in layers:
+            if kept is not None:
+                kept.append(x)
+            x = self.layer_fn(lp, x)
+        return x
+
+    def _stage_grad(self, kept: List[torch.Tensor], layers: List[Any],
+                    g: torch.Tensor) -> torch.Tensor:
+        """One backward stage call: from the last layer down, recompute the
+        layer on its kept input with grad enabled and backpropagate ``g``
+        through it; the layers' leaves accumulate their ``.grad``. Returns
+        the gradient of the stage's input."""
+        for lp, x in zip(reversed(layers), reversed(kept)):
+            x = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                y = self.layer_fn(lp, x)
+            torch.autograd.backward(y, g)
+            g = x.grad
+        return g
+
+    def _layers(self, block: Any) -> List[Any]:
+        return _unbind(block, self.spec.pad)[:self.spec.layers_per_stage[self.rank]]
+
+    def _forward(self, block: Any, x: torch.Tensor, kept: Optional[list]
+                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """This rank's M stage calls; returns the outputs (last rank only)
+        and an empty microbatch on the rank's device. ``kept`` collects
+        each call's layer inputs."""
+        spec, r = self.spec, self.rank
+        S, M = spec.n_stages, spec.n_microbatches
+        if x.shape[0] != M:
+            raise ValueError(f"plan has {M} microbatches, input has {x.shape[0]}")
+        device = _first_leaf(block).device
+        like = torch.empty(x.shape[1:], dtype=x.dtype, device=device)
+        layers = self._layers(block)
+        outs = []
+        for m in range(M):
+            x_in = x[m].to(device) if r == 0 else self._recv(like, r - 1)
+            if kept is not None:
+                kept.append([])
+            y = self._stage_fn(x_in, layers, None if kept is None else kept[-1])
+            if r == S - 1:
+                outs.append(y)
+            else:
+                self._send(y, r + 1)
+        return outs, like
+
+    def forward(self, block: Any, x: torch.Tensor) -> torch.Tensor:
+        """x: (M, mb, ...) microbatched input, handed to every rank: rank 0
+        reads its values, the others only its shape and dtype. Returns the
+        pipeline output (M, mb, ...) on every rank's device, as the JAX
+        executor's ``psum`` gives it to every stage. No autograd: gradients
+        come from ``loss_and_grads``."""
+        with torch.no_grad():
+            outs, like = self._forward(block, x, None)
+            last = self.rank == self.spec.n_stages - 1
+            out = torch.stack(outs) if last else like.new_empty((len(x),) + like.shape)
+            return self._broadcast(out, self.spec.n_stages - 1)
+
+    def loss_and_grads(self, block: Any, x: torch.Tensor,
+                       loss_fn: Callable[[torch.Tensor], torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+        """``loss_fn`` applied once to the whole (M, mb, ...) output and its
+        gradients, by GPipe's backward ticks in reverse.
+
+        The forward runs without grad and keeps each layer's input. The
+        last rank applies ``loss_fn`` and calls ``backward`` on it: leaves
+        that ``loss_fn`` closes over (the head) accumulate their ``.grad``
+        there. Then, from microbatch M - 1 down, rank s receives its
+        output's gradient from rank s + 1, recomputes its stage with grad
+        enabled and backpropagates through it, accumulates its parameters'
+        gradients and sends the input's gradient to rank s - 1. The
+        recompute goes one layer at a time from the kept layer inputs: the
+        same launches and arithmetic as the JAX executor's remat of the
+        whole stage, with one layer's activations alive at a time, so that
+        the ranks' graphs fit beside each other when they share a card.
+
+        Returns, on every rank: the loss (float64, 0-d, the value of
+        ``loss_fn``), the gradient of this rank's (pad, ...) block with
+        exact zeros in the padded slots, and on rank 0 the gradient of ``x``
+        (None elsewhere)."""
+        spec, r = self.spec, self.rank
+        S, M = spec.n_stages, spec.n_microbatches
+        kept: List[Optional[List[torch.Tensor]]] = []
+        with torch.no_grad():
+            outs, like = self._forward(block, x, kept)
+        layers = [_map(lambda a: a.detach().requires_grad_(a.is_floating_point()), lp)
+                  for lp in self._layers(block)]
+        loss = torch.zeros((), dtype=torch.float64, device=like.device)
+        g_out = None
+        if r == S - 1:
+            out = torch.stack(outs).requires_grad_(True)
+            del outs
+            value = loss_fn(out)
+            value.backward()
+            g_out = out.grad
+            loss.copy_(value.detach())
+        loss = self._broadcast(loss, S - 1)
+        grad_x: List[torch.Tensor] = []
+        for m in reversed(range(M)):
+            g = g_out[m] if r == S - 1 else self._recv(like, r + 1)
+            g_in = self._stage_grad(kept[m], layers, g)
+            kept[m] = None
+            if r > 0:
+                self._send(g_in, r - 1)
+            else:
+                grad_x.append(g_in)
+        return (loss, _block_grads(block, layers),
+                torch.stack(grad_x[::-1]) if r == 0 else None)

@@ -762,3 +762,36 @@ def test_catalogue_plan_replanned_by_the_control_plane_runs_on_card():
     want = {k: 0 for k in kernels.KERNELS}
     want["flash_attention"] = cfg.n_layers * M
     assert kernels.launch_counts() == want
+
+
+@pytest.mark.gpu
+def test_pipeline_ranks_one_card_each_over_nccl():
+    """chip_smoke.py phase 6's two plans (granite-8b's forward on 3 stages,
+    h2o-danube-1.8b's gradients on 4, full width and depth, sequence 4096)
+    through ``DistributedPipelineExecutor`` with one nccl rank a card,
+    against the in-process executor on cuda:0, at chip_smoke's gates
+    (``phase_pipeline_ranks``). It prints each plan's wall time beside the
+    one-card in-process executor's and the ratio of that speedup to the
+    GPipe ideal S·M/(M + S − 1). With fewer cards than stages it skips."""
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke as cs
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    planned = {w: cs.phase_plan(torch, card, w) for w in cs.PLANS}
+    need = max(p["spec"].n_stages for p in planned.values())
+    if torch.cuda.device_count() < need:
+        pytest.skip(f"needs {need} cards (one rank a stage), saw {torch.cuda.device_count()}")
+    out, kept = {}, {"forward": {}, "gradients": {}}
+    out["forward"] = cs.phase_pipeline_forward(torch, card, planned["forward"], kept["forward"])
+    out["gradients"] = cs.phase_pipeline_grads(torch, card, planned["gradients"],
+                                               kept["gradients"])
+    ranks = cs.phase_pipeline_ranks(torch, card, planned, out, kept, backend="nccl",
+                                    devices=[f"cuda:{i}" for i in range(need)])
+    assert ranks["forward"]["bitwise"] or ranks["forward"]["bound_share"] <= 1.0

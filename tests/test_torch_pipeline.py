@@ -19,6 +19,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +36,12 @@ from repro_torch.core import ParallelismPlan, QoESpec, Stage, Workload
 from repro_torch.models.convert import from_numpy
 from repro_torch.models.registry import planning_graph
 from repro_torch.models.transformer import apply_block
-from repro_torch.runtime.pipeline import (DoraPipelineExecutor, PipelineSpec, pack_params,
-                                          unpack_params)
+from repro_torch.runtime.pipeline import (DistributedPipelineExecutor, DoraPipelineExecutor,
+                                          PipelineSpec, pack_params, stage_block, unpack_params)
+from repro_torch.runtime.ranks import run_ranks
+
+sys.path.insert(0, os.path.dirname(__file__))
+import torch_ranks  # noqa: E402  (the ranks' functions, importable by the spawned processes)
 
 torch.set_num_threads(2)
 
@@ -329,6 +334,109 @@ def test_executor_matches_jax(jax_side, name, splits, tol):
         _close(g, want[key], tol, key)
         for s, n in enumerate(ex.spec.layers_per_stage):     # padded slots: exactly zero
             assert bool((g[s, n:] == 0).all()) and not np.any(want[key][s, n:])
+
+
+# -- one rank a stage (DistributedPipelineExecutor) on gloo CPU ranks ------------------------
+RANKS_TIMEOUT = 120          # seconds for a whole run_ranks call; the group's ops time out too
+
+
+def _h2o_block_cfg():
+    return dataclasses.replace(reduced_config("h2o_danube_1_8b"), n_layers=6)
+
+
+def _case(jax_side, name):
+    """(cfg or None for the tanh layer, splits, n_layers, stacked, x, r)."""
+    cfg, splits, n_layers = (None, SPLITS, L) if name == "tanh" else \
+        (_h2o_block_cfg(), [1, 2, 2, 1], 6)
+    return (cfg, splits, n_layers, from_numpy(_tree(jax_side, f"{name}/stacked"), "cpu"),
+            torch.from_numpy(jax_side[f"{name}/x"]), torch.from_numpy(jax_side[f"{name}/r"]))
+
+
+@pytest.fixture(scope="module")
+def ranks_side(jax_side):
+    """Both cases through DistributedPipelineExecutor on 4 gloo CPU ranks,
+    in one run: {name: [rank 0's result, ..., rank 3's]}."""
+    names = ("tanh", "h2o")
+    per_rank = run_ranks(torch_ranks.pipeline_rank, 4, ([_case(jax_side, n) for n in names],),
+                         backend="gloo", timeout=RANKS_TIMEOUT)
+    return {n: [res[i] for res in per_rank] for i, n in enumerate(names)}
+
+
+def test_stage_block_is_a_block_of_pack_params():
+    stacked, _, _ = _tanh_weights()
+    spec = PipelineSpec.from_plan(_plan(SPLITS, M, MB), L)
+    packed = pack_params(stacked, spec)
+    for s in range(S):
+        for k in stacked:
+            assert torch.equal(stage_block(stacked, spec, s)[k], packed[k][s])
+
+
+@pytest.mark.parametrize("name,splits,tol", [("tanh", SPLITS, 1e-5), ("h2o", [1, 2, 2, 1], 2e-5)])
+def test_ranks_match_in_process_executor_and_jax(jax_side, ranks_side, name, splits, tol):
+    """One rank a stage (4 gloo CPU ranks, ranks 1-3 handed x as NaNs)
+    against the in-process executor and the JAX executor: the forward
+    output on every rank, the loss on every rank, each rank's block
+    gradient (padded slots exactly zero) and rank 0's gradient of x, at the
+    file's tolerances; each rank runs its true layers in 2M forward stage
+    calls (``forward``, then ``loss_and_grads``'s, which keeps the layer
+    inputs) and M backward ones, in microbatch order."""
+    cfg, splits, n_layers, stacked, x, r = _case(jax_side, name)
+    ex = DoraPipelineExecutor(_plan(splits, x.shape[0], x.shape[1]), n_layers,
+                              torch_ranks.layer_fn(cfg))
+    packed = ex.pack_params(stacked)
+    leaves = list(_leaves(packed))
+    params = [t.clone().requires_grad_(True) for _, t in leaves]
+    tree = _tree({f"p{k}": v for (k, _), v in zip(leaves, params)}, "p")
+    xg = x.clone().requires_grad_(True)
+    loss = ex.loss(tree, xg, lambda o: (o * r).sum())
+    grads = torch.autograd.grad(loss, params + [xg])
+    with torch.no_grad():
+        out = ex.forward(packed, x)
+    per_rank = ranks_side[name]
+    for rank, res in enumerate(per_rank):
+        _close(res["out"], jax_side[f"{name}/out"], tol, f"rank {rank} forward vs JAX")
+        _close(res["out"], out.numpy(), tol, f"rank {rank} forward vs in-process")
+        assert abs(float(res["loss"]) - loss.item()) <= tol * abs(loss.item()), rank
+        n, M_ = ex.spec.layers_per_stage[rank], ex.spec.n_microbatches
+        assert res["calls"] == [("forward", n)] * (2 * M_) + [("backward", n, n)] * M_
+        assert (res["grad_x"] is None) == (rank > 0)
+    _close(per_rank[0]["grad_x"], jax_side[f"{name}/grad_x"], tol, "grad x vs JAX")
+    _close(per_rank[0]["grad_x"], grads[-1].numpy(), tol, "grad x vs in-process")
+    want = dict(_leaves(_tree(jax_side, f"{name}/grad_packed")))
+    for (key, _), g in zip(leaves, grads[:-1]):
+        got = torch.stack([dict(_leaves(res["grads"]))[key] for res in per_rank])
+        _close(got, want[key], tol, f"{key} vs JAX")
+        _close(got, g.numpy(), tol, f"{key} vs in-process")
+        for s, n in enumerate(ex.spec.layers_per_stage):     # padded slots: exactly zero
+            assert bool((got[s, n:] == 0).all())
+
+
+def test_distributed_executor_refuses_a_plan_of_another_size(tmp_path):
+    """The plan's stage count must be the group's size (here a group of one
+    rank, this process)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="plan has 4 stages but the process group has 1"):
+            DistributedPipelineExecutor(_plan(SPLITS, M, MB), L, _tanh_layer)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("how,timeout,error,match", [
+    ("raise", RANKS_TIMEOUT, torch.multiprocessing.ProcessRaisedException,
+     "rank 1 raised:(.|\n)*rank 1 failed on purpose"),
+    ("hang", 5, TimeoutError, r"ranks \[0, 1\] of 2 still running after 5 s")])
+def test_run_ranks_reports_a_failed_or_hung_rank_within_its_timeout(how, timeout, error, match):
+    """A rank that raises while its peer waits in ``recv`` for it: the
+    parent raises with that rank's traceback at once; ranks that outlive
+    the timeout: the parent kills them and raises ``TimeoutError``."""
+    t0 = time.monotonic()
+    with pytest.raises(error, match=match):
+        run_ranks(torch_ranks.failing_rank, 2, (how,), backend="gloo", timeout=timeout)
+    assert time.monotonic() - t0 < min(timeout, 60) + 10
 
 
 # -- the slice as a whole ------------------------------------------------------------------
