@@ -136,7 +136,20 @@ phases:
    ``dora.calibrate("smart_home_2")`` from the same cache (it must measure
    nothing more) with smart_home_2 planned under its factors. The artifact
    and the fidelity record go to build/calibration and are printed on one
-   line.
+   line;
+8. the mesh and the elastic controller: h2o-danube-1.8b at full width
+   (depth cut to 8 layers; batch 2 x 8192, bf16, remat="full") trained
+   through ``make_train_step`` and ``TokenPipeline`` under a (1, 1)
+   ("data", "model") mesh on one nccl rank (``run_ranks`` at world 1 on
+   cuda:0), parameters and AdamW state laid out by ``ShardingRules`` as
+   DTensors: 3 steps, a sharded async checkpoint, then the elastic
+   controller remeshes onto a fresh group of generation 1, restores (bit for
+   bit) and trains one more step; each DTensor step's loss and grad norm
+   against the plain step from the same state (bitwise, else within the bf16
+   bound), the flash forward and backward launches of the DTensor steps
+   exact and the DTensor entry's local branch once a flash forward; step
+   times, peak memory and the remesh time (from the verdict to the first
+   resumed step's end).
 
 The h2o paths and recurrentgemma's training path draw wq and wk at the
 fan-in of d_model (``fan_in_qk``):
@@ -2978,6 +2991,486 @@ def phase_calibrate(torch, card: str) -> dict:
                 scenario_costs=json.loads(scen.to_json()))
 
 
+# -- phase 8: the mesh and the elastic controller ------------------------------------
+MESH_ARCH = "h2o_danube_1_8b"
+MESH_LAYERS = 8               # of 24: the script's time (phase 5 trains all 24)
+MESH_BATCH, MESH_SEQ = 2, 8192
+MESH_TIMEOUT = 900            # seconds for one run_ranks call
+# bf16 on a (1, 1) mesh: the DTensor step is the plain step's arithmetic, so
+# its loss must be bitwise and its grad norm (DTensor sums each leaf's squares
+# as it reduces them) within this relative error
+MESH_ONE_GNORM_TOL = 1e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRun:
+    """One training run under a (1, world) ("data", "model") mesh: the arch
+    (full width; ``layers`` of its depth, None for all; ``reduced`` takes
+    the smoke-scale config), ``overrides`` of its config, the dtype, batch x
+    sequence, steps before the sharded checkpoint, the survivors the elastic
+    controller regroups (``shrink_to``; equal to the world, it remeshes onto
+    a fresh group of every rank), steps after the restore, and whether rank 0
+    holds each step against the plain one-card step from the same state."""
+    arch: str
+    layers: Optional[int]
+    dtype: str
+    batch: int
+    seq: int
+    steps_before: int
+    shrink_to: int
+    steps_after: int
+    ckpt_dir: str
+    pid_dir: str
+    compare: bool = True
+    reduced: bool = False
+    overrides: tuple = ()
+
+
+def wait_gone(pid_dir: str, ranks, timeout: float = 120.0) -> bool:
+    """Whether the processes of ``ranks`` (each writes its pid into
+    ``pid_dir`` as it leaves) have all exited."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        paths = [os.path.join(pid_dir, f"{r}.pid") for r in ranks]
+        pids = []
+        for path in paths:
+            if os.path.exists(path):
+                with open(path) as f:
+                    text = f.read()
+                if text:
+                    pids.append(int(text))
+        if len(pids) == len(paths):
+            alive = 0
+            for pid in pids:
+                try:
+                    os.kill(pid, 0)
+                    alive += 1
+                except ProcessLookupError:
+                    pass
+            if not alive:
+                return True
+        time.sleep(0.05)
+    return False
+
+
+def gather(tree, keep: bool, to_cpu: bool = False):
+    """A copy of every leaf's whole value (a collective per DTensor leaf,
+    leaf by leaf, so a rank holds one gathered leaf at a time unless
+    ``keep``); None leaves where not ``keep``."""
+    def one(t):
+        if hasattr(t, "full_tensor"):
+            local, t = t.to_local(), t.full_tensor()
+            if t.untyped_storage().data_ptr() == local.untyped_storage().data_ptr():
+                t = t.clone()          # a replicated leaf's whole value is its local tensor
+        else:
+            t = t.detach().clone()
+        return (t.cpu() if to_cpu else t) if keep else None
+    if isinstance(tree, dict):
+        return {k: gather(v, keep, to_cpu) for k, v in tree.items()}
+    return one(tree)
+
+
+def mesh_train_rank(rank: int, world: int, run: MeshRun) -> dict:
+    """One rank of a ``MeshRun`` (started by ``run_ranks``): the model drawn
+    from the seed on this rank's device and laid out on a (1, world) mesh by
+    ``ShardingRules``, AdamW state alike, ``TokenPipeline`` placing each
+    batch on the mesh, ``make_train_step`` (remat="full") for
+    ``steps_before`` steps, a sharded async checkpoint, then the elastic
+    controller: every rank is fed the same beats, the ranks from
+    ``shrink_to`` on fall silent and exit, the survivors regroup (a group of
+    generation 1), restore onto (1, shrink_to) and take ``steps_after``
+    steps. Before each step rank 0 gathers the whole state and runs the
+    plain step from it on its own device (when ``compare``); in bf16 on more
+    than one rank it also takes the float32 model's gradients from that
+    state (the weights cast), and after the step it holds the clipped
+    gradients that the DTensor step and the plain step put into the first
+    moments against them. Returns the numbers; the gates are the
+    caller's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import ShardingRules, train_state_specs
+    from repro_torch.models.sharding_utils import distribute_tree
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import global_norm, tree_leaves, tree_map
+    from repro_torch.runtime import ElasticController, ElasticState, ranks
+
+    device = ranks.rank_device()          # the mesh's device type too (make_host_mesh)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    full = reduced_config(run.arch) if run.reduced else get_config(run.arch)
+    cfg = dataclasses.replace(full, n_layers=run.layers or full.n_layers, dtype=run.dtype,
+                              **dict(run.overrides))
+    total = run.steps_before + run.steps_after
+    model, train_step = make_train_step(cfg, peak_lr=3e-4, warmup=2, total=total,
+                                        remat="full", device=device)
+    # phase 6's rule for bf16 gradients at depth (bf16 is not bitwise against
+    # itself there): held against the float32 model's, as the plain step's are
+    ratio_rule = run.compare and cfg.dtype == "bfloat16" and world > 1
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=device) \
+        if ratio_rule else None
+    opt_cfg = AdamWConfig()               # make_train_step's
+    per_step = {k: 0 for k in kernels.KERNELS}
+    per_step.update(train_launches(cfg))
+    rec = dict(rank=rank, world=world, config=full.name, n_layers=cfg.n_layers,
+               full_layers=full.n_layers, dtype=cfg.dtype, batch=run.batch, seq=run.seq,
+               steps=[], generations=[0], worlds=[world], per_step_launches=per_step,
+               launches={k: 0 for k in kernels.KERNELS}, branches={"local": 0, "replicate": 0})
+
+    def data_for(mesh, skip: int):
+        data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=run.seq,
+                                        global_batch=run.batch, seed=0), device=device,
+                             mesh=mesh)
+        for _ in range(skip):
+            next(data)
+        return data
+
+    def clipped(g: dict) -> dict:
+        """The gradients ``g`` (path -> tensor, float32) clipped in place as
+        AdamW clips them."""
+        scale = torch.clamp(opt_cfg.clip_norm / torch.clamp(global_norm(g), min=1e-9), max=1.0)
+        return {k: t.mul_(scale) for k, t in g.items()}
+
+    def from_moments(m_new, m_prev) -> dict:
+        """The clipped gradient a step put into the first moments,
+        (m_new - b1 m_prev) / (1 - b1), in place in ``m_new``."""
+        prev = dict(_named(m_prev))
+        return {k: t.sub_(prev[k], alpha=opt_cfg.b1).div_(1.0 - opt_cfg.b1)
+                for k, t in _named(m_new)}
+
+    def f32_grads(params, batch) -> dict:
+        """The float32 model's clipped gradients at ``params`` (cast)."""
+        leaves = [t.detach().float().requires_grad_(True) for t in tree_leaves(params)]
+        it = iter(leaves)
+        loss, _ = model32.loss(tree_map(lambda _: next(it), params), batch, remat="full")
+        grads = torch.autograd.grad(loss, leaves)
+        del loss, leaves
+        return clipped(dict(zip((k for k, _ in _named(params)), grads)))
+
+    def plain_step(state, batch, i):
+        """Rank 0: the plain one-card step from the gathered whole state."""
+        snap = gather(state, rank == 0)
+        plain_batch = {k: v.full_tensor() for k, v in batch.items()}
+        if rank != 0:
+            return None
+        out = {}
+        if ratio_rule:
+            out["m_prev"] = tree_map(lambda t: t.clone(), snap["opt"]["m"])
+            out["f32_grads"] = f32_grads(snap["params"], plain_batch)
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        sync()
+        t0 = time.perf_counter()
+        p, o, m = train_step(snap["params"], snap["opt"], plain_batch, i)
+        sync()
+        out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   ms=(time.perf_counter() - t0) * 1e3)
+        if cfg.dtype == "float32":
+            out["state"] = {"params": p, "m": o["m"]}
+        if ratio_rule:
+            out["plain_grads"] = from_moments(o["m"], out["m_prev"])
+        return out
+
+    def held_bytes(tree) -> int:
+        """Device bytes of the tensors in ``tree`` (rank 0's comparison
+        state, held through the DTensor step and left out of its peak)."""
+        if isinstance(tree, dict):
+            return sum(held_bytes(v) for v in tree.values())
+        if isinstance(tree, torch.Tensor) and tree.device.type == "cuda":
+            return tree.numel() * tree.element_size()
+        return 0
+
+    def step(params, opt, data, i, mesh):
+        batch = next(data)
+        ref = plain_step({"params": params, "opt": opt}, batch, i) if run.compare else None
+        gc.collect()
+        held = held_bytes(ref)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        before, br = kernels.launch_counts(), dict(ops.dtensor_branch)
+        sync()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            params, opt, m = train_step(params, opt, batch, i)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        for k in got:
+            rec["launches"][k] += got[k]
+        for k in br:
+            rec["branches"][k] += ops.dtensor_branch[k] - br[k]
+        r = dict(step=i, mesh=tuple(mesh.shape), loss=float(m["loss"]),
+                 grad_norm=float(m["grad_norm"]), ms=ms, launches=got,
+                 peak_bytes=torch.cuda.max_memory_allocated() - held if on_card else 0)
+        if run.compare and cfg.dtype == "float32":  # the moments and parameters, whole
+            st = gather({"params": params, "m": opt["m"]}, rank == 0)
+            if rank == 0:
+                # the first moments (0.1 x the clipped gradient) within a share of
+                # each leaf's max; the parameters within the f32 tolerance
+                # elementwise (Adam turns f32 noise on a tiny gradient into an
+                # lr-sized move, which a share of a zero-initialised leaf's max
+                # would magnify)
+                m_err, p_share = {}, {}
+                for (path, a), (_, b) in zip(_named(st), _named(ref.pop("state"))):
+                    a, b = a.detach().float(), b.detach().float()
+                    if path.startswith("/m/"):
+                        m_err[path] = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    else:
+                        p_share[path] = bound_share(torch, a, b, "float32")[1]
+                wm, wp = max(m_err, key=m_err.get), max(p_share, key=p_share.get)
+                r["state_worst"] = dict(moment=wm, moment_rel_to_max=m_err[wm], param=wp,
+                                        param_f32_share=p_share[wp])
+            del st
+        if ratio_rule:                      # phase 6's rule on the clipped gradients
+            mesh_m = gather(opt["m"], rank == 0)
+            if rank == 0:
+                got = from_moments(mesh_m, ref.pop("m_prev"))
+                f32, plain = ref.pop("f32_grads"), ref.pop("plain_grads")
+                r["grad_shares"] = {who: _worst_share(torch, g, f32)
+                                    for who, g in (("mesh", got), ("plain", plain))}
+                del got, f32, plain
+            del mesh_m
+        if ref is not None:
+            r["plain"] = ref
+        rec["steps"].append(r)
+        return params, opt
+
+    mesh = make_host_mesh()
+    params = fan_in_qk(cfg, model.init(torch.Generator(device=device).manual_seed(0)))
+    params = distribute_tree(params, ShardingRules(cfg, mesh).param_specs(params), mesh)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    data = data_for(mesh, 0)
+    for i in range(run.steps_before):
+        params, opt = step(params, opt, data, i, mesh)
+    data.close()
+
+    # the sharded checkpoint, and the state it holds (rank 0, on the host)
+    state = {"params": params, "opt": opt}
+    saved = gather(state, rank == 0, to_cpu=True)
+    ckpt = Checkpointer(run.ckpt_dir, async_save=True)
+    sync()
+    t0 = time.perf_counter()
+    ckpt.save(run.steps_before, state)
+    ckpt.wait()
+    rec["save_s"] = time.perf_counter() - t0
+    rec["ckpt_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                            for d, _, files in os.walk(run.ckpt_dir) for f in files)
+    shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)
+
+    ctrl = ElasticController(
+        make_mesh=lambda n: make_host_mesh(),
+        spec_fn=lambda m, sh: train_state_specs(ShardingRules(cfg, m), sh), ckpt=ckpt,
+        n_devices=world)
+    for beat in (1.0, 2.0, 3.0, 4.0):
+        for d in range(run.shrink_to):
+            ctrl.coordinator.beat(d, beat)
+    rec["failed"] = sorted(ctrl.coordinator.tick(5.0))
+    t_verdict = time.perf_counter()
+    if rec["failed"]:                    # nothing touches the old group again
+        ranks.leave()
+    del params, opt, state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    if rank >= run.shrink_to:            # fallen silent: exit
+        with open(os.path.join(run.pid_dir, f"{rank}.pid"), "w") as f:
+            f.write(str(os.getpid()))
+        return rec
+    rec["gone_before_regroup"] = wait_gone(run.pid_dir, range(run.shrink_to, world))
+    t_gone = time.perf_counter()
+    new = ctrl.remesh(ElasticState(mesh=mesh, step=run.steps_before, params=None,
+                                   opt_state=None), shapes)
+    sync()
+    t_restored = time.perf_counter()
+    rec["generations"].append(new.generation)
+    rec["worlds"].append(dist.get_world_size())
+    back = gather({"params": new.params, "opt": new.opt_state}, rank == 0, to_cpu=True)
+    if rank == 0:
+        rec["restored_bitwise"] = all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(tree_leaves(saved), tree_leaves(back)))
+    del saved, back
+    params, opt = new.params, new.opt_state
+    data = data_for(new.mesh, run.steps_before)
+    for i in range(run.steps_before, total):
+        params, opt = step(params, opt, data, i, new.mesh)
+    data.close()
+    first = rec["steps"][run.steps_before]["ms"]
+    rec["remesh"] = dict(wait_s=t_gone - t_verdict, regroup_restore_s=t_restored - t_gone,
+                         first_step_s=first / 1e3,
+                         total_s=t_restored - t_verdict + first / 1e3)
+    del params, opt, new
+    return rec
+
+
+def mesh_phase(torch, card: str, run: MeshRun, world: int, devices, what: str,
+               timeout: float = MESH_TIMEOUT) -> dict:
+    """A ``MeshRun`` on ``world`` nccl ranks (one a card, ``devices``; gloo
+    ranks on the CPU without ``devices``, for a rehearsal),
+    gated: every step's loss and grad norm against the plain one-card
+    step's (float32: within ``PIPE_GRAD_TOL`` relative, the first moments
+    after each step within ``PIPE_GRAD_TOL`` of each leaf's max and the
+    parameters within the float32 tolerance; bf16: within the bf16 bound
+    ``_hold`` holds phase 6's loss to, and on a (1, 1) mesh the loss bitwise
+    and the grad norm within ``MESH_ONE_GNORM_TOL`` relative; on more ranks
+    the clipped gradients by phase 6's rule: against the float32 model's,
+    the DTensor step's worst leaf may use at most ``PIPE_BF16_RATIO`` times
+    the share of the backward's bound that the plain step's uses), the
+    launches of the DTensor steps exact, the restore bit for bit, every
+    survivor on the new group."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    t0 = time.perf_counter()
+    recs = run_ranks(mesh_train_rank, world, (run,), backend="nccl" if devices else "gloo",
+                     timeout=timeout, devices=devices)
+    wall = time.perf_counter() - t0
+    r0 = recs[0]
+    steps = run.steps_before + run.steps_after
+    survivors = recs[:run.shrink_to]
+    for r in recs:
+        if r["failed"] != list(range(run.shrink_to, world)):
+            raise AssertionError(f"rank {r['rank']} saw {r['failed']} fail")
+    for r in survivors:
+        if r["generations"] != [0, 1] or r["worlds"] != [world, run.shrink_to]:
+            raise AssertionError(f"rank {r['rank']}: generations {r['generations']}, worlds "
+                                 f"{r['worlds']}")
+        if not r["gone_before_regroup"]:
+            raise AssertionError(f"rank {r['rank']} regrouped before the failed ranks exited")
+        if len(r["steps"]) != steps:
+            raise AssertionError(f"rank {r['rank']} took {len(r['steps'])} steps")
+        want = {k: v * steps for k, v in r["per_step_launches"].items()}
+        if DEVICE == "cuda" and r["launches"] != want:
+            raise AssertionError(f"rank {r['rank']}'s DTensor steps launched {r['launches']}, "
+                                 f"expected {want}")
+    if not r0["restored_bitwise"]:
+        raise AssertionError("the state restored onto the new mesh differs from the saved one")
+    rows = []
+    for s in r0["steps"]:
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])):
+            raise AssertionError(f"step {s['step']}: loss {s['loss']}, grad norm {s['grad_norm']}")
+        p = s.get("plain")
+        if p is None:
+            continue
+        got = torch.tensor([s["loss"], s["grad_norm"]], dtype=torch.float64)
+        exp = torch.tensor([p["loss"], p["grad_norm"]], dtype=torch.float64)
+        bitwise = bool(torch.equal(got, exp))
+        if run.dtype == "float32":
+            rel = float(((got - exp).abs() / exp.abs()).max())
+            worst = s["state_worst"]
+            if (rel > PIPE_GRAD_TOL or worst["moment_rel_to_max"] > PIPE_GRAD_TOL
+                    or worst["param_f32_share"] > 1.0):
+                raise AssertionError(f"float32 step {s['step']} on {s['mesh']}: loss/grad norm "
+                                     f"rel err {rel:.3e}, worst state leaves {worst}")
+            share = None
+        else:
+            rel = float(((got - exp).abs() / exp.abs()).max())
+            _, share = _hold(torch, f"{what} step {s['step']} loss and grad norm",
+                             got.reshape(1, 2).t(), exp.reshape(1, 2).t(), "bfloat16",
+                             BWD_FLOOR)
+            if s["mesh"] == (1, 1):
+                gn_rel = abs(s["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+                if s["loss"] != p["loss"] or gn_rel > MESH_ONE_GNORM_TOL:
+                    raise AssertionError(
+                        f"{what} step {s['step']} on (1, 1): loss {s['loss']!r} against the plain "
+                        f"step's {p['loss']!r} (must be bitwise), grad norm rel err {gn_rel:.3e} "
+                        f"(tol {MESH_ONE_GNORM_TOL})")
+            gs = s.get("grad_shares")
+            if gs is not None:
+                limit = PIPE_BF16_RATIO * gs["plain"][2]
+                log(card, f"{what} step {s['step']} on a {s['mesh']} mesh: clipped bf16 "
+                          f"gradients against the float32 model's: DTensor step worst "
+                          f"{gs['mesh'][0]} at {gs['mesh'][2]:.3g} x the backward's bound "
+                          f"({TOL['bfloat16 grad']}), plain step worst {gs['plain'][0]} at "
+                          f"{gs['plain'][2]:.3g} x; gate {PIPE_BF16_RATIO} x the plain's, "
+                          f"{limit:.3g} x")
+                if gs["mesh"][2] > limit:
+                    raise AssertionError(
+                        f"{what} step {s['step']}: the DTensor step's bf16 gradients use "
+                        f"{gs['mesh'][2]:.3g} x the backward's bound against float32, over "
+                        f"{PIPE_BF16_RATIO} x the plain step's {gs['plain'][2]:.3g} x")
+        rows.append(dict(step=s["step"], mesh=s["mesh"], loss=s["loss"], plain_loss=p["loss"],
+                         grad_norm=s["grad_norm"], plain_grad_norm=p["grad_norm"],
+                         bitwise=bitwise, rel_err=rel, bound_share=share,
+                         state_worst=s.get("state_worst"), grad_shares=s.get("grad_shares"),
+                         ms=s["ms"], plain_ms=p["ms"]))
+        log(card, f"{what} step {s['step']} on a {s['mesh']} mesh: loss {s['loss']:.6f} (plain "
+                  f"one-card step {p['loss']:.6f}), grad norm {s['grad_norm']:.6f} (plain "
+                  f"{p['grad_norm']:.6f}), {'bitwise' if bitwise else f'rel err {rel:.3e}'}"
+                  + (f", {share:.3g} x the bf16 bound" if share is not None else "")
+                  + (f", first moments' worst {s['state_worst']['moment']} at "
+                     f"{s['state_worst']['moment_rel_to_max']:.3e} of its max, parameters' "
+                     f"worst {s['state_worst']['param']} at "
+                     f"{s['state_worst']['param_f32_share']:.3g} x the f32 tolerance ({TOL['float32']})"
+                     if s.get("state_worst") else "")
+                  + f"; {s['ms']:.1f} ms (plain {p['ms']:.1f} ms); launches {s['launches']}")
+    by_mesh: Dict[str, list] = {}
+    for s in r0["steps"]:
+        by_mesh.setdefault(str(s["mesh"]), []).append(s["ms"])
+    peaks = {r["rank"]: max(s["peak_bytes"] for s in r["steps"]) for r in survivors}
+    for r in recs[run.shrink_to:]:
+        peaks[r["rank"]] = max(s["peak_bytes"] for s in r["steps"])
+    rem = r0["remesh"]
+    log(card, f"{what}: {r0['config']} ({r0['n_layers']} of {r0['full_layers']} layers, "
+              f"{r0['dtype']}, batch {run.batch} x {run.seq}, remat='full') on {world} "
+              f"{'nccl' if devices else 'gloo'} rank(s), (1, {world}) -> (1, {run.shrink_to}); "
+              f"step ms by mesh (DTensor steps, "
+              f"host clock, synchronised) {by_mesh}; peak GiB a rank over the DTensor steps "
+              f"{ {k: round(v / 2**30, 2) for k, v in peaks.items()} }; checkpoint "
+              f"{r0['ckpt_bytes'] / 1e9:.2f} GB saved in {r0['save_s']:.1f} s (async, then wait); "
+              f"remesh from the verdict to the first resumed step's end {rem['total_s']:.2f} s "
+              f"(failed ranks gone {rem['wait_s']:.2f} s, regroup + restore "
+              f"{rem['regroup_restore_s']:.2f} s, first step {rem['first_step_s']:.2f} s); "
+              f"restored bit for bit; launches of the DTensor steps {r0['launches']} "
+              f"({steps} x {r0['per_step_launches']}); DTensor branches {r0['branches']}; wall "
+              f"{wall:.1f} s")
+    return dict(config=r0["config"], n_layers=r0["n_layers"], dtype=r0["dtype"], world=world,
+                shrink_to=run.shrink_to, batch=run.batch, seq=run.seq, rows=rows,
+                step_ms_by_mesh=by_mesh, peak_bytes=peaks, remesh=rem, save_s=r0["save_s"],
+                ckpt_bytes=r0["ckpt_bytes"], launches=r0["launches"],
+                per_step_launches=r0["per_step_launches"], branches=r0["branches"],
+                restored_bitwise=r0["restored_bitwise"], wall_s=wall)
+
+
+def phase_mesh(torch, card: str) -> dict:
+    """Phase 8: h2o_danube_1_8b at full width (``MESH_LAYERS`` layers,
+    bf16, wq/wk at the fan-in of d_model) trained under a (1, 1) mesh on one
+    nccl rank (the script's own process starts no group), checkpointed
+    sharded, remeshed by the elastic controller onto a fresh group of
+    generation 1, restored and trained one more step (``mesh_phase``'s
+    gates), each DTensor step launching the flash forward and backward on
+    the rank's heads: the local branch of the DTensor entry, once a layer
+    for the forward and once for the recompute."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "pids"))
+        run = MeshRun(MESH_ARCH, MESH_LAYERS, "bfloat16", MESH_BATCH, MESH_SEQ, 3, 1, 1,
+                      os.path.join(tmp, "ckpt"), os.path.join(tmp, "pids"))
+        free, total = torch.cuda.mem_get_info()
+        log(card, f"phase 8 starts one nccl rank on cuda:0 with {free / 2**30:.1f} of "
+                  f"{total / 2**30:.1f} GiB free")
+        out = mesh_phase(torch, card, run, 1, ["cuda:0"], "the mesh path")
+    flash_fwd = out["launches"]["flash_attention"]
+    if out["branches"] != {"local": flash_fwd, "replicate": 0}:
+        raise AssertionError(f"DTensor branches {out['branches']}, expected {flash_fwd} local "
+                             f"(one a flash forward)")
+    return out
+
+
 def _to(tree, device):
     """A copy of ``tree`` on ``device`` (a copy on the same device too: the
     train step updates its parameters in place)."""
@@ -3195,6 +3688,11 @@ def main() -> int:
     t0 = time.perf_counter()
     calibration = phase_calibrate(torch, card)   # phase 7
     timed("7 calibration", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch, card)           # phase 8
+    timed("8 mesh", t0)
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -3238,6 +3736,7 @@ def main() -> int:
         by_path.update({f"{dora['ranks'][k]['arch']} pipeline ranks {k}":
                         dora["ranks"][k]["launches"][name] for k in ("forward", "gradients")})
         by_path["calibration"] = calibration["launches"][name]
+        by_path[f"{mesh['config']} mesh (1, 1)"] = mesh["launches"][name]
         by_path["train launcher"] = train_launcher["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
@@ -3251,7 +3750,7 @@ def main() -> int:
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
               "small_train": small_train, "train": train, "train_launcher": train_launcher,
               "dora": dora,
-              "calibration": calibration, "ptxas": ptxas, "phase_s": phase_s,
+              "calibration": calibration, "mesh": mesh, "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -17,6 +17,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..models.sharding_utils import batch_spec, distribute
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
@@ -73,11 +75,18 @@ class TokenPipeline:
     A background thread draws each block and places it on the device: on a
     card through pinned host memory, copied with ``non_blocking=True`` on a
     side stream; ``__next__`` makes the current stream wait for that copy.
-    ``close()`` stops and joins the thread."""
+    ``close()`` stops and joins the thread.
 
-    def __init__(self, cfg: DataConfig, device="cuda"):
+    Under a device ``mesh`` (the reference's ``TokenPipeline(cfg, mesh)``)
+    every rank draws the same stream and ``__next__`` returns DTensors laid
+    out by ``batch_spec(None)`` (the batch dim over ``("pod", "data")`` where
+    it divides, as ``ShardingRules.batch_specs`` has it), each rank keeping
+    its own rows."""
+
+    def __init__(self, cfg: DataConfig, device="cuda", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self._stream = _corpus_stream(cfg) if cfg.corpus_path else synthetic_stream(cfg)
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
@@ -120,6 +129,8 @@ class TokenPipeline:
             current.wait_event(done)
             tokens.record_stream(current)     # allocated on the copy stream, used here
             labels.record_stream(current)
+        if self.mesh is not None:
+            tokens, labels = (distribute(t, batch_spec(None), self.mesh) for t in (tokens, labels))
         return {"tokens": tokens, "labels": labels}
 
     def close(self) -> None:

@@ -1,4 +1,11 @@
-"""The no-grad guard of the one kernel that has no backward on the card:
+"""Two guards of the CUDA wrappers.
+
+``refuse_dtensor``: a DTensor's ``is_cuda`` is its local tensor's, so a
+card's DTensor would reach a C entry point, which reads raw pointers of
+whole tensors. The wrappers refuse one; ``ops.flash_attention`` and
+``ops.decode_attention`` take DTensors and hand the kernels local tensors.
+
+``require_no_grad``: the no-grad guard of the one kernel that has no backward on the card:
 ``decode_attention``, which only serving calls (the JAX package takes no
 gradient through its decode either).
 
@@ -17,3 +24,10 @@ def require_no_grad(kernel: str, item: str, *tensors: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{kernel}: no backward on the card yet (ROADMAP: {item}); call it under "
             "torch.no_grad() or with inputs that do not require grad")
+
+
+def refuse_dtensor(kernel: str, *tensors: torch.Tensor) -> None:
+    from ..models.sharding_utils import is_dtensor
+    if is_dtensor(*tensors):
+        raise TypeError(f"{kernel}: a DTensor reached the kernel's wrapper; call "
+                        "repro_torch.kernels.ops, which runs the kernel on local tensors")

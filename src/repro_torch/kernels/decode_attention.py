@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ._guard import require_no_grad
+from ._guard import refuse_dtensor, require_no_grad
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (16, 64, 80, 128, 256)
@@ -131,6 +131,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if not q.is_cuda:
         return decode_attention_ref(q, k_cache, v_cache, cache_len, window=window,
                                     scale=scale)
+    refuse_dtensor("decode_attention", q, k_cache, v_cache, cache_len)
     require_no_grad("decode_attention", "'Backward kernels'", q, k_cache, v_cache)
     B, one, H, d = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._guard import refuse_dtensor
 from .decode_attention import SMS
 
 NEG_INF = -2.0e38
@@ -163,6 +164,7 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dims) -> None:
+    refuse_dtensor("flash_attention", q, k, v)
     B, S, H, d = q.shape
     T, KV = k.shape[1], k.shape[2]
     if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._guard import refuse_dtensor
 
 launches = 0
 bwd_launches = 0
@@ -77,6 +78,7 @@ def _lib() -> ctypes.CDLL:
 def _check(what: str, a_log: torch.Tensor, x: torch.Tensor) -> None:
     """a_log and x (b for the forward, h for the backward): float32 (B,S,W)
     with S > 0 on one CUDA device."""
+    refuse_dtensor(what, a_log, x)
     if not (x.is_cuda and x.device == a_log.device):
         raise ValueError(f"{what}: a_log and its second input must lie on one CUDA device")
     if a_log.dtype != torch.float32 or x.dtype != torch.float32:

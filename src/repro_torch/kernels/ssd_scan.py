@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._guard import refuse_dtensor
 
 MAX_CHUNK, MAX_P, MAX_N = 256, 64, 128
 TILE = 64                     # rows of a cb tile and of a chunk_scan query tile
@@ -547,6 +548,7 @@ def _check(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tenso
     """Raise on inputs the kernels do not take."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
+    refuse_dtensor(what, x, a_log, b, c)
     if not all(t.is_cuda and t.device == x.device for t in (a_log, b, c)):
         raise ValueError(f"{what}: x, a_log, b and c must lie on one CUDA device")
     if x.dtype not in _DTYPES or not x.dtype == b.dtype == c.dtype \

@@ -10,8 +10,14 @@ import torch
 
 from ..models import Model, build_model
 from ..models.config import ArchConfig
+from ..models.sharding_utils import is_dtensor
 from ..optim import AdamWConfig, adamw_update, warmup_cosine
 from ..optim.adamw import tree_leaves, tree_map
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor (differentiable), else ``t``."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
@@ -24,7 +30,9 @@ def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100
     backward on the card); AdamW then updates ``params`` and the moments in
     place (``optim.adamw``). The metrics stay 0-d tensors (``lr`` on
     ``step``'s device, the CPU for a Python int): a step never waits on the
-    card."""
+    card. Under a device mesh ``params``, the moments and the batch are
+    DTensors (``launch.train``); the loss and metrics come back as plain
+    tensors, the same on every rank."""
     model = build_model(cfg, device=device)
 
     def train_step(params, opt_state, batch, step):
@@ -32,12 +40,13 @@ def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100
         for p in leaves:
             p.requires_grad_(True)
         loss, metrics = model.loss(params, batch, remat=remat)
+        loss = _plain(loss)
         grads = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(grads), params)
         lr = warmup_cosine(step, peak_lr=peak_lr, warmup=warmup, total=total)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr, opt)
         out = {"loss": loss.detach(), "lr": lr,
-               **{k: v.detach() for k, v in metrics.items()}, **om}
+               **{k: _plain(v.detach()) for k, v in metrics.items()}, **om}
         return params, opt_state, out
 
     return model, train_step

@@ -11,10 +11,13 @@ from __future__ import annotations
 
 from typing import Optional
 
+import functools
+
 import torch
 
 from ..kernels import ops
 from ..kernels.decode_attention import decode_attention_ref
+from .sharding_utils import is_dtensor
 
 NEG_INF = -2.0e38
 
@@ -42,7 +45,12 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   prefix_len: int = 0, offset: int = 0,
                   scale: Optional[float] = None) -> torch.Tensor:
-    """Grouped-query attention. Returns (B, S, H, hd)."""
+    """Grouped-query attention. Returns (B, S, H, hd). DTensors go through
+    the kernels' DTensor entry (``ops.attend_on_shards``)."""
+    if is_dtensor(q, k, v):
+        return ops.attend_on_shards(functools.partial(
+            gqa_attention, causal=causal, window=window, prefix_len=prefix_len, offset=offset,
+            scale=scale), q, k, v)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV

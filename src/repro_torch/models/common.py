@@ -10,6 +10,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .sharding_utils import replicate_like
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -43,8 +45,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)              # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., None, :]                       # (..., seq, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos = replicate_like(torch.cos(angles)[..., None, :], x)    # (..., seq, 1, hd/2)
+    sin = replicate_like(torch.sin(angles)[..., None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_lib
@@ -38,6 +39,7 @@ from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_devic
 from .config import ArchConfig
 from .mlp import apply_mlp, init_mlp
 from .rglru import apply_rglru, init_rglru, rglru_state_shape
+from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, replicate_like
 from .ssm import apply_mamba2, apply_mamba2_decode, init_mamba2, mamba2_state_shape
 
 Params = Dict[str, Any]
@@ -93,11 +95,32 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
 # ==============================================================================
 # per-layer apply (mode: train | prefill | decode)
 # ==============================================================================
+# the residual stream's layout between blocks under a mesh (the reference's
+# P(("pod","data"), "model", None)), and the same gathered over the sequence
+RESIDUAL = P(BATCH, "model", None)
+GATHERED = P(BATCH, None, None)
+
+
+def _heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (d, h*k) product: DTensor shards it as
+    any matmul (its einsum backward on head-sharded weights viewed a
+    non-contiguous local gradient and raised), and a plain step takes the
+    same product, so a (1, 1) mesh's step is the plain step's arithmetic."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one (h*k, d) product (see ``_heads_in``)."""
+    h, k, d = w.shape
+    return o.reshape(*o.shape[:-2], h * k) @ w.reshape(h * k, d)
+
+
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _heads_in(x, p["wq"])
+    k = _heads_in(x, p["wk"])
+    v = _heads_in(x, p["wv"])
     if cfg.qk_norm:                   # qk-norm comes before rope
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -125,9 +148,14 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
             o = attn_lib.decode_attention(q, kc, vc, valid, window=None)
         else:
             o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=window)
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        return _heads_out(o, p["wo"])
 
     positions = torch.arange(S, device=x.device)[None, :]
+    # under a mesh the residual stream is sequence-sharded over "model" and
+    # the projections head-sharded: gather the sequence first (as before the
+    # MLP and the head), so q, k and v come out head-sharded and each rank
+    # attends its own heads
+    x = maybe_shard(x, GATHERED)
     q, k, v = _project_qkv(p, x, cfg, positions)
     if S > cfg.attn_chunk:
         o = attn_lib.gqa_attention_chunked(q, k, v, causal=True, window=window,
@@ -137,7 +165,7 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     if mode == "prefill":
         _fit_cache(cache["k"], k)
         _fit_cache(cache["v"], v)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return _heads_out(o, p["wo"])
 
 
 def _write_cache(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor) -> None:
@@ -186,9 +214,20 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
         y = apply_attn(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos, window=window)
     else:
         raise NotImplementedError(f"layer kind {kind!r}: {unsupported(cfg)}")
-    x = x + y
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h2, cfg.act)
+    # under a mesh each branch's output is laid out as the residual stream
+    # before the add (a reduce-scatter of the row-parallel products), so its
+    # gradient comes back gathered to the products' backward
+    x = x + maybe_shard(y, RESIDUAL)
+    h2 = maybe_shard(rms_norm(x, p["ln2"], cfg.norm_eps), GATHERED)
+    x = x + maybe_shard(apply_mlp(p["mlp"], h2, cfg.act), RESIDUAL)
+    return maybe_shard(x, RESIDUAL)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each position's masked NLL: (logsumexp - the label's logit) * mask."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (lse - ll) * mask
 
 
 def _layer(tree: Union[Params, torch.Tensor], i: int):
@@ -317,7 +356,11 @@ class LM:
         if remat not in ("full", "none"):
             raise ValueError(f"remat={remat!r}: 'full' or 'none'")
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
+        # F.embedding: DTensor shards it on a vocab-sharded table (indexing it
+        # does not); on the card its backward accumulates a repeated token's
+        # rows in float32, indexing's in bf16 (h2o's bf16 grad norms differed
+        # by ~1%), so the plain and the mesh step take it alike
+        x = maybe_shard(F.embedding(tokens.long(), params["embed"]), RESIDUAL)
         unit, n_units, tail = self.scan_groups()
         for unit_params in _unbind(params["stack"], n_units):
             if remat == "full" and torch.is_grad_enabled():
@@ -326,7 +369,7 @@ class LM:
                 x = self._unit_apply(x, unit_params)
         for i, kind in enumerate(tail):
             x = apply_block(params["tail"][f"t{i}"], x, cfg, kind, mode="train")
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = maybe_shard(rms_norm(x, params["ln_f"], cfg.norm_eps), GATHERED)
         return self._head(params, x), torch.zeros((), device=x.device)
 
     def _unit_apply(self, x: torch.Tensor, unit_params: Params) -> torch.Tensor:
@@ -349,19 +392,29 @@ class LM:
         """The mean NLL from the layer stack's output ``x`` (B, S, D) on, as
         ``loss`` takes it from there (final norm, head, NLL): the loss of a
         pipeline executor's output."""
-        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
+        x = maybe_shard(rms_norm(x, params["ln_f"], self.cfg.norm_eps), GATHERED)
         return self._nll(self._head(params, x), batch)
 
     def _nll(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         labels = batch["labels"].long()
         if logits.shape[1] != labels.shape[1]:      # prefix rows carry no loss
             logits = logits[:, -labels.shape[1]:]
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels[..., None])[..., 0]
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones_like(labels, dtype=torch.float32)
-        return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        if is_dtensor(logits):
+            # under a mesh: lay the (vocab-sharded) logits out by sequence, as
+            # the residual stream, and take each rank's tokens' NLL locally
+            logits, labels, mask = (maybe_shard(t, RESIDUAL[:t.ndim])
+                                    for t in (logits, labels, mask))
+            from torch.distributed.tensor.experimental import local_map
+            tok = local_map(_token_nll, out_placements=list(labels.placements),
+                            in_placements=(logits.placements, labels.placements,
+                                           mask.placements),
+                            device_mesh=logits.device_mesh)(logits, labels, mask)
+        else:
+            tok = _token_nll(logits, labels, mask)
+        return torch.sum(tok) / torch.clamp(torch.sum(mask), min=1.0)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -369,7 +422,7 @@ class LM:
         logits = (x @ w).float()
         if cfg.padded_vocab != cfg.vocab_size:
             live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-            logits = logits + torch.where(live, 0.0, attn_lib.NEG_INF)
+            logits = logits + replicate_like(torch.where(live, 0.0, attn_lib.NEG_INF), logits)
         return logits
 
     # -- prefill / decode -------------------------------------------------------------

@@ -11,6 +11,13 @@ the given tensors in place (under ``torch.no_grad()``), so a step holds one
 copy of the optimizer state in device memory; it returns the same trees.
 The norm, the clip scale and the count stay 0-d tensors on the parameters'
 device: a step never waits on the host.
+
+Under a device mesh the parameters, gradients and moments are DTensors
+(the moments laid out like their parameters; the count a plain tensor).
+The global norm sums each leaf's squares as DTensor reduces it and gathers
+the total once; the update is elementwise, so it runs on each rank's local
+slices in place, after a gradient laid out otherwise than its parameter is
+redistributed to the parameter's placements.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import dataclasses
 from typing import Any, Dict, Iterator, Tuple, Union
 
 import torch
+
+from ..models.sharding_utils import is_dtensor
 
 Tree = Any
 
@@ -48,14 +57,17 @@ def tree_leaves(tree: Tree) -> Iterator[torch.Tensor]:
 
 def adamw_init(params: Tree) -> Dict[str, Any]:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     device = next(tree_leaves(params)).device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    total = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    if is_dtensor(total):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -68,11 +80,18 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
     a new tensor."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    count = state["count"] + 1
+    count = state["count"]
+    if is_dtensor(count):          # replicated (a state restored onto a mesh)
+        count = count.to_local()
+    count = count + 1
     c1 = 1.0 - torch.pow(cfg.b1, count.float())
     c2 = 1.0 - torch.pow(cfg.b2, count.float())
 
     def upd(g, m, v, p):
+        if is_dtensor(p):
+            if g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            g, m, v, p = (t.to_local() for t in (g, m, v, p))
         g32 = g.float() * scale
         m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g32)
         v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g32 * g32)

@@ -9,6 +9,17 @@ a ``file://`` store in a fresh temporary directory, so concurrent callers
 backend (``"gloo"`` or ``"nccl"``) and each rank's device (``devices[rank]``,
 ``"cpu"`` when none are given); nothing here picks either from the machine.
 
+A rank keeps its generation-0 rank as its id. ``regroup(survivors,
+generation)`` lets the ranks in ``survivors`` (ids) leave their group and
+form a new one of their own through a fresh store file beside the first
+(``gen<generation>``): world = the number of survivors, rank = the position
+of the id among them. A rank not among the survivors just leaves.
+``leave()`` quits the group without a word to the peers: an nccl group is
+aborted once this rank's queued work is done (a graceful destroy finalizes
+the communicators with every peer, so it waits on a peer that is gone, or
+on one that is still running), a gloo group destroyed (local). A rank that
+leaves on a failure verdict touches nothing of the old group again.
+
 A rank that raises makes the call raise ``ProcessRaisedException`` with the
 traceback of every rank that raised (the others are stopped); a run that
 outlives ``timeout`` seconds is killed and raises ``TimeoutError``. The group's own collectives
@@ -34,6 +45,49 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+_GROUP: dict = {}      # this rank's id, device, backend, store directory and timeout
+
+
+def rank_device() -> Optional[torch.device]:
+    """The device ``run_ranks`` gave this rank; None in a process it did not
+    start."""
+    return _GROUP.get("device")
+
+
+def _join(generation: int, rank: int, world: int) -> None:
+    g = _GROUP
+    dist.init_process_group(g["backend"], init_method=f"file://{g['store']}/gen{generation}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=g["timeout"]))
+
+
+def leave() -> None:
+    """Leave the current group, if any (see the module docstring)."""
+    if not dist.is_initialized():
+        return
+    abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+    if "nccl" in str(dist.get_backend()) and abort is not None:
+        torch.cuda.synchronize()
+        abort()
+    else:
+        dist.destroy_process_group()
+
+
+def regroup(survivors: Sequence[int], generation: int) -> bool:
+    """Leave the current group (if this rank has not left yet); on a rank
+    whose id is in ``survivors``, join the survivors' group of
+    ``generation`` (see the module docstring). Returns whether this rank is
+    in the new group."""
+    if not _GROUP:
+        raise RuntimeError("regroup: this process was not started by run_ranks")
+    leave()
+    order = sorted(survivors)
+    if _GROUP["id"] not in order:
+        return False
+    _join(generation, order.index(_GROUP["id"]), len(order))
+    return True
+
+
 def _rank_main(rank: int, fn: Callable[..., Any], world: int, args: tuple, backend: str,
                devices: Optional[Sequence[str]], store: str, out_dir: str,
                timeout: float) -> None:
@@ -41,13 +95,13 @@ def _rank_main(rank: int, fn: Callable[..., Any], world: int, args: tuple, backe
     device = torch.device(devices[rank] if devices is not None else "cpu")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=timeout))
+    _GROUP.update(id=rank, device=device, backend=backend, store=store, timeout=timeout)
+    _join(0, rank, world)
     try:
         result = fn(rank, world, *args)
         torch.save(_to_cpu(result), os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        leave()
 
 
 def _to_cpu(obj: Any) -> Any:
@@ -77,6 +131,7 @@ def run_ranks(fn: Callable[..., Any], world: int, args: tuple = (), *, backend: 
     if devices is not None and len(devices) != world:
         raise ValueError(f"{world} ranks but {len(devices)} devices were given")
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks-")
+    os.makedirs(os.path.join(tmp, "store"))
     ctx = mp.start_processes(_rank_main, nprocs=world, join=False, start_method="spawn",
                              args=(fn, world, args, backend,
                                    None if devices is None else [str(d) for d in devices],

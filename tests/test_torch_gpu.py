@@ -795,3 +795,97 @@ def test_pipeline_ranks_one_card_each_over_nccl():
     ranks = cs.phase_pipeline_ranks(torch, card, planned, out, kept, backend="nccl",
                                     devices=[f"cuda:{i}" for i in range(need)])
     assert ranks["forward"]["bitwise"] or ranks["forward"]["bound_share"] <= 1.0
+
+
+def _chip_smoke():
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke as cs
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    return cs, card
+
+
+def _mesh_run(cs, tmp_path, name, *args, **kw):
+    pids = tmp_path / f"{name}_pids"
+    pids.mkdir()
+    return cs.MeshRun(*args, ckpt_dir=str(tmp_path / f"{name}_ckpt"), pid_dir=str(pids), **kw)
+
+
+@pytest.mark.gpu
+def test_mesh_train_world_one_small_on_card(tmp_path):
+    """chip_smoke.py phase 8's rank function at a small size: the reduced
+    h2o-danube (2 layers, head_dim 80, attn_chunk 64 < S = 256, float32)
+    under a (1, 1) mesh on one nccl rank, 2 steps, a sharded checkpoint, the
+    elastic controller's remesh onto a fresh group, 1 more step; each step
+    against the plain step (``mesh_phase``'s float32 gates), the restore bit
+    for bit, the flash kernels launched from the DTensor steps (exact) and
+    the DTensor entry's local branch once a flash forward."""
+    _card()
+    cs, card = _chip_smoke()
+    run = _mesh_run(cs, tmp_path, "small", "h2o_danube_1_8b", 2, "float32", 2, 256, 2, 1, 1,
+                    reduced=True, overrides=(("head_dim", 80), ("attn_chunk", 64)))
+    out = cs.mesh_phase(torch, card, run, 1, ["cuda:0"], "small mesh path")
+    assert out["restored_bitwise"] and len(out["rows"]) == 3
+    assert out["launches"]["flash_attention"] == 3 * 2 * 2
+    assert out["branches"] == {"local": out["launches"]["flash_attention"], "replicate": 0}
+
+
+@pytest.mark.gpu
+def test_gloo_rank_on_card_gets_a_card_mesh():
+    """A gloo rank that ``run_ranks`` starts on cuda:0 gets a CUDA mesh from
+    ``make_host_mesh()`` (never a CPU one, which would move the card's
+    tensors to the host and run the plain attention there), a CPU tensor is
+    refused, and the flash forward on a head-sharded DTensor launches the
+    kernel on the card."""
+    _card()
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_mesh_ranks
+    from repro_torch.runtime.ranks import run_ranks
+
+    out, = run_ranks(torch_mesh_ranks.mesh_device_rank, 1, backend="gloo", timeout=120,
+                     devices=["cuda:0"])
+    assert out["device_type"] == "cuda" and "a cpu tensor on a cuda mesh" in out["refused"]
+    assert out["launches"] == 1 and out["out_device"] == "cuda"
+
+
+@pytest.mark.gpu
+def test_elastic_tensor_parallel_four_cards_to_two(tmp_path):
+    """h2o-danube-1.8b at full width and depth (24 layers, bf16, batch 2 x
+    8192, remat="full", wq/wk at the fan-in of d_model) tensor-parallel on a
+    (1, 4) mesh, one nccl rank a card: 3 steps, a sharded checkpoint, then
+    ranks 2 and 3 fall silent and exit, the elastic controller regroups
+    ranks 0 and 1 into (1, 2), restores (bit for bit) and trains 2 more
+    steps. Every step is held against the one-card plain step from the same
+    state on cuda:0 (``mesh_phase``: the bf16 bound phase 6 holds its loss
+    to, and phase 6's rule for the clipped gradients against the float32
+    model's: the DTensor step's worst leaf at most 1.5 x the plain step's
+    share of the backward's bound); then in float32 at 4 layers and batch 1 x 4096, the loss and grad
+    norm within 1e-4 relative, the first moments after each step within
+    1e-4 of each leaf's max and the parameters within the float32 tolerance
+    (2e-5 + 2e-5 |ref|). Every rank attends its own
+    heads (H 32 and KV 8 divide 4 and 2: the DTensor entry's local branch).
+    With fewer than 4 cards it skips."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards (one rank a card), saw {torch.cuda.device_count()}")
+    cs, card = _chip_smoke()
+    devices = [f"cuda:{i}" for i in range(4)]
+    bf16 = cs.mesh_phase(torch, card, _mesh_run(cs, tmp_path, "bf16", "h2o_danube_1_8b", None,
+                                                "bfloat16", 2, 8192, 3, 2, 2),
+                         4, devices, "h2o tp 4 -> 2 (bf16)", timeout=480)
+    f32 = cs.mesh_phase(torch, card, _mesh_run(cs, tmp_path, "f32", "h2o_danube_1_8b", 4,
+                                               "float32", 1, 4096, 1, 2, 1),
+                        4, devices, "h2o tp 4 -> 2 (float32)", timeout=300)
+    for out, steps in ((bf16, 5), (f32, 2)):
+        assert out["restored_bitwise"] and len(out["rows"]) == steps
+        assert out["branches"] == {"local": out["launches"]["flash_attention"], "replicate": 0}
+        assert sorted(out["step_ms_by_mesh"]) == ["(1, 2)", "(1, 4)"]
