@@ -15,7 +15,9 @@ phases:
    shapes (bf16 qwen3-32b attention, recurrentgemma-9b's head_dim-256
    prefill above its window and decode, h2o-danube-1.8b's head_dim-80
    prefill (also at 8192 tokens, where its 4096 window binds) and decode,
-   granite-20b's 48 query heads on one KV head, mamba2-780m's SSD scan
+   granite-20b's 48 query heads on one KV head, olmoe-1b-7b's 16 query
+   heads on 16 KV heads (G = 1, prefill and decode, also in float32 for
+   phase 3's check), mamba2-780m's SSD scan
    with each of its four bf16 stages timed by the profiler,
    recurrentgemma-9b's RG-LRU scan at its prefill and training shapes) plus
    ragged, windowed, grouped,
@@ -56,12 +58,24 @@ phases:
    qwen3-32b (depth cut to 8 layers; prefill 4096, 32 decode steps),
    mamba2-780m (all 48 layers; prefill 4096, 32 steps) and
    recurrentgemma-9b (all 38 layers; prefill 2048, 32 steps, the
-   2048-slot local-attention ring wrapping from the first step) and
+   2048-slot local-attention ring wrapping from the first step),
    h2o-danube-1.8b (all 24 layers, head_dim 80; prefill 4096, 32 steps,
-   the 4096-slot window ring wrapping from the first step);
-4. small float32 models of four families on the card against the same
+   the 4096-slot window ring wrapping from the first step), olmoe-1b-7b
+   (all 16 MoE layers, 64 experts top-8 at the reference's capacity factor
+   1.25; prefill 4096, 32 steps) and deepseek-v2-236b (depth cut to 4
+   layers: the dense-first layer and 3 MoE layers of 160 experts top-6 plus
+   2 shared, MLA attention with no kernel; prefill 4096 through MLA's
+   query-chunked path, 32 steps); each path also prints its decode step's
+   weight bytes and the floor they set at 3.35 TB/s beside its p50, and an
+   MoE path its prefill's routing (groups, capacity, the share of routed
+   slots its MoE layers dropped); the MoE paths' checks run at the lossless
+   capacity factor n_experts / experts_per_token;
+4. small float32 models of six families on the card against the same
    models on the CPU, the recurrentgemma and h2o (head_dim 80) ones
-   decoding past their windows so the rings wrap on both devices; and a
+   decoding past their windows so the rings wrap on both devices, the
+   reduced olmoe (head_dim 64, the flash and decode kernels at G = 1) and the
+   reduced deepseek (MLA's query-chunked prefill) also on every cache leaf;
+   and a
    float32 train step of a small qwen3-family model (head_dim 64) and of a
    small h2o-family model (head_dim 80, a window below S), each with
    attn_chunk 64 < S = 256 so the flash forward and backward kernels run,
@@ -199,6 +213,8 @@ H2O_HEADS, H2O_KV, H2O_HEAD_DIM, H2O_WINDOW = 32, 8, 80, 4096
 H2O_TRAIN_BATCH, H2O_TRAIN_SEQ = 2, 8192
 # granite-20b's group: 48 query heads on one KV head of 128
 G48_HEADS = 48
+# olmoe-1b-7b's attention: 16 query heads on 16 KV heads of 128 (G = 1)
+OLMOE_HEADS = 16
 # mamba2-780m's training path: all 48 layers, batch 4 x 4096, bf16
 MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 4, 4096
 # recurrentgemma-9b's training path (the JAX package's train_4k shape): depth cut
@@ -394,7 +410,8 @@ def kernels_flash(kp: KernelPhase) -> None:
     H, KV, D = HEADS, KV_HEADS, HEAD_DIM
     Bk, Sk, Hk, KVk, Dk = mb.FLASH_SHAPE
     mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256",
-             "d80 main path": "flash_attention_d80", "G=48 main path": "flash_attention_g48"}
+             "d80 main path": "flash_attention_d80", "G=48 main path": "flash_attention_g48",
+             "G=1 main path": "flash_attention_g1"}
 
     for name, (B, S, T, h, kv, d), causal, window, dt in [
             ("main path", (BATCH, PROMPT, PROMPT, H, KV, D), True, None, "bfloat16"),
@@ -425,6 +442,12 @@ def kernels_flash(kp: KernelPhase) -> None:
             # granite-20b's group: 48 query heads on one KV head
             ("G=48 main path", (BATCH, PROMPT, PROMPT, G48_HEADS, 1, D), True, None,
              "bfloat16"),
+            # olmoe-1b-7b's prefill: 16 query heads on 16 KV heads (G = 1), and in
+            # float32 for phase 3's decode-vs-prefill check
+            ("G=1 main path", (BATCH, PROMPT, PROMPT, OLMOE_HEADS, OLMOE_HEADS, D), True, None,
+             "bfloat16"),
+            ("f32 G=1", (1, PROMPT // 4, PROMPT // 4, OLMOE_HEADS, OLMOE_HEADS, D), True, None,
+             "float32"),
             # phase 6's microbatches: granite-8b's, and h2o-danube-1.8b's in bf16 and in
             # float32 (its float32 gradient check runs the CUDA-core kernel)
             ("granite-8b plan", (GRANITE_MB, PLAN_SEQ, PLAN_SEQ, GRANITE_HEADS, GRANITE_KV, D),
@@ -485,7 +508,8 @@ def kernels_flash(kp: KernelPhase) -> None:
     for key, what in (("flash_attention", "the main path's shape"),
                       ("flash_attention_d256", "recurrentgemma-9b's d=256 prefill shape"),
                       ("flash_attention_d80", "h2o-danube-1.8b's d=80 prefill shape"),
-                      ("flash_attention_g48", "granite-20b's G=48 prefill shape")):
+                      ("flash_attention_g48", "granite-20b's G=48 prefill shape"),
+                      ("flash_attention_g1", "olmoe-1b-7b's G=1 prefill shape")):
         r = rec[key]
         log(card, f"flash_attention at {what}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention "
@@ -496,8 +520,9 @@ def kernels_flash(kp: KernelPhase) -> None:
 
 def kernels_decode(kp: KernelPhase) -> None:
     """decode_attention at qwen3-32b's, recurrentgemma-9b's,
-    h2o-danube-1.8b's (head_dim 80) and granite-20b's (G = 48) decode shapes,
-    and phase 7's calibration shapes (head_dim 64 and 16)."""
+    h2o-danube-1.8b's (head_dim 80), granite-20b's (G = 48) and olmoe-1b-7b's
+    (G = 1) decode shapes, and phase 7's calibration shapes (head_dim 64 and
+    16)."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.calibrate import microbench as mb
@@ -597,6 +622,13 @@ def kernels_decode(kp: KernelPhase) -> None:
     run_decode("decode_attention_g48", "G=48 main path", [
         ("G=48 main path", (BATCH, T, G48_HEADS, 1, D), [T] * BATCH, None, "bfloat16"),
         ("G=48 f32", (2, T, G48_HEADS, 1, D), [T, 17], None, "float32")])
+    # olmoe-1b-7b's: 16 query heads on 16 KV heads, one of the 16 mma rows of a
+    # KV head's tile live (G = 1); float32 for phase 3's check
+    Ho = OLMOE_HEADS
+    run_decode("decode_attention_g1", "G=1 main path", [
+        ("G=1 main path", (BATCH, T, Ho, Ho, D), [T] * BATCH, None, "bfloat16"),
+        ("G=1 lengths", (4, T, Ho, Ho, D), [T, PROMPT + 1, 100, 0], None, "bfloat16"),
+        ("G=1 f32", (2, T, Ho, Ho, D), [T, PROMPT // 2 + 1], None, "float32")])
     del flush
     torch.cuda.empty_cache()
 
@@ -1163,6 +1195,11 @@ class ServePath:
     check_layers: Optional[int]    # None: the path's depth
     warm_len: int          # a warm-up prefill at batch 1 that reaches the path's kernels
     qk_fan_in: bool = False   # wq and wk at the fan-in of d_model (see fan_in_qk)
+    # MoE: the check runs at the lossless capacity factor n_experts /
+    # experts_per_token. At the served 1.25 a fresh prefill drops tokens by
+    # their rank in token order, so it and the step-by-step decode would
+    # route differently by design
+    check_lossless: bool = False
 
 
 PATHS = [
@@ -1195,6 +1232,25 @@ PATHS = [
     # beside the check)
     ServePath("h2o_danube_1_8b", None, PROMPT, {"flash_attention": 24},
               {"decode_attention": 24}, PROMPT, 1, "bfloat16", None, PROMPT + 1, True),
+    # all 16 layers of 64 experts top-8 at the reference's capacity factor 1.25
+    # (the prefill routes 32 groups of 512 tokens, C = 81); 16 query heads on 16
+    # KV heads of 128. The check runs at lossless capacity in float32: in bf16
+    # the router's product is rounded to bf16 before its softmax, and the fresh
+    # prefill's and the decode step's products round a near-tie differently,
+    # which moves a token to another expert with no error in either (the bf16
+    # figure is printed beside the check). Prefill 4096 tokens, then 16 steps
+    ServePath("olmoe_1b_7b", None, PROMPT, {"flash_attention": 16},
+              {"decode_attention": 16}, PROMPT, 16, "float32", None, PROMPT + 1,
+              check_lossless=True),
+    # full width, depth cut 60 -> 4: the dense-first layer and 3 MoE layers of
+    # 160 experts top-6 plus 2 shared; MLA, so no kernel launches at all; the
+    # 4096-token prefill above attn_chunk takes MLA's query-chunked path. The
+    # check: lossless, float32 (the reason above), prefill 512 tokens (at
+    # lossless capacity every expert holds a row for every token: 160 x 4.1k
+    # rows of 5120 at a 4096-token prefill, too many beside the 53 GB of float32
+    # weights), then 16 steps
+    ServePath("deepseek_v2_236b", 4, PROMPT, {}, {}, 512, 16, "float32", None, PROMPT,
+              check_lossless=True),
 ]
 
 
@@ -1238,12 +1294,50 @@ def decode_vs_prefill(torch, model, params, prefix, extra) -> dict:
                 argmax=[int(a.argmax()), int(b.argmax())])
 
 
+def decode_weight_bytes(cfg, params) -> int:
+    """The parameter bytes one decode step must read: every leaf but the
+    embedding table, which decode only indexes (unless the head reuses it).
+    An MoE layer's decode sends its few tokens through all of its experts'
+    weights, as the JAX package computes it, so they all count."""
+    return sum(t.numel() * t.element_size() for name, sub in params.items()
+               if name != "embed" or cfg.tie_embeddings for t in _leaves(sub))
+
+
+class RoutingDrops:
+    """Counts the routed (token, slot)s that MoE layers drop while active:
+    ``repro_torch.models.mlp.route`` wrapped to add each call's dropped and
+    total slots, on the device (read once, after the run)."""
+
+    def __init__(self):
+        self.dropped, self.slots = [], []
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self._route = route = mlp.route
+
+        def counted(p, xg, cfg):
+            r = route(p, xg, cfg)
+            self.dropped.append((r.dest == cfg.n_experts * r.capacity).sum())
+            self.slots.append(r.dest.numel())
+            return r
+        mlp.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mlp
+        mlp.route = self._route
+
+    def share(self) -> float:
+        return float(sum(int(d) for d in self.dropped)) / sum(self.slots)
+
+
 def phase_serve(torch, card: str, path: ServePath) -> dict:
     import numpy as np
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import build_model
+    from repro_torch.models.mlp import dispatch_groups, moe_capacity
 
     full = get_config(path.arch)
     cfg = dataclasses.replace(full, n_layers=path.layers or full.n_layers)
@@ -1259,7 +1353,10 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
               f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, d_ff "
               f"{cfg.d_ff}, ssm heads {cfg.ssm_nheads if cfg.ssm else 0} x state "
               f"{cfg.ssm_state}, lru width {cfg.lru_dim if cfg.block_pattern else 0}, window "
-              f"{cfg.window}, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
+              f"{cfg.window}, experts {cfg.n_experts} top-{cfg.experts_per_token} of d_ff "
+              f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared, {cfg.n_dense_layers} dense "
+              f"first, MLA {cfg.mla} (q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}), "
+              f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
               f"{cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
               f"parameters summed from the tensors ({n_bytes / 1e9:.2f} GB), "
               f"ArchConfig.param_count() {analytic / 1e9:.3f} B")
@@ -1310,21 +1407,42 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
     # where the time goes: one prefill and three decode steps under the profiler
     # (the decode steps rewrite the cache's last slot; the counts are already read)
     last = torch.full((BATCH,), prompt + GEN - 1, dtype=torch.int32, device=DEVICE)
-    prof = {"prefill": profile(torch, lambda: prefill_step(params, tokens, cache), card,
-                               f"one {cfg.name} prefill ({BATCH}x{prompt})"),
-            "decode": profile(torch, lambda: [serve_step(params, tok, cache, last)
-                                              for _ in range(3)], card,
-                              f"three {cfg.name} decode steps")}
+    with RoutingDrops() as drops:     # the routed slots the prefill's MoE layers drop
+        prof = {"prefill": profile(torch, lambda: prefill_step(params, tokens, cache), card,
+                                   f"one {cfg.name} prefill ({BATCH}x{prompt})")}
+    prof["decode"] = profile(torch, lambda: [serve_step(params, tok, cache, last)
+                                             for _ in range(3)], card,
+                             f"three {cfg.name} decode steps")
     del cache
+    moe = None
+    if cfg.n_experts:
+        T = BATCH * prompt
+        G = dispatch_groups(T, cfg)
+        C = moe_capacity(cfg, T // G)
+        moe = dict(groups=G, capacity=C, rows=G * cfg.n_experts * C,
+                   routed_slots=T * cfg.experts_per_token, dropped_share=drops.share(),
+                   capacity_factor=cfg.capacity_factor)
+        log(card, f"{cfg.name} prefill routing: {G} dispatch groups of {T // G} tokens, "
+                  f"capacity {C} (factor {cfg.capacity_factor}), expert products on "
+                  f"{moe['rows']} rows for {moe['routed_slots']} routed slots; the profiled "
+                  f"prefill's MoE layers dropped {100 * moe['dropped_share']:.3f}% of their "
+                  f"routed slots")
+    elif drops.slots:
+        raise AssertionError(f"{cfg.name} has no experts but routed {len(drops.slots)} times")
 
     lat_a = np.array(lat)
     p50, p99 = float(np.percentile(lat_a, 50)), float(np.percentile(lat_a, 99))
     tok_s = BATCH * GEN / (lat_a.sum() / 1e3)
+    step_bytes = decode_weight_bytes(cfg, params)
+    floor_ms = step_bytes / HBM_BYTES_S * 1e3
     log(card, f"{cfg.name} prefill {BATCH}x{prompt} tokens: {prefill_ms:.1f} ms "
               f"({BATCH * prompt / prefill_ms * 1e3:.0f} tokens/s)")
     log(card, f"{cfg.name} decode {GEN} steps at batch {BATCH}: p50 {p50:.2f} ms p99 "
               f"{p99:.2f} ms per token step, {tok_s:.1f} tokens/s; peak memory "
               f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log(card, f"{cfg.name} decode step's weight bytes (every leaf but the indexed embedding "
+              f"table): {step_bytes / 1e9:.3f} GB, a floor of {floor_ms:.3f} ms at 3.35 TB/s, "
+              f"beside its p50 of {p50:.2f} ms")
     log(card, f"{cfg.name} launches: prefill {after_prefill}, prefill + {GEN} decode steps "
               f"{counts}")
 
@@ -1333,6 +1451,13 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
     extra = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n - 1)), dtype=torch.int32,
                             device=DEVICE)
     check = {}
+    if path.check_lossless:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        model = build_model(cfg, device=DEVICE)
+        log(card, f"{cfg.name} decode-vs-prefill check at the lossless capacity factor "
+                  f"{cfg.capacity_factor:.4f} (n_experts / experts_per_token; served at "
+                  f"{full.capacity_factor})")
+        check["capacity_factor"] = cfg.capacity_factor
     served = decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra)
     if path.qk_fan_in:      # the same check with the reference init's wq and wk
         check["reference_init"] = decode_vs_prefill(torch, model, params_ref, tokens[:1, :p0],
@@ -1396,7 +1521,8 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                 gen=GEN, prefill_ms=prefill_ms, decode_p50_ms=p50, decode_p99_ms=p99,
                 decode_tokens_s=tok_s, peak_bytes=peak, launches=counts,
                 launches_prefill=after_prefill, consistency_rel_l2=rel, consistency=check,
-                decode_ms=lat, profile=prof)
+                decode_ms=lat, decode_weight_bytes=step_bytes, decode_floor_ms=floor_ms,
+                moe=moe, profile=prof)
 
 
 # (arch, overrides, prefill length, decode steps, launches the card must make)
@@ -1413,6 +1539,14 @@ SMALL = [
     # wq and wk at the fan-in of d_model
     ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 128, 6,
      {"flash_attention": 2, "decode_attention": 12}, True),
+    # MoE, each also held on every cache leaf: the reduced olmoe (3 MoE layers of
+    # 8 experts top-2 at the reference's capacity, so tokens are dropped) at
+    # head_dim 64, attn_chunk 64 < prompt 256: the flash and decode kernels at
+    # G = 1; the reduced deepseek (MLA, shared experts, the dense-first tail
+    # first), attn_chunk 64 < 256: MLA's query-chunked prefill, no kernel
+    ("olmoe_1b_7b", dict(head_dim=64, attn_chunk=64), 256, 4,
+     {"flash_attention": 3, "decode_attention": 12}, False, True),
+    ("deepseek_v2_236b", dict(attn_chunk=64), 256, 4, {}, False, True),
 ]
 # (arch, overrides, S, wq and wk at the fan-in of d_model) of the small float32
 # train steps, card against CPU: attn_chunk 64 < S, so the flash forward and
@@ -1491,8 +1625,10 @@ def _nudged(torch, params):
     return dict(params, embed=e * (1 + 1e-7 * noise))
 
 
-def _serve_logits(torch, model, params, toks, prompt: int, steps: int) -> list:
-    """The logits of a prefill of ``prompt`` tokens and ``steps`` decode steps."""
+def _serve_logits(torch, model, params, toks, prompt: int, steps: int, caches=None) -> list:
+    """The logits of a prefill of ``prompt`` tokens and ``steps`` decode
+    steps; with a list ``caches``, every cache leaf after the last step is
+    appended to it (on the CPU, in tree order)."""
     dev = model.device
     out = []
     with torch.no_grad():
@@ -1504,14 +1640,18 @@ def _serve_logits(torch, model, params, toks, prompt: int, steps: int) -> list:
             logits, cache = model.decode(params, toks[:, prompt + i:prompt + i + 1].to(dev),
                                          cache, pos)
             out.append(logits.cpu())
+    if caches is not None:
+        caches.extend(t.cpu() for t in _leaves(cache))
     return out
 
 
 def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int, steps: int,
-                      want: Dict[str, int], qk_fan_in: bool = False) -> dict:
+                      want: Dict[str, int], qk_fan_in: bool = False,
+                      caches: bool = False) -> dict:
     """A small float32 model on the card against the same weights on the
-    CPU, where the plain versions run; the check's conditioning (how far a
-    1e-7 change of the embedding moves the CPU's logits) printed beside it."""
+    CPU, where the plain versions run (with ``caches``, also every cache leaf
+    after the last step); the check's conditioning (how far a 1e-7 change of
+    the embedding moves the CPU's logits) printed beside it."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.models import build_model
@@ -1523,12 +1663,16 @@ def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int,
     toks = torch.randint(0, cfg.vocab_size, (2, prompt + steps), generator=g,
                          dtype=torch.int32)
     kernels.reset_launches()
-    want_l = _serve_logits(torch, cpu, params, toks, prompt, steps)
-    got_l = _serve_logits(torch, gpu, _to(params, DEVICE), toks, prompt, steps)
+    want_c, got_c = ([], []) if caches else (None, None)
+    want_l = _serve_logits(torch, cpu, params, toks, prompt, steps, want_c)
+    got_l = _serve_logits(torch, gpu, _to(params, DEVICE), toks, prompt, steps, got_c)
     counts = kernels.launch_counts()
     if counts != {k: want.get(k, 0) for k in kernels.KERNELS}:
         raise AssertionError(f"small {arch} launches {counts}, expected {want}")
     err = max(float((a - b).abs().max()) for a, b in zip(got_l, want_l))
+    cache_err = None
+    if caches:
+        cache_err = max(float((a - b).abs().max()) for a, b in zip(got_c, want_c))
     nudged = _serve_logits(torch, cpu, _nudged(torch, params), toks, prompt, steps)
     cond = max(float((a - b).abs().max()) for a, b in zip(nudged, want_l))
     tol = 1e-4
@@ -1536,11 +1680,14 @@ def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int,
               f"{'d_model' if qk_fan_in else 'heads'}) "
               f"card vs CPU: max abs logit err {err:.3e} (tol {tol}) over prefill {prompt} + "
               f"{steps} decode steps; a 1e-7 change of the embedding moves the CPU's logits by "
-              f"{cond:.3e}; launches {counts}")
-    if err > tol:
+              f"{cond:.3e}; launches {counts}"
+              + ("" if cache_err is None else
+                 f"; every cache leaf ({len(got_c)}) within max abs err {cache_err:.3e} "
+                 f"(tol {tol})"))
+    if err > tol or (cache_err is not None and cache_err > tol):
         raise AssertionError("the card disagrees with the CPU on a small model")
     return dict(arch=arch, max_abs_err=err, tol=tol, conditioning=cond, qk_fan_in=qk_fan_in,
-                launches=counts)
+                launches=counts, cache_max_abs_err=cache_err)
 
 
 def _grads(torch, model, params, batch):
@@ -3660,12 +3807,19 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = {}
     for path in PATHS:                       # phase 3
+        t1 = time.perf_counter()
         serve[path.arch] = phase_serve(torch, card, path)
+        serve[path.arch]["seconds"] = time.perf_counter() - t1
+        log(card, f"serving {path.arch} took {serve[path.arch]['seconds']:.1f} s (host clock)")
         gc.collect()
         torch.cuda.empty_cache()
     timed("3 serving", t0)
     t0 = time.perf_counter()
-    small = [phase_small_model(torch, card, *spec) for spec in SMALL]   # phase 4
+    small = []
+    for spec in SMALL:                       # phase 4
+        t1 = time.perf_counter()
+        small.append(phase_small_model(torch, card, *spec))
+        log(card, f"small {spec[0]} took {time.perf_counter() - t1:.1f} s (host clock)")
     small_train = [phase_small_train(torch, card, *spec) for spec in SMALL_TRAIN]
     timed("4 small models", t0)
     t0 = time.perf_counter()
@@ -3718,11 +3872,11 @@ def main() -> int:
     kernels_line = {"kernels": []}
     # the main entry is each kernel's qwen3-32b (or only) shape; the other
     # timed shapes ride beside it, each with the same keys
-    extra = {"flash_attention": ("d256", "d80", "g48"),
-             "decode_attention": ("d256", "d80", "g48", "d16"),
+    extra = {"flash_attention": ("d256", "d80", "g48", "g1"),
+             "decode_attention": ("d256", "d80", "g48", "d16", "g1"),
              "flash_attention_bwd": ("d80", "g48", "d256"), "rglru_scan": ("train",)}
     extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
-                 "d16": "head_dim_16", "train": "training_shape"}
+                 "g1": "group_1", "d16": "head_dim_16", "train": "training_shape"}
     for name in sources:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})

@@ -1,11 +1,13 @@
-"""Attention for the dense GQA path (PyTorch counterpart of
-``repro.models.attention``).
+"""Attention: GQA and DeepSeek's multi-head latent attention (PyTorch
+counterpart of ``repro.models.attention``).
 
 Layouts: q (B, S, H, hd); k/v (B, T, KV, hd). GQA groups are computed via
 einsum without materialising repeated K/V. The kernel dispatch points are
 the JAX package's: flash attention for causal prefill without a prefix,
 the decode kernel on every decode step; ``repro_torch.kernels`` then picks
-the CUDA kernel or the plain version by the tensors' device.
+the CUDA kernel or the plain version by the tensors' device. MLA has no
+kernel in the JAX package and none here: it runs as einsums, its decode in
+the compressed latent space.
 """
 from __future__ import annotations
 
@@ -15,14 +17,17 @@ import functools
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from ..kernels import ops
 from ..kernels.decode_attention import decode_attention_ref
-from .sharding_utils import is_dtensor
+from .common import apply_rope
+from .sharding_utils import BATCH, P, is_dtensor, maybe_shard
 
 NEG_INF = -2.0e38
 
 __all__ = ["NEG_INF", "gqa_attention", "gqa_attention_chunked", "decode_attention",
-           "decode_attention_ref"]
+           "decode_attention_ref", "mla_prefill", "mla_decode"]
 
 
 def _mask_bias(s_len: int, t_len: int, *, causal: bool, window: Optional[int],
@@ -91,3 +96,81 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     entries (the new token's k/v must already be written at
     ``cache_len - 1``)."""
     return ops.decode_attention(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+
+
+# -- MLA (DeepSeek-V2 §2.1) --------------------------------------------------------
+def mla_prefill(cq: torch.Tensor, ckv: torch.Tensor, k_rope: torch.Tensor,
+                wq_nope: torch.Tensor, wq_rope: torch.Tensor,
+                wk_nope: torch.Tensor, wv: torch.Tensor, *,
+                rope_theta: float, causal: bool = True,
+                q_chunk: Optional[int] = None) -> torch.Tensor:
+    """Multi-head latent attention, materialised (prefill/training) path.
+
+    cq:  (B, S, Rq)      — compressed queries (post q_a + norm)
+    ckv: (B, T, Rkv)     — compressed KV latent (post kv_a + norm)
+    k_rope: (B, T, dr)   — decoupled RoPE key (shared across heads, pre-rope)
+    wq_nope: (Rq, H, dn); wq_rope: (Rq, H, dr)
+    wk_nope: (Rkv, H, dn); wv: (Rkv, H, dv)
+    Returns (B, S, H, dv). ``q_chunk`` bounds score memory for long S: each
+    chunk is recomputed in the backward (``torch.utils.checkpoint``), as the
+    JAX package wraps it in ``jax.remat``."""
+    S = cq.shape[1]
+    T = ckv.shape[1]
+    k_nope = torch.einsum("btr,rhd->bthd", ckv, wk_nope)
+    v = torch.einsum("btr,rhd->bthd", ckv, wv)
+    k_pos = torch.arange(T, device=cq.device)[None, :]
+    k_rope_r = apply_rope(k_rope[:, :, None, :], k_pos, rope_theta)[:, :, 0]   # (B,T,dr)
+
+    def block(cq_blk: torch.Tensor, offset: int) -> torch.Tensor:
+        q_nope = torch.einsum("bsr,rhd->bshd", cq_blk, wq_nope)
+        q_rope = torch.einsum("bsr,rhd->bshd", cq_blk, wq_rope)
+        q_nope = maybe_shard(q_nope, P(BATCH, None, "model", None))
+        q_pos = torch.arange(cq_blk.shape[1], device=cq.device)[None, :] + offset
+        q_rope = apply_rope(q_rope, q_pos, rope_theta)
+        dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+        scale = (dn + dr) ** -0.5
+        logits = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+                  + torch.einsum("bshd,btd->bhst", q_rope, k_rope_r)).float() * scale
+        logits = maybe_shard(logits, P(BATCH, "model", None, None))
+        bias = _mask_bias(cq_blk.shape[1], T, causal=causal, window=None, prefix_len=0,
+                          offset=offset, device=cq.device)
+        w = torch.softmax(logits + bias, dim=-1).to(cq.dtype)
+        out = torch.einsum("bhst,bthd->bshd", w, v)
+        return maybe_shard(out, P(BATCH, None, "model", None))
+
+    if not q_chunk or S <= q_chunk or S % q_chunk:
+        return block(cq, 0)
+    outs = []
+    for i in range(0, S, q_chunk):
+        blk = cq[:, i:i + q_chunk]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(block, blk, i, use_reentrant=False))
+        else:
+            outs.append(block(blk, i))
+    return torch.cat(outs, dim=1)
+
+
+def mla_decode(cq: torch.Tensor, ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+               cache_len: torch.Tensor, wq_nope: torch.Tensor, wq_rope: torch.Tensor,
+               wk_nope: torch.Tensor, wv: torch.Tensor, *,
+               rope_theta: float) -> torch.Tensor:
+    """Weight-absorbed MLA decode: attention runs in the compressed latent
+    space, the cache stays (B, T, Rkv) + (B, T, dr).
+
+    cq: (B, 1, Rq). krope_cache rows are stored *post-rope*. Returns
+    (B, 1, H, dv)."""
+    q_nope = torch.einsum("bsr,rhd->bshd", cq, wq_nope)          # (B,1,H,dn)
+    q_rope = torch.einsum("bsr,rhd->bshd", cq, wq_rope)
+    q_rope = apply_rope(q_rope, cache_len[:, None] - 1, rope_theta)
+    # absorb W_uk: q' = q_nope @ wk_nope^T  -> latent-space query
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_nope)      # (B,1,H,Rkv)
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    scale = (dn + dr) ** -0.5
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv_cache)
+              + torch.einsum("bshd,btd->bhst", q_rope, krope_cache)).float() * scale
+    T = ckv_cache.shape[1]
+    ok = torch.arange(T, device=cq.device)[None, :] < cache_len[:, None]
+    logits = torch.where(ok[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(cq.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv_cache)           # (B,1,H,Rkv)
+    return torch.einsum("bshr,rhd->bshd", ctx, wv)               # (B,1,H,dv)

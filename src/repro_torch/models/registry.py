@@ -10,8 +10,8 @@ Model = LM
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
-    """The model for ``cfg`` on ``device``; non-dense families raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    """The model for ``cfg`` on ``device``; the encoder-decoder and the VLM
+    prefix raise ``NotImplementedError`` naming their ROADMAP item."""
     return LM(cfg, device=device)
 
 

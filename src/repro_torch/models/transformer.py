@@ -1,5 +1,6 @@
-"""Decoder-only language model: dense GQA, Mamba-2 and RecurrentGemma
-paths (PyTorch counterpart of ``repro.models.transformer``).
+"""Decoder-only language model: dense GQA, Mixture-of-Experts, DeepSeek's
+multi-head latent attention, Mamba-2 and RecurrentGemma paths (PyTorch
+counterpart of ``repro.models.transformer``).
 
 One ``LM`` object per ``ArchConfig`` exposes:
 
@@ -15,14 +16,17 @@ tree layout: layers are grouped into a repeated unit (``scan_groups``),
 whose ``params["stack"]["u0".."uk"]`` leaves carry a leading
 ``(n_units, ...)`` axis, plus an unstacked remainder
 ``params["tail"]["t0".."tm"]`` (RecurrentGemma's 2:1 pattern over 38
-layers). Layer ``i`` of the stack runs on views ``leaf[i]``. Unlike the
-JAX package, prefill and decode write the caches (KV rings, SSM and
-RG-LRU states, conv tails) in place through those views and return the
-same cache object, so serving holds one cache in device memory and never
-copies it.
+layers, DeepSeek's leading dense layers). The tail runs after the stack,
+except in an MoE model with leading dense layers, where it runs first.
+Layer ``i`` of the stack runs on views ``leaf[i]``. Unlike the JAX
+package, prefill and decode write the caches (KV rings, MLA latents, SSM
+and RG-LRU states, conv tails) in place through those views and return
+the same cache object, so serving holds one cache in device memory and
+never copies it.
 
-Layer kinds ported: ``dense``, ``ssm`` (Mamba-2), ``rec`` (RG-LRU) and
-``local_attn``; MoE, MLA, encoder-decoder and the VLM prefix raise
+Layer kinds ported: ``dense``, ``moe`` and ``dense_mlp`` (attention or
+MLA, then an MoE or a dense MLP), ``ssm`` (Mamba-2), ``rec`` (RG-LRU) and
+``local_attn``; the encoder-decoder and the VLM prefix raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -37,7 +41,7 @@ from . import attention as attn_lib
 from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_device,
                      rms_norm, zeros)
 from .config import ArchConfig
-from .mlp import apply_mlp, init_mlp
+from .mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from .rglru import apply_rglru, init_rglru, rglru_state_shape
 from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, replicate_like
 from .ssm import apply_mamba2, apply_mamba2_decode, init_mamba2, mamba2_state_shape
@@ -47,10 +51,6 @@ Params = Dict[str, Any]
 
 def unsupported(cfg: ArchConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet, or None when it can."""
-    if cfg.mla:
-        return "MLA attention (ROADMAP: Queue 1 'MLA')"
-    if cfg.n_experts:
-        return "moe layers (ROADMAP: Queue 1 'MoE')"
     if cfg.encdec:
         return "encoder-decoder (ROADMAP: Queue 1 'Encoder-decoder and VLM prefix')"
     if cfg.vision_stub or cfg.prefix_len:
@@ -74,21 +74,45 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, dtype,
     return p
 
 
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype,
+             lead: Tuple[int, ...] = ()) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": dense_init(gen, (d, rq), dtype, lead=lead),
+        "q_norm": zeros(lead + (rq,), gen.device),
+        "wq_nope": dense_init(gen, (rq, h, dn), dtype, fan_in=rq, lead=lead),
+        "wq_rope": dense_init(gen, (rq, h, dr), dtype, fan_in=rq, lead=lead),
+        "wkv_a": dense_init(gen, (d, rkv + dr), dtype, lead=lead),
+        "kv_norm": zeros(lead + (rkv,), gen.device),
+        "wk_nope": dense_init(gen, (rkv, h, dn), dtype, fan_in=rkv, lead=lead),
+        "wv": dense_init(gen, (rkv, h, dv), dtype, fan_in=rkv, lead=lead),
+        "wo": dense_init(gen, (h, dv, d), dtype, fan_in=h * dv, lead=lead),
+    }
+
+
+ATTN_KINDS = ("dense", "moe", "dense_mlp")
+
+
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                lead: Tuple[int, ...] = ()) -> Params:
-    """kind ∈ {dense, ssm, rec, local_attn}."""
+    """kind ∈ {dense, moe, dense_mlp, ssm, rec, local_attn}."""
     p: Params = {"ln1": zeros(lead + (cfg.d_model,), gen.device)}
     if kind == "ssm":
         p["mixer"] = init_mamba2(gen, cfg, dtype, lead)
         return p
     if kind == "rec":
         p["mixer"] = init_rglru(gen, cfg, dtype, lead)
-    elif kind in ("dense", "local_attn"):
-        p["mixer"] = init_attn(gen, cfg, dtype, lead)
+    elif kind in ATTN_KINDS + ("local_attn",):
+        p["mixer"] = (init_mla if cfg.mla else init_attn)(gen, cfg, dtype, lead)
     else:
-        raise NotImplementedError(f"layer kind {kind!r}: {unsupported(cfg)}")
+        raise ValueError(f"layer kind {kind!r}")
     p["ln2"] = zeros(lead + (cfg.d_model,), gen.device)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, lead)
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, lead)
     return p
 
 
@@ -187,6 +211,32 @@ def _fit_cache(cache: torch.Tensor, kv: torch.Tensor) -> None:
         cache.copy_(torch.roll(kv[:, -t_buf:], s % t_buf, dims=1))
 
 
+def apply_mla_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+                    cache: Optional[Params], pos: Optional[torch.Tensor]) -> torch.Tensor:
+    S = x.shape[1]
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    kv_a = x @ p["wkv_a"]
+    ckv, k_rope = torch.split(kv_a, [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    if mode == "decode":
+        k_rope_rot = apply_rope(k_rope[:, :, None, :], pos[:, None], cfg.rope_theta)[:, :, 0]
+        _write_cache(cache["ckv"], ckv, pos)
+        _write_cache(cache["krope"], k_rope_rot, pos)
+        o = attn_lib.mla_decode(cq, cache["ckv"], cache["krope"], pos + 1,
+                                p["wq_nope"], p["wq_rope"], p["wk_nope"], p["wv"],
+                                rope_theta=cfg.rope_theta)
+        return _heads_out(o, p["wo"])
+    o = attn_lib.mla_prefill(cq, ckv, k_rope, p["wq_nope"], p["wq_rope"], p["wk_nope"],
+                             p["wv"], rope_theta=cfg.rope_theta,
+                             q_chunk=cfg.attn_chunk // 4 if S > cfg.attn_chunk else None)
+    if mode == "prefill":
+        positions = torch.arange(S, device=x.device)[None, :]
+        k_rope_rot = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+        _fit_cache(cache["ckv"], ckv)
+        _fit_cache(cache["krope"], k_rope_rot)
+    return _heads_out(o, p["wo"])
+
+
 def _store(cache: Params, new: Dict[str, torch.Tensor]) -> None:
     """Write a recurrent layer's new state into its cache views in place."""
     for name, value in new.items():
@@ -196,6 +246,17 @@ def _store(cache: Params, new: Dict[str, torch.Tensor]) -> None:
 def apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 mode: str = "train", cache: Optional[Params] = None,
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer: the residual stream after it (an MoE layer's aux loss is
+    dropped; ``apply_block_aux`` returns it)."""
+    return apply_block_aux(p, x, cfg, kind, mode=mode, cache=cache, pos=pos)[0]
+
+
+def apply_block_aux(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
+                    mode: str = "train", cache: Optional[Params] = None,
+                    pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer: (the residual stream after it, its aux loss: an MoE
+    layer's load-balance loss, else a float32 zero)."""
+    aux = torch.zeros((), device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         if mode == "decode":
@@ -204,23 +265,29 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
             y, new = apply_mamba2(p["mixer"], h, cfg, None)
         if mode != "train":
             _store(cache, new)
-        return x + y
+        return x + y, aux
     if kind == "rec":
         y, new = apply_rglru(p["mixer"], h, cfg, cache if mode == "decode" else None)
         if mode != "train":
             _store(cache, new)
-    elif kind in ("dense", "local_attn"):
+    elif cfg.mla and kind in ATTN_KINDS:
+        y = apply_mla_block(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos)
+    elif kind in ATTN_KINDS + ("local_attn",):
         window = (cfg.window or 2048) if kind == "local_attn" else cfg.window
         y = apply_attn(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos, window=window)
     else:
-        raise NotImplementedError(f"layer kind {kind!r}: {unsupported(cfg)}")
+        raise ValueError(f"layer kind {kind!r}")
     # under a mesh each branch's output is laid out as the residual stream
     # before the add (a reduce-scatter of the row-parallel products), so its
     # gradient comes back gathered to the products' backward
     x = x + maybe_shard(y, RESIDUAL)
     h2 = maybe_shard(rms_norm(x, p["ln2"], cfg.norm_eps), GATHERED)
-    x = x + maybe_shard(apply_mlp(p["mlp"], h2, cfg.act), RESIDUAL)
-    return maybe_shard(x, RESIDUAL)
+    if kind == "moe":
+        y2, aux = apply_moe(p["moe"], h2, cfg)
+    else:
+        y2 = apply_mlp(p["mlp"], h2, cfg.act)
+    x = x + maybe_shard(y2, RESIDUAL)
+    return maybe_shard(x, RESIDUAL), aux
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -266,6 +333,9 @@ class LM:
         if cfg.block_pattern:
             pat = cfg.block_pattern
             return tuple(pat[i % len(pat)] for i in range(cfg.n_layers))
+        if cfg.n_experts:
+            return ("dense_mlp",) * cfg.n_dense_layers + \
+                ("moe",) * (cfg.n_layers - cfg.n_dense_layers)
         return ("dense",) * cfg.n_layers
 
     def scan_groups(self) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
@@ -276,20 +346,32 @@ class LM:
             u = len(cfg.block_pattern)
             n_units = cfg.n_layers // u
             return tuple(cfg.block_pattern), n_units, kinds[n_units * u:]
+        if cfg.n_experts and cfg.n_dense_layers:
+            nd = cfg.n_dense_layers
+            return ("moe",), cfg.n_layers - nd, kinds[:nd]   # tail = leading dense
         return (kinds[0],), cfg.n_layers, ()
+
+    @property
+    def tail_first(self) -> bool:
+        """Whether the tail runs before the stack (DeepSeek's leading dense
+        layers) rather than after it."""
+        return bool(self.cfg.n_experts and self.cfg.n_dense_layers)
 
     def _layers(self, params: Params, cache: Optional[Params] = None
                 ) -> Iterator[Tuple[str, Params, Optional[Params]]]:
         """(kind, layer params, layer cache) in execution order: the stacked
-        units (as views into the stacked tensors), then the tail."""
+        units (as views into the stacked tensors) and the tail, the tail
+        first where ``tail_first``."""
         unit, n_units, tail = self.scan_groups()
-        for u in range(n_units):
-            for i, kind in enumerate(unit):
-                yield (kind, _layer(params["stack"][f"u{i}"], u),
-                       None if cache is None else _layer(cache["stack"][f"u{i}"], u))
-        for i, kind in enumerate(tail):
-            yield (kind, params["tail"][f"t{i}"],
+        stacked = ((kind, _layer(params["stack"][f"u{i}"], u),
+                    None if cache is None else _layer(cache["stack"][f"u{i}"], u))
+                   for u in range(n_units) for i, kind in enumerate(unit))
+        tailed = ((kind, params["tail"][f"t{i}"],
                    None if cache is None else cache["tail"][f"t{i}"])
+                  for i, kind in enumerate(tail))
+        first, then = (tailed, stacked) if self.tail_first else (stacked, tailed)
+        yield from first
+        yield from then
 
     # -- init -------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
@@ -320,6 +402,9 @@ class LM:
             return mamba2_state_shape(cfg, batch, dtype)
         if kind == "rec":
             return rglru_state_shape(cfg, batch, dtype)
+        if cfg.mla:
+            return {"ckv": ((batch, max_len, cfg.kv_lora_rank), dtype),
+                    "krope": ((batch, max_len, cfg.qk_rope_dim), dtype)}
         cache_len = max_len
         if kind == "local_attn" or (cfg.window and not cfg.block_pattern):
             cache_len = min(max_len, (cfg.window or max_len))
@@ -362,21 +447,34 @@ class LM:
         # by ~1%), so the plain and the mesh step take it alike
         x = maybe_shard(F.embedding(tokens.long(), params["embed"]), RESIDUAL)
         unit, n_units, tail = self.scan_groups()
+        aux = torch.zeros((), device=x.device)
+
+        def run_tail(x, aux):
+            for i, kind in enumerate(tail):
+                x, a = apply_block_aux(params["tail"][f"t{i}"], x, cfg, kind, mode="train")
+                aux = aux + a
+            return x, aux
+        if self.tail_first:
+            x, aux = run_tail(x, aux)
         for unit_params in _unbind(params["stack"], n_units):
             if remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(self._unit_apply, x, unit_params, use_reentrant=False)
+                x, a = checkpoint(self._unit_apply, x, unit_params, use_reentrant=False)
             else:
-                x = self._unit_apply(x, unit_params)
-        for i, kind in enumerate(tail):
-            x = apply_block(params["tail"][f"t{i}"], x, cfg, kind, mode="train")
+                x, a = self._unit_apply(x, unit_params)
+            aux = aux + a
+        if not self.tail_first:
+            x, aux = run_tail(x, aux)
         x = maybe_shard(rms_norm(x, params["ln_f"], cfg.norm_eps), GATHERED)
-        return self._head(params, x), torch.zeros((), device=x.device)
+        return self._head(params, x), aux
 
-    def _unit_apply(self, x: torch.Tensor, unit_params: Params) -> torch.Tensor:
+    def _unit_apply(self, x: torch.Tensor, unit_params: Params
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         unit = self.scan_groups()[0]
+        aux = torch.zeros((), device=x.device)
         for i, kind in enumerate(unit):
-            x = apply_block(unit_params[f"u{i}"], x, self.cfg, kind, mode="train")
-        return x
+            x, a = apply_block_aux(unit_params[f"u{i}"], x, self.cfg, kind, mode="train")
+            aux = aux + a
+        return x, aux
 
     # -- loss ----------------------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *, remat: str = "full"

@@ -626,6 +626,48 @@ def test_small_train_step_card_matches_cpu():
     assert out["cuda_launches"]["flash_attention_bwd"] == 2
 
 
+@pytest.mark.gpu
+def test_small_moe_model_serves_on_card_as_on_cpu():
+    """A small float32 olmoe-family model (3 MoE layers, head_dim 64,
+    attn_chunk 64 < prompt 128, so prefill takes the flash kernel; the
+    reference's capacity factor, so tokens are dropped) served on the card
+    against the CPU: prefill and 4 decode steps' logits within 1e-4, every
+    cache leaf within 1e-4, and exactly one flash launch a layer a prefill and
+    one decode launch a layer a step."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    _card()
+    cfg = dataclasses.replace(reduced_config("olmoe_1b_7b"), head_dim=64, attn_chunk=64)
+    prompt, steps, B = 128, 4, 2
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (B, prompt + steps),
+                         generator=torch.Generator().manual_seed(2), dtype=torch.int32)
+    out, caches, counts = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        model, p = build_model(cfg, device=dev), _to(params, dev)
+        kernels.reset_launches()
+        with torch.no_grad():
+            cache = model.init_cache(B, prompt + steps)
+            logits, cache = model.prefill(p, toks[:, :prompt].to(dev), cache)
+            out[dev] = [logits.cpu()]
+            for i in range(steps):
+                pos = torch.full((B,), prompt + i, dtype=torch.int32, device=dev)
+                logits, cache = model.decode(p, toks[:, prompt + i:prompt + i + 1].to(dev),
+                                             cache, pos)
+                out[dev].append(logits.cpu())
+        counts[dev], caches[dev] = kernels.launch_counts(), _to(cache, "cpu")
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for name in caches["cpu"]["stack"]["u0"]:
+        torch.testing.assert_close(caches["cuda"]["stack"]["u0"][name],
+                                   caches["cpu"]["stack"]["u0"][name], atol=1e-4, rtol=1e-4)
+    assert counts["cpu"] == {k: 0 for k in kernels.KERNELS}
+    assert counts["cuda"] == {k: {"flash_attention": cfg.n_layers,
+                                  "decode_attention": cfg.n_layers * steps}.get(k, 0)
+                              for k in kernels.KERNELS}
+
+
 def _to(tree, device):
     """A copy on ``device``, also on the same device: the train step
     updates its parameters in place."""
