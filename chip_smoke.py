@@ -19,7 +19,10 @@ phases:
    heads on 16 KV heads (G = 1, prefill and decode, also in float32 for
    phase 3's check), mamba2-780m's SSD scan
    with each of its four bf16 stages timed by the profiler,
-   recurrentgemma-9b's RG-LRU scan at its prefill and training shapes) plus
+   recurrentgemma-9b's RG-LRU scan at its prefill and training shapes,
+   and with a carried state, decay near one or none, at the training shape,
+   off a whole round, short, W off the tile and B = 1, kernel and plain
+   version held to a float64 run, two launches checked bit for bit) plus
    ragged, windowed, grouped,
    empty-split and float32 cases, each error printed beside its bound
    (see ``check``), with times of the kernel, the plain version and,
@@ -181,6 +184,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -862,11 +866,56 @@ def kernels_ssd_bwd(kp: KernelPhase) -> None:
               f"bound {worst['bound_share']:.3f} ({worst['case']})")
 
 
+# a carried state: decay near one (a ~ 0.999 a step) and none at all (h the
+# running sum of b) carry a state across the forward kernel's 128-step rounds
+# for ~1000 steps or for ever, where a_log = -0.5 |N(0, 1)| forgets it within
+# ~40. Such an h crosses zero while its float32 rounding error grows with
+# ~eps sqrt(t) x the channel's size, so the kernel and the plain version are
+# each held to a float64 run of the recurrence at 2e-5 of (|h| + the
+# channel's rms over the sequence); a wrong carry is off by the size of h.
+# The run takes the decays exp(a_log) as both compute them, in float32 on
+# the card: near 0 that exp rounds up on average (the near-one case prints
+# its mean error; ~0.25 ulp on an H100), and over a near-one decay's
+# ~1000-step memory the bias alone moves h by about this bound, for kernel
+# and plain version alike. The share against a run on the exact decays is
+# printed beside it.
+RG_CARRY_TOL = ("|err| <= 2e-5 + 2e-5 (|ref| + rms_t(ref)) against a float64 run on the "
+                "float32 decays")
+RG_CARRY_DECAYS = [("near-one decay", 1e-3), ("no decay", 0.0)]
+RG_CARRY_SHAPES = [("train path", (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_WIDTH)),
+                   ("S off a round", (RG_TRAIN_BATCH, RG_TRAIN_SEQ + 77, RG_WIDTH)),
+                   ("S below a piece", (2, 9, 512)), ("S 1", (2, 1, 512)),
+                   ("W 200 off the tile", (3, 1100, 200)), ("B 1", (1, RG_TRAIN_SEQ, RG_WIDTH))]
+
+
+def rglru_f64(torch, a, b):
+    """h and h_last of h_t = a_t h_{t-1} + b_t in float64, step by step, for
+    decays a and inputs b (B,S,W): the carry cases' reference, on no path of
+    the port."""
+    a, b = a.double(), b.double()
+    h, acc = torch.empty_like(b), torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        acc = a[:, t] * acc + b[:, t]
+        h[:, t] = acc
+    return h, acc
+
+
+def carry_share(torch, out, exp, scale):
+    """Max abs error of ``out`` against the float64 ``exp`` and its largest
+    share of 2e-5 + 2e-5 (|exp| + scale); raises on a non-finite ``out``."""
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("rglru_scan output is not finite")
+    err = (out.double() - exp).abs()
+    return float(err.max()), float((err / (2e-5 + 2e-5 * (exp.abs() + scale))).max())
+
+
 def kernels_rglru(kp: KernelPhase) -> None:
     """rglru_scan at recurrentgemma-9b's prefill and training shapes, a
-    small one, ragged, phase 7's calibration shape; rglru_scan_bwd at the
-    training shape, S off its 16-step groups, W off its 128-channel blocks,
-    with and without h_last's cotangent and without h's."""
+    small one, ragged, phase 7's calibration shape; with a carried state
+    (``RG_CARRY_SHAPES``) against float64, and twice on the same inputs for
+    the same bits; rglru_scan_bwd at the training shape, S off its 16-step
+    groups, W off its 128-channel blocks, with and without h_last's
+    cotangent and without h's."""
     from repro_torch import kernels
     from repro_torch.calibrate import microbench as mb
     from repro_torch.kernels import ref
@@ -910,7 +959,54 @@ def kernels_rglru(kp: KernelPhase) -> None:
         r = rec[key]
         log(card, f"rglru_scan at {what}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
                   f"no single PyTorch call computes it, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})")
+                  f"({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB), the kernel at "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+
+    for (dname, scale), (name, (B, S, W)) in itertools.product(RG_CARRY_DECAYS, RG_CARRY_SHAPES):
+        a = -rand((B, S, W), torch.float32).abs() * scale
+        b = rand((B, S, W), torch.float32)
+        hh, hl = launched(mod, lambda: mod.rglru_scan(a, b))
+        he, hle = ref.rglru_scan_ref(a, b)
+        decays = {"float32": torch.exp(a), "exact": torch.exp(a.double())}
+        shares = {}
+        for kind, a_t in decays.items():
+            h64, hl64 = rglru_f64(torch, a_t, b)
+            rms = h64.pow(2).mean(dim=1).sqrt()
+            for who, h_, l_ in (("kernel", hh, hl), ("plain", he, hle)):
+                both = [carry_share(torch, x, e, sc) for x, e, sc in
+                        ((h_, h64, rms[:, None]), (l_, hl64, rms))]
+                shares[who, kind] = max(e for e, _ in both), max(x for _, x in both)
+            del h64, hl64
+        (err, share), (perr, pshare) = shares["kernel", "float32"], shares["plain", "float32"]
+        exact = {who: shares[who, "exact"][1] for who in ("kernel", "plain")}
+        cases_out.append(dict(kernel="rglru_scan", case=f"{dname} {name}", dtype="float32",
+                              max_abs_err=err, bound_share=share, plain_max_abs_err=perr,
+                              plain_bound_share=pshare, exact_decay_share=exact,
+                              tol=RG_CARRY_TOL))
+        log(card, f"rglru_scan {dname} {name}: B={B} S={S} W={W} float32 against float64: "
+                  f"kernel max abs err {err:.3e} at {share:.3f} of its bound, plain {perr:.3e} "
+                  f"at {pshare:.3f} ({RG_CARRY_TOL}); on the exact decays kernel "
+                  f"{exact['kernel']:.3f}, plain {exact['plain']:.3f}")
+        if max(share, pshare) > 1.0:
+            raise AssertionError(f"rglru_scan {dname} {name}: kernel {share:.3g}, plain "
+                                 f"{pshare:.3g} x the bound ({RG_CARRY_TOL})")
+        if dname == "near-one decay" and name == "train path":
+            rel = (decays["float32"].double() / decays["exact"] - 1) / 2.0 ** -24
+            log(card, f"rglru_scan {dname} {name}: the card's float32 exp of these a_log is off "
+                      f"the exact decay by {float(rel.mean()):+.4f} ulp on average (ulp 2^-24, "
+                      f"rms {float(rel.pow(2).mean().sqrt()):.4f})")
+            del rel
+            h2, hl2 = launched(mod, lambda: mod.rglru_scan(a, b))
+            same = torch.equal(hh, h2) and torch.equal(hl, hl2)
+            last = torch.equal(hl, hh[:, -1])
+            log(card, f"rglru_scan {dname} {name}: two launches bitwise equal {same}, h_last "
+                      f"equal to h's last step {last}")
+            if not (same and last):
+                raise AssertionError("rglru_scan is not bit-reproducible, or h_last is not "
+                                     "h's last step")
+            del h2, hl2
+        del a, b, hh, hl, he, hle, decays
+    torch.cuda.empty_cache()
 
     # the backward on the forward kernel's h, against its plain version (float32)
     for name, (B, S, W), with_dh, with_last in [

@@ -65,7 +65,12 @@ def rglru_scan_bwd_ref(a_log: torch.Tensor, h: torch.Tensor, dh: Optional[torch.
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("rglru_scan")
+    return _bind(_build.load("rglru_scan"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s entry points typed: a build of ``csrc/rglru_scan.cu`` (or of
+    an edited copy, as ``tools/rglru_variants.py`` loads)."""
     lib.rglru_scan_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.rglru_scan_fwd.restype = ctypes.c_int
     lib.rglru_scan_bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]

@@ -221,8 +221,12 @@ def test_ssd_scan_bf16_at_mamba2_prefill_shape():
 
 @pytest.mark.gpu
 def test_rglru_scan_kernel_matches_plain():
+    """a_log = -0.5 |N(0, 1)|: recurrentgemma-9b's prefill and training
+    shapes, S off the kernel's 128-step rounds, S = 1, W off its 32-channel
+    tile; float32 at 2e-5."""
     gen = _card()
-    for B, S, W in [(2, 512, 256), (1, 384, 128), (3, 77, 96), (4, 2048, 4096)]:
+    for B, S, W in [(2, 512, 256), (1, 384, 128), (3, 77, 96), (4, 2048, 4096), (2, 4096, 4096),
+                    (1, 1, 200), (2, 9, 200)]:
         a = -torch.randn((B, S, W), generator=gen, device="cuda").abs() * 0.5
         b = torch.randn((B, S, W), generator=gen, device="cuda")
         n0 = kernels.rglru_scan.launches
@@ -232,6 +236,36 @@ def test_rglru_scan_kernel_matches_plain():
         he, hle = ref.rglru_scan_ref(a, b)
         torch.testing.assert_close(h, he, **F32_TOL)
         torch.testing.assert_close(h_last, hle, **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [1e-3, 0.0])
+def test_rglru_scan_kernel_carries_the_state(decay):
+    """Decay near one (a_log = -1e-3 |N(0, 1)|) and none (a_log = 0, h the
+    running sum of b) keep a state across the kernel's 128-step rounds. The
+    kernel and the plain version are held to a float64 run of the
+    recurrence on the same float32 decays exp(a_log), at 2e-5 of (|h| + the
+    channel's rms over the sequence): such an h crosses zero while its
+    float32 error grows with the channel's size, and the card's float32 exp
+    rounds up on average near 0 (~0.25 ulp on an H100), which over ~1000
+    steps moves both alike by about that bound. At chip_smoke.py's
+    ``RG_CARRY_SHAPES``: the training shape, off a whole round, shorter
+    than a piece, S = 1, W off the tile and B = 1. Two launches give the
+    same bits, and h_last is h's last step."""
+    gen = _card()
+    cs, _ = _chip_smoke()
+    for _, (B, S, W) in cs.RG_CARRY_SHAPES:
+        a = -torch.randn((B, S, W), generator=gen, device="cuda").abs() * decay
+        b = torch.randn((B, S, W), generator=gen, device="cuda")
+        h, h_last = kernels.rglru_scan.rglru_scan(a, b)
+        h64, last64 = cs.rglru_f64(torch, torch.exp(a), b)
+        rms = h64.pow(2).mean(dim=1).sqrt()
+        for got, got_last in ((h, h_last), ref.rglru_scan_ref(a, b)):
+            assert cs.carry_share(torch, got, h64, rms[:, None])[1] <= 1.0, (B, S, W)
+            assert cs.carry_share(torch, got_last, last64, rms)[1] <= 1.0, (B, S, W)
+        h2, h_last2 = kernels.rglru_scan.rglru_scan(a, b)
+        assert torch.equal(h, h2) and torch.equal(h_last, h_last2)
+        assert torch.equal(h_last, h[:, -1])
 
 
 @pytest.mark.gpu

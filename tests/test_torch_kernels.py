@@ -696,25 +696,68 @@ def test_ssd_bwd_variants_edit_the_kernel_source_once():
             assert src.count(old) == 1 and old != new, name
 
 
+def test_rglru_variants_edit_the_kernel_source_once():
+    """Each text edit of ``tools/rglru_variants.py`` (timed on the card
+    against the unedited forward) matches ``csrc/rglru_scan.cu`` exactly
+    once, so the tool cannot silently time an unedited copy."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("rglru_variants",
+                                                  root / "tools" / "rglru_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (root / "src" / "repro_torch" / "csrc" / "rglru_scan.cu").read_text()
+    for name, edits in tool.VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
 # ---------------------------------------------------------------- rglru
-@pytest.mark.parametrize("B,S,W,bt", [
-    (2, 512, 256, 128),
-    (1, 384, 128, 128),
-    (2, 256, 512, 256),
+@pytest.mark.parametrize("B,S,W,bt,decay", [
+    pytest.param(2, 512, 256, 128, 0.5, id="2-512-256-128"),
+    pytest.param(1, 384, 128, 128, 0.5, id="1-384-128-128"),
+    pytest.param(2, 256, 512, 256, 0.5, id="2-256-512-256"),
+    # near-one decay (a ~ 0.999 a step): a state carries over ~1000 steps, so a
+    # carry across the card kernel's rounds or the Pallas kernel's time blocks shows
+    pytest.param(1, 1024, 128, 256, 1e-3, id="1-1024-128-256-near-one"),
 ])
-def test_rglru_scan_plain_matches_jax_oracle(B, S, W, bt):
+def test_rglru_scan_plain_matches_jax_oracle(B, S, W, bt, decay):
     """Against the JAX oracle and the Pallas kernel (interpret mode) at its
-    (bt, min(512, W)) tiling; the port's wrapper takes no tile size."""
+    (bt, min(512, W)) tiling; the port's wrapper takes no tile size. Inputs
+    a_log = -decay |N(0, 1)|, b ~ N(0, 1).
+
+    At near-one decay h is a slowly forgetting sum of b that crosses zero,
+    and each float32 evaluation carries a rounding error of ~eps sqrt(t) x
+    the channel's size, not x |h_t|: 2e-5 of |h_t| does not hold there
+    between any two of them, nor between any of them and float64 (port
+    plain 1.89x, JAX oracle 1.06x, Pallas 1.07x at the worst element). So
+    that case holds all three to a float64 run of the recurrence at 2e-5 of
+    (|h_t| + the channel's rms over the sequence)."""
     rng = np.random.default_rng(7)
     ja, ta = _pair(rng, (B, S, W), "float32")
     jb, tb = _pair(rng, (B, S, W), "float32")
-    ja, ta = -jnp.abs(ja) * 0.5, -ta.abs() * 0.5
+    ja, ta = -jnp.abs(ja) * decay, -ta.abs() * decay
     h, hl = ops.rglru_scan(ta, tb)
     assert h.dtype == hl.dtype == torch.float32
-    for he, hle in (jax.jit(jref.rglru_scan_ref)(ja, jb),
-                    jrglru_pallas(ja, jb, block_t=bt, interpret=True)):
-        np.testing.assert_allclose(_np(h), _np(he), atol=2e-5, rtol=2e-5)
-        np.testing.assert_allclose(_np(hl), _np(hle), atol=2e-5, rtol=2e-5)
+    jax_outs = (jax.jit(jref.rglru_scan_ref)(ja, jb),
+                jrglru_pallas(ja, jb, block_t=bt, interpret=True))
+    if decay == 0.5:
+        for he, hle in jax_outs:
+            np.testing.assert_allclose(_np(h), _np(he), atol=2e-5, rtol=2e-5)
+            np.testing.assert_allclose(_np(hl), _np(hle), atol=2e-5, rtol=2e-5)
+        return
+    a64 = np.exp(_np(ta).astype(np.float64))
+    b64 = _np(tb).astype(np.float64)
+    h64 = np.empty((B, S, W))
+    acc = np.zeros((B, W))
+    for t in range(S):
+        acc = a64[:, t] * acc + b64[:, t]
+        h64[:, t] = acc
+    rms = np.sqrt((h64 ** 2).mean(axis=1))
+    for got, got_last in ((h, hl), *jax_outs):
+        for g, e, scale in ((_np(got), h64, rms[:, None]), (_np(got_last), h64[:, -1], rms)):
+            assert bool((np.abs(g - e) <= 2e-5 + 2e-5 * (np.abs(e) + scale)).all())
 
 
 @pytest.mark.parametrize("B,S,W", [
