@@ -17,7 +17,9 @@ phases:
    prefill (also at 8192 tokens, where its 4096 window binds) and decode,
    granite-20b's 48 query heads on one KV head, olmoe-1b-7b's 16 query
    heads on 16 KV heads (G = 1, prefill and decode, also in float32 for
-   phase 3's check), mamba2-780m's SSD scan
+   phase 3's check), decode at whisper-small's head_dim 64 with G = 1 and
+   paligemma-3b's head_dim 256 with G = 8 (their served caches, also ragged
+   and in float32), mamba2-780m's SSD scan
    with each of its four bf16 stages timed by the profiler,
    recurrentgemma-9b's RG-LRU scan at its prefill and training shapes,
    and with a carried state, decay near one or none, at the training shape,
@@ -68,7 +70,11 @@ phases:
    1.25; prefill 4096, 32 steps) and deepseek-v2-236b (depth cut to 4
    layers: the dense-first layer and 3 MoE layers of 160 experts top-6 plus
    2 shared, MLA attention with no kernel; prefill 4096 through MLA's
-   query-chunked path, 32 steps); each path also prints its decode step's
+   query-chunked path, 32 steps), whisper-small (all 12 encoder and 12
+   decoder layers over 1500 stub frames; prefill 224, no launch, 32 steps of
+   12 decode launches) and paligemma-3b (all 18 layers, 256 stub patches
+   before the prompt, attending bidirectionally; prefill 128, no launch, 32
+   steps of 18 decode launches); each path also prints its decode step's
    weight bytes and the floor they set at 3.35 TB/s beside its p50, and an
    MoE path its prefill's routing (groups, capacity, the share of routed
    slots its MoE layers dropped); the MoE paths' checks run at the lossless
@@ -94,7 +100,10 @@ phases:
    full width and depth (48 layers, batch 4 x 4096), then
    recurrentgemma-9b at full width (depth cut to 8 layers: two (rec, rec,
    local_attn) units and the two-layer rec tail; batch 2 x 4096 above its
-   2048 window; wq and wk at the fan-in of d_model): each step's loss
+   2048 window; wq and wk at the fan-in of d_model), then whisper-small at
+   full width and depth (batch 8 x 448 over 1500 frames) and paligemma-3b at
+   full width (depth cut to 4 layers; batch 2 x 512 after 256 patches), both
+   launching no kernel: each step's loss
    (the last below the first), its launches checked exactly (a stacked
    layer's kernel two forwards, forward and recompute, and one backward;
    a tail layer's, which is not rematerialised, one of each), the median
@@ -168,8 +177,8 @@ phases:
    times, peak memory and the remesh time (from the verdict to the first
    resumed step's end).
 
-The h2o paths and recurrentgemma's training path draw wq and wk at the
-fan-in of d_model (``fan_in_qk``):
+The h2o, whisper and paligemma paths and recurrentgemma's training path
+draw wq and wk at the fan-in of d_model (``fan_in_qk``):
 with the reference init's the random model is chaotic and its gradients
 explode with depth, and phases 3 and 5 print those figures beside their
 own. Each phase frees its parameters and caches before the next. Every number
@@ -225,6 +234,16 @@ MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 4, 4096
 # to 8 layers (two (rec, rec, local_attn) units and the two-layer rec tail),
 # batch 2 x 4096 above its 2048 window, bf16
 RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ = 8, 2, 4096
+# whisper-small's serving path: 12 heads of 64 on 12 KV heads (G = 1); a 224-token
+# prompt, the prompt half of its 448-token text context, over 1500 encoder frames
+WH_PROMPT, WH_HEADS, WH_HEAD_DIM = 224, 12, 64
+# paligemma-3b's: 8 heads of 256 on one KV head (G = 8); 256 patch embeddings
+# before a 128-token prompt
+PG_PROMPT, PG_PATCHES, PG_HEADS, PG_HEAD_DIM = 128, 256, 8, 256
+# their training paths: whisper at full depth, B=8 x 448 (its text context);
+# paligemma at 4 of 18 layers (the script's time), B=2 x 512 tokens after its patches
+WH_TRAIN_BATCH, WH_TRAIN_SEQ = 8, 448
+PG_TRAIN_LAYERS, PG_TRAIN_BATCH, PG_TRAIN_SEQ = 4, 2, 512
 # calibration's steps on the reduced configs (batch 2, sequence 32, float32):
 # mamba2's SSD scan (B, S, H, P, G, N, chunk) in training, and qwen3's decode
 # attention (B, T, H, KV, d) at the first position of a 32-slot cache
@@ -524,9 +543,10 @@ def kernels_flash(kp: KernelPhase) -> None:
 
 def kernels_decode(kp: KernelPhase) -> None:
     """decode_attention at qwen3-32b's, recurrentgemma-9b's,
-    h2o-danube-1.8b's (head_dim 80), granite-20b's (G = 48) and olmoe-1b-7b's
-    (G = 1) decode shapes, and phase 7's calibration shapes (head_dim 64 and
-    16)."""
+    h2o-danube-1.8b's (head_dim 80), granite-20b's (G = 48), olmoe-1b-7b's
+    (G = 1), whisper-small's (head_dim 64, G = 1) and paligemma-3b's (head_dim
+    256, G = 8) decode shapes, and phase 7's calibration shapes (head_dim 64
+    and 16)."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.calibrate import microbench as mb
@@ -633,6 +653,22 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("G=1 main path", (BATCH, T, Ho, Ho, D), [T] * BATCH, None, "bfloat16"),
         ("G=1 lengths", (4, T, Ho, Ho, D), [T, PROMPT + 1, 100, 0], None, "bfloat16"),
         ("G=1 f32", (2, T, Ho, Ho, D), [T, PROMPT // 2 + 1], None, "float32")])
+    # whisper-small's decoder self-attention: 12 heads of 64 on 12 KV heads (G = 1)
+    # over its served 256-slot cache (prompt 224 + 32 steps)
+    Tw, Hw, Dw = WH_PROMPT + GEN, WH_HEADS, WH_HEAD_DIM
+    run_decode("decode_attention_whisper", "whisper main path", [
+        ("whisper main path", (BATCH, Tw, Hw, Hw, Dw), [Tw] * BATCH, None, "bfloat16"),
+        ("whisper lengths", (4, Tw, Hw, Hw, Dw), [Tw, WH_PROMPT + 1, 17, 0], None, "bfloat16"),
+        ("whisper f32", (2, Tw, Hw, Hw, Dw), [Tw, WH_PROMPT + 1], None, "float32")])
+    # paligemma-3b's: 8 heads of 256 on one KV head (G = 8) over its served 416-slot
+    # cache (256 patches + prompt 128 + 32 steps)
+    Tp, Hp, Dp = PG_PATCHES + PG_PROMPT + GEN, PG_HEADS, PG_HEAD_DIM
+    run_decode("decode_attention_paligemma", "paligemma main path", [
+        ("paligemma main path", (BATCH, Tp, Hp, 1, Dp), [Tp] * BATCH, None, "bfloat16"),
+        ("paligemma lengths", (4, Tp, Hp, 1, Dp), [Tp, PG_PATCHES + 1, 100, 0], None,
+         "bfloat16"),
+        ("paligemma f32", (2, Tp, Hp, 1, Dp), [Tp, PG_PATCHES + PG_PROMPT + 1], None,
+         "float32")])
     del flush
     torch.cuda.empty_cache()
 
@@ -1347,6 +1383,20 @@ PATHS = [
     # weights), then 16 steps
     ServePath("deepseek_v2_236b", 4, PROMPT, {}, {}, 512, 16, "float32", None, PROMPT,
               check_lossless=True),
+    # all 12 encoder and 12 decoder layers over 1500 frames (the conv frontend is a
+    # stub: seeded N(0, 0.02^2) frames in bf16); the encoder and the cross-attention are
+    # plain attention, the 224-token prompt stays below attn_chunk, so prefill launches
+    # nothing and each decode step one decode kernel a decoder layer (d = 64, G = 1).
+    # No qk-norm: wq and wk at the fan-in of d_model (the reference init's figure is
+    # printed beside the check)
+    ServePath("whisper_small", None, WH_PROMPT, {}, {"decode_attention": 12}, WH_PROMPT, 16,
+              "bfloat16", None, 64, True),
+    # all 18 layers, 256 patch embeddings (the SigLIP stub, seeded as whisper's frames)
+    # before the prompt, attending bidirectionally; a prefix keeps attention off flash
+    # (the reference's query-chunked path), so prefill launches nothing; decode one
+    # kernel a layer at d = 256, G = 8. No qk-norm: wq and wk at the fan-in of d_model
+    ServePath("paligemma_3b", None, PG_PROMPT, {}, {"decode_attention": 18}, PG_PROMPT, 16,
+              "bfloat16", None, 64, True),
 ]
 
 
@@ -1365,14 +1415,17 @@ def _slice(tree, n: int):
     return tree[:n]
 
 
-def decode_vs_prefill(torch, model, params, prefix, extra) -> dict:
-    """Prefill ``prefix`` (1, p0), then decode the argmax token and ``extra``
-    one step at a time, against one prefill over all of them: the last
-    position's logits, as relative L2 and max abs error and both argmaxes."""
-    p0, n = prefix.shape[1], extra.shape[1] + 1
+def decode_vs_prefill(torch, model, params, prefix, extra, stubs=None) -> dict:
+    """Prefill ``prefix`` (1, p0) after the model's frontend ``stubs`` (batch
+    1: whisper's frames, paligemma's patches, which also go before it in the
+    cache), then decode the argmax token and ``extra`` one step at a time,
+    against one prefill over all of them: the last position's logits, as
+    relative L2 and max abs error and both argmaxes."""
+    stubs = stubs or {}
+    p0, n = prefix.shape[1] + prefix_slots(model.cfg), extra.shape[1] + 1
     with torch.no_grad():
         c1 = model.init_cache(1, p0 + n + 1)
-        logits_p, c1 = model.prefill(params, prefix, c1)
+        logits_p, c1 = model.prefill(params, prefix, c1, **stubs)
         fed = torch.cat([torch.argmax(logits_p, dim=-1).to(torch.int32), extra], dim=1)
         for i in range(n):
             logits_d, c1 = model.decode(params, fed[:, i:i + 1], c1,
@@ -1380,7 +1433,7 @@ def decode_vs_prefill(torch, model, params, prefix, extra) -> dict:
                                                    device=prefix.device))
         del c1
         c2 = model.init_cache(1, p0 + n + 1)
-        logits_f, _ = model.prefill(params, torch.cat([prefix, fed], dim=1), c2)
+        logits_f, _ = model.prefill(params, torch.cat([prefix, fed], dim=1), c2, **stubs)
         del c2
     v = model.cfg.vocab_size
     a, b = logits_d[0, -1, :v].float(), logits_f[0, -1, :v].float()
@@ -1392,11 +1445,28 @@ def decode_vs_prefill(torch, model, params, prefix, extra) -> dict:
 
 def decode_weight_bytes(cfg, params) -> int:
     """The parameter bytes one decode step must read: every leaf but the
-    embedding table, which decode only indexes (unless the head reuses it).
-    An MoE layer's decode sends its few tokens through all of its experts'
-    weights, as the JAX package computes it, so they all count."""
+    embedding table, which decode only indexes (unless the head reuses it),
+    and the encoder's (``enc``, ``enc_pos``, ``ln_enc``: only prefill runs
+    it; decode reads its output from the cross cache). An MoE layer's decode
+    sends its few tokens through all of its experts' weights, as the JAX
+    package computes it, so they all count."""
+    skip = {"enc", "enc_pos", "ln_enc"} | ({"embed"} if not cfg.tie_embeddings else set())
     return sum(t.numel() * t.element_size() for name, sub in params.items()
-               if name != "embed" or cfg.tie_embeddings for t in _leaves(sub))
+               if name not in skip for t in _leaves(sub))
+
+
+def prefix_slots(cfg) -> int:
+    """The cache slots the VLM's patches take before the prompt (0 for other
+    models); decode positions start after them."""
+    return cfg.n_patches if cfg.vision_stub else 0
+
+
+def stubs_for(torch, cfg, batch: int) -> dict:
+    """The model's frontend stubs for a serving or training path (whisper's
+    frames, paligemma's patches; {} for the others), N(0, 0.02^2) from seed 3
+    in the model's dtype: the same numbers in either dtype."""
+    from repro_torch.launch.steps import frontend_stubs
+    return frontend_stubs(cfg, batch, DEVICE, torch.Generator(device=DEVICE).manual_seed(3))
 
 
 class RoutingDrops:
@@ -1452,6 +1522,8 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
               f"{cfg.window}, experts {cfg.n_experts} top-{cfg.experts_per_token} of d_ff "
               f"{cfg.moe_d_ff} + {cfg.n_shared_experts} shared, {cfg.n_dense_layers} dense "
               f"first, MLA {cfg.mla} (q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}), "
+              f"encoder {cfg.n_enc_layers if cfg.encdec else 0} layers over "
+              f"{cfg.enc_seq if cfg.encdec else 0} frames, {prefix_slots(cfg)} patches, "
               f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}, "
               f"{cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: {n_params / 1e9:.3f} B "
               f"parameters summed from the tensors ({n_bytes / 1e9:.2f} GB), "
@@ -1459,27 +1531,32 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, prompt)),
                              dtype=torch.int32, device=DEVICE)
-    cache = model.init_cache(BATCH, prompt + GEN)
+    # the frontend stubs (frames, patches); the patches take cache slots before
+    # the prompt, and decode positions start after them
+    stubs = stubs_for(torch, cfg, BATCH)
+    first = {k: t[:1] for k, t in stubs.items()}
+    off = prefix_slots(cfg)
+    cache = model.init_cache(BATCH, off + prompt + GEN)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     # warm-up on a separate cache so the timed run excludes first-call costs
-    warm = model.init_cache(1, path.warm_len + 8)
-    tok_w, warm = prefill_step(params, tokens[:1, :path.warm_len], warm)
-    serve_step(params, tok_w, warm, torch.full((1,), path.warm_len, dtype=torch.int32,
+    warm = model.init_cache(1, off + path.warm_len + 8)
+    tok_w, warm = prefill_step(params, tokens[:1, :path.warm_len], warm, first)
+    serve_step(params, tok_w, warm, torch.full((1,), off + path.warm_len, dtype=torch.int32,
                                                device=DEVICE))
     del warm
     torch.cuda.synchronize()
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    tok, cache = prefill_step(params, tokens, cache)
+    tok, cache = prefill_step(params, tokens, cache, stubs)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = kernels.launch_counts()
     generated, lat = [tok], []
     for i in range(GEN):
-        pos = torch.full((BATCH,), prompt + i, dtype=torch.int32, device=DEVICE)
+        pos = torch.full((BATCH,), off + prompt + i, dtype=torch.int32, device=DEVICE)
         t1 = time.perf_counter()
         tok, cache = serve_step(params, tok, cache, pos)
         torch.cuda.synchronize()
@@ -1502,9 +1579,10 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
 
     # where the time goes: one prefill and three decode steps under the profiler
     # (the decode steps rewrite the cache's last slot; the counts are already read)
-    last = torch.full((BATCH,), prompt + GEN - 1, dtype=torch.int32, device=DEVICE)
+    last = torch.full((BATCH,), off + prompt + GEN - 1, dtype=torch.int32, device=DEVICE)
     with RoutingDrops() as drops:     # the routed slots the prefill's MoE layers drop
-        prof = {"prefill": profile(torch, lambda: prefill_step(params, tokens, cache), card,
+        prof = {"prefill": profile(torch, lambda: prefill_step(params, tokens, cache, stubs),
+                                   card,
                                    f"one {cfg.name} prefill ({BATCH}x{prompt})")}
     prof["decode"] = profile(torch, lambda: [serve_step(params, tok, cache, last)
                                              for _ in range(3)], card,
@@ -1537,7 +1615,8 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
               f"{p99:.2f} ms per token step, {tok_s:.1f} tokens/s; peak memory "
               f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
     log(card, f"{cfg.name} decode step's weight bytes (every leaf but the indexed embedding "
-              f"table): {step_bytes / 1e9:.3f} GB, a floor of {floor_ms:.3f} ms at 3.35 TB/s, "
+              f"table and the encoder): {step_bytes / 1e9:.3f} GB, a floor of {floor_ms:.3f} ms "
+              f"at 3.35 TB/s, "
               f"beside its p50 of {p50:.2f} ms")
     log(card, f"{cfg.name} launches: prefill {after_prefill}, prefill + {GEN} decode steps "
               f"{counts}")
@@ -1554,10 +1633,10 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                   f"{cfg.capacity_factor:.4f} (n_experts / experts_per_token; served at "
                   f"{full.capacity_factor})")
         check["capacity_factor"] = cfg.capacity_factor
-    served = decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra)
+    served = decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra, first)
     if path.qk_fan_in:      # the same check with the reference init's wq and wk
         check["reference_init"] = decode_vs_prefill(torch, model, params_ref, tokens[:1, :p0],
-                                                    extra)
+                                                    extra, first)
         log(card, f"{cfg.name} decode vs fresh prefill with the reference init's wq and wk "
                   f"(fan-in read from the head axis; without qk-norm the attention is a hard "
                   f"max and the random model chaotic): relative L2 "
@@ -1565,7 +1644,7 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                   f"{check['reference_init']['argmax']} (reported, not checked)")
     del params_ref
     if path.check_dtype == cfg.dtype:
-        check = served
+        check.update(served)
     else:
         log(card, f"{cfg.name} decode vs fresh prefill at batch 1 in the served {cfg.dtype}: "
                   f"relative L2 {served['rel_l2']:.3e}, argmax {served['argmax']} (reported, "
@@ -1577,15 +1656,17 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
         model = build_model(cfg, device=DEVICE)
         params = fan_in_qk(cfg, model.init(torch.Generator(device=DEVICE).manual_seed(0)),
                            path.qk_fan_in)
+        first = {k: t[:1] for k, t in stubs_for(torch, cfg, BATCH).items()}
         # how far a 1e-7 relative change of the embedding moves the last logits
         seq = torch.cat([tokens[:1, :p0], extra[:, :1], extra], dim=1)[:, :p0 + n]
         with torch.no_grad():
-            base = model.prefill(params, seq, model.init_cache(1, p0 + n + 1))[0]
+            base = model.prefill(params, seq, model.init_cache(1, off + p0 + n + 1), **first)[0]
             embed = params["embed"]
             params["embed"] = embed * (1 + 1e-7 * torch.randn(
                 embed.shape, generator=torch.Generator(device=DEVICE).manual_seed(1),
                 device=DEVICE))
-            moved = model.prefill(params, seq, model.init_cache(1, p0 + n + 1))[0]
+            moved = model.prefill(params, seq, model.init_cache(1, off + p0 + n + 1),
+                                  **first)[0]
             params["embed"] = embed
         v = cfg.vocab_size
         sens = float((moved[0, -1, :v] - base[0, -1, :v]).norm() / base[0, -1, :v].norm())
@@ -1599,12 +1680,13 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
             _, n_units, _ = model.scan_groups()
             params = {**params, "stack": {k: _slice(t, n_units)
                                           for k, t in params["stack"].items()}}
-        check.update(decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra))
+        check.update(decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra, first))
     rel = check["rel_l2"]
     consistency_tol = 3e-2
     log(card, f"{cfg.name} decode vs fresh prefill at batch 1, {cfg.dtype} weights, "
-              f"{cfg.n_layers} layers: prefill {p0}, {n} decode step(s), against one prefill "
-              f"of {p0 + n}: relative L2 error {rel:.3e} (tol {consistency_tol}), max abs err "
+              f"{cfg.n_layers} layers: prefill {p0} (after {off} patches), {n} decode step(s), "
+              f"against one prefill of {p0 + n}: relative L2 error {rel:.3e} (tol "
+              f"{consistency_tol}), max abs err "
               f"{check['max_abs_err']:.3e}, argmax {check['argmax']}")
     if rel > consistency_tol:
         raise AssertionError("decode steps disagree with a fresh prefill")
@@ -1614,7 +1696,8 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                 full_layers=full.n_layers,
                 params=n_params, params_b=n_params / 1e9, param_bytes=n_bytes,
                 param_count_analytic_b=analytic / 1e9, batch=BATCH, prompt=prompt,
-                gen=GEN, prefill_ms=prefill_ms, decode_p50_ms=p50, decode_p99_ms=p99,
+                gen=GEN, prefix_slots=off, prefill_ms=prefill_ms, decode_p50_ms=p50,
+                decode_p99_ms=p99,
                 decode_tokens_s=tok_s, peak_bytes=peak, launches=counts,
                 launches_prefill=after_prefill, consistency_rel_l2=rel, consistency=check,
                 decode_ms=lat, decode_weight_bytes=step_bytes, decode_floor_ms=floor_ms,
@@ -1670,17 +1753,26 @@ KIND_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
                 "ssm": ("ssd_scan", "ssd_scan_bwd"), "rec": ("rglru_scan", "rglru_scan_bwd")}
 
 
-def train_launches(cfg) -> Dict[str, int]:
-    """The kernel launches of one train step with remat="full", by layer
-    kind: a stacked unit's layer runs its kernel forward twice (forward and
-    the unit's recompute) and backward once; a tail layer, which
-    ``LM.apply`` does not rematerialise, forward once and backward once.
-    (Every caller's S is above attn_chunk, so attention layers launch.)"""
+def train_launches(cfg, seq: int) -> Dict[str, int]:
+    """The kernel launches of one train step with remat="full" at sequence
+    ``seq``, by layer kind: a stacked unit's layer runs its kernel forward
+    twice (forward and the unit's recompute) and backward once; a tail
+    layer, which ``LM.apply`` does not rematerialise, forward once and
+    backward once. Attention launches flash only above attn_chunk and
+    without a prefix (a VLM always has one); the encoder-decoder's decoder
+    layers are each rematerialised, its encoder and cross-attention launch
+    nothing."""
     from repro_torch.models import build_model
+    flash = seq > cfg.attn_chunk and not cfg.prefix_len
+    if cfg.encdec:
+        return {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers} if flash else {}
     unit, n_units, tail = build_model(cfg, device="cpu").scan_groups()
     out: Dict[str, int] = {}
     for kinds, fwd_calls, reps in ((unit, 2, n_units), (tail, 1, 1)):
         for kind in kinds:
+            if kind in ("dense", "local_attn") and not flash:
+                continue
             fwd, bwd = KIND_KERNELS[kind]
             out[fwd] = out.get(fwd, 0) + fwd_calls * reps
             out[bwd] = out.get(bwd, 0) + reps
@@ -1699,15 +1791,24 @@ def train_launches(cfg) -> Dict[str, int]:
 # card-vs-CPU difference.
 def fan_in_qk(cfg, params, on: bool = True):
     """``params`` with every layer's wq and wk multiplied by
-    sqrt(heads / d_model) (``params`` itself when ``on`` is false)."""
+    sqrt(heads / d_model) (``params`` itself when ``on`` is false): the
+    decoder-only stack's and tail's attention, or the encoder-decoder's
+    three (the encoder's, the decoder's self- and cross-attention)."""
     if not on:
         return params
     scale = (cfg.n_heads / cfg.d_model) ** 0.5
+
+    def scaled(attn):
+        return {k: (w * scale if k in ("wq", "wk") else w) for k, w in attn.items()}
     out = dict(params)
+    if cfg.encdec:
+        out["enc"] = dict(params["enc"], attn=scaled(params["enc"]["attn"]))
+        out["dec"] = dict(params["dec"], self_attn=scaled(params["dec"]["self_attn"]),
+                          cross_attn=scaled(params["dec"]["cross_attn"]))
+        return out
     for group in ("stack", "tail"):
         if group in params:
-            out[group] = {u: dict(block, mixer={k: (w * scale if k in ("wq", "wk") else w)
-                                                for k, w in block["mixer"].items()})
+            out[group] = {u: dict(block, mixer=scaled(block["mixer"]))
                           for u, block in params[group].items()}
     return out
 
@@ -1840,7 +1941,7 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
         _, _, m = step(p, adamw_init(p), _to(batch, dev), 1)
         out[dev] = dict(m, launches=kernels.launch_counts())
     want = {k: 0 for k in kernels.KERNELS}
-    want.update(train_launches(cfg))
+    want.update(train_launches(cfg, S))
     if out[DEVICE]["launches"] != want:
         raise AssertionError(f"small train step launches {out[DEVICE]['launches']}, "
                              f"expected {want}")
@@ -1876,8 +1977,12 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     three times (forward and backward; the RG-LRU scan's few operations an
     element are not counted); for an SSM
     (mamba2) the layers' in and out projections and the SSD scan's linear
-    form (``kernels/flops.ssd_scan_flops``) three times; the recomputation
-    of remat="full" is not counted."""
+    form (``kernels/flops.ssd_scan_flops``) three times; for the
+    encoder-decoder also the encoder over its frames (non-causal), the
+    cross-attention's K/V projections over the frames and its scores (every
+    token against every frame); for a VLM the layers and the head run over
+    the patches too, and the prefix's pairs above the diagonal are live. The
+    recomputation of remat="full" is not counted."""
     if cfg.ssm:
         from repro_torch.kernels import flops
         d, din, gn, nh = cfg.d_model, cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state, \
@@ -1890,12 +1995,22 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     from repro_torch.models import build_model
     d, h, kv, hd, w = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.lru_dim
     mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    qo, kvp = 2 * d * h * hd, 2 * d * kv * hd       # a layer's q and o, k and v projections
+    if cfg.encdec:
+        T, L, E = cfg.enc_seq, cfg.n_layers, cfg.n_enc_layers
+        matmul_tokens = E * (qo + kvp + mlp) * T + L * ((2 * qo + kvp + mlp) * seq + kvp * T) \
+            + d * cfg.padded_vocab * seq
+        pairs = E * T * T + L * (live_pairs(seq, seq, True, None) + seq * T)
+        return 6.0 * matmul_tokens * batch + 3 * 4 * hd * h * batch * pairs
+    P = prefix_slots(cfg)         # training's prefix is the patches (LM.apply)
+    seq += P
     mixer = {"dense": 2 * d * h * hd + 2 * d * kv * hd, "local_attn": 2 * d * h * hd + 2 * d * kv * hd,
              "rec": 3 * d * w + 2 * w * w}       # RG-LRU: w_in, gate branch, w_out; wa, wx
     kinds = build_model(cfg, device="cpu").layer_kinds()
     matmul = sum(mixer[k] + mlp for k in kinds) + d * cfg.padded_vocab
     n_attn = sum(k != "rec" for k in kinds)
-    attn = 3 * 4 * hd * h * batch * live_pairs(seq, seq, True, cfg.window) * n_attn
+    pairs = live_pairs(seq, seq, True, cfg.window) + P * (P - 1) // 2
+    attn = 3 * 4 * hd * h * batch * pairs * n_attn
     return 6.0 * matmul * batch * seq + attn
 
 
@@ -1926,6 +2041,15 @@ TRAIN_PATHS = [
     # forward and backward kernels; wq and wk at the fan-in of d_model
     TrainPath("recurrentgemma_9b", RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ, TRAIN_STEPS,
               False, True),
+    # all 12 + 12 layers, 448 decoder tokens over 1500 frames: below attn_chunk, the
+    # encoder and the cross-attention plain, so no kernel launches: EncDecLM.loss under
+    # autograd and AdamW on the card. No qk-norm: wq and wk at the fan-in of d_model
+    TrainPath("whisper_small", None, WH_TRAIN_BATCH, WH_TRAIN_SEQ, TRAIN_STEPS, False, True),
+    # 4 of 18 layers, 256 patches + 512 tokens: the prefix keeps attention off flash,
+    # so no kernel launches: the prefix loss (patch rows carry none). wq and wk at the
+    # fan-in of d_model, as whisper's
+    TrainPath("paligemma_3b", PG_TRAIN_LAYERS, PG_TRAIN_BATCH, PG_TRAIN_SEQ, TRAIN_STEPS, False,
+              True),
 ]
 
 
@@ -1953,6 +2077,7 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
     state_bytes = sum(t.numel() * t.element_size() for t in _leaves({"p": params, "o": opt}))
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                     seed=0), device=DEVICE)
+    stubs = stubs_for(torch, cfg, B)        # whisper's frames, paligemma's patches
     width = (f"{cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
              f"{cfg.ssm_chunk}" if cfg.ssm else f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV "
              f"heads of {cfg.hd}, d_ff {cfg.d_ff}"
@@ -1961,17 +2086,21 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
     log(card, f"training {cfg.name} at full width (d_model {cfg.d_model}, {width}, vocab "
               f"{cfg.vocab_size}, {cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: "
               f"{n_params / 1e9:.3f} B "
-              f"parameters, {state_bytes / 1e9:.2f} GB with the AdamW state; batch {B} x {S}, "
-              f"window {cfg.window}, remat='full', {steps} steps, peak lr 3e-4, warmup 2, wq/wk "
+              f"parameters, {state_bytes / 1e9:.2f} GB with the AdamW state; batch {B} x {S}"
+              + (f" over {cfg.enc_seq} encoder frames ({cfg.n_enc_layers} encoder layers)"
+                 if cfg.encdec else "")
+              + (f" after {prefix_slots(cfg)} patches" if cfg.vision_stub else "")
+              + f", window {cfg.window}, remat='full', {steps} steps, peak lr 3e-4, warmup 2, "
+              f"wq/wk "
               f"fan-in {'d_model' if path.qk_fan_in else 'heads (the reference init)'}")
     per_step = {k: 0 for k in kernels.KERNELS}
-    per_step.update(train_launches(cfg))
+    per_step.update(train_launches(cfg, S))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses, step_ms, metrics = [], [], []
     for step in range(steps):
-        batch = next(data)
+        batch = {**next(data), **stubs}
         torch.cuda.synchronize()
         before = kernels.launch_counts()
         t0 = time.perf_counter()
@@ -2007,7 +2136,7 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
               f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), {reserved / 2**30:.2f} "
               f"GiB reserved, {retries} allocation retries (the caching allocator freed its "
               f"cache and synchronised); launches over {steps} steps {counts}")
-    batch = next(data)
+    batch = {**next(data), **stubs}
     groups = {"ssd_scan forward": ("ssd_cb_", "ssd_chunk_state_", "ssd_state_passing_",
                                    "ssd_chunk_scan_"), "ssd_scan backward": "ssd_bwd_"} \
         if cfg.ssm else {"flash_attention forward": "flash_wgmma_kernel",
@@ -2039,7 +2168,7 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
     if path.qk_fan_in:      # the first batch's gradient with the reference init's wq and wk
         data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                         seed=0), device=DEVICE)
-        batch = next(data)
+        batch = {**next(data), **stubs}
         data.close()
         ref_params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
         loss_ref, grads_ref = _grads(torch, model, ref_params, batch)
@@ -3362,7 +3491,7 @@ def mesh_train_rank(rank: int, world: int, run: MeshRun) -> dict:
         if ratio_rule else None
     opt_cfg = AdamWConfig()               # make_train_step's
     per_step = {k: 0 for k in kernels.KERNELS}
-    per_step.update(train_launches(cfg))
+    per_step.update(train_launches(cfg, run.seq))
     rec = dict(rank=rank, world=world, config=full.name, n_layers=cfg.n_layers,
                full_layers=full.n_layers, dtype=cfg.dtype, batch=run.batch, seq=run.seq,
                steps=[], generations=[0], worlds=[world], per_step_launches=per_step,
@@ -3969,10 +4098,11 @@ def main() -> int:
     # the main entry is each kernel's qwen3-32b (or only) shape; the other
     # timed shapes ride beside it, each with the same keys
     extra = {"flash_attention": ("d256", "d80", "g48", "g1"),
-             "decode_attention": ("d256", "d80", "g48", "d16", "g1"),
+             "decode_attention": ("d256", "d80", "g48", "d16", "g1", "whisper", "paligemma"),
              "flash_attention_bwd": ("d80", "g48", "d256"), "rglru_scan": ("train",)}
     extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
-                 "g1": "group_1", "d16": "head_dim_16", "train": "training_shape"}
+                 "g1": "group_1", "d16": "head_dim_16", "train": "training_shape",
+                 "whisper": "whisper_d64_group_1", "paligemma": "paligemma_d256_group_8"}
     for name in sources:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})

@@ -136,10 +136,12 @@ def step_seconds(arch: str, mode: str = "train", *, batch: int = 2,
 
     ``mode`` is ``"train"`` (full forward, backward and AdamW, remat
     "none") or ``"decode"`` (one cached serving token). This times the
-    *production step functions* from ``launch/steps.py`` with real inputs.
+    *production step functions* from ``launch/steps.py`` with real inputs;
+    a training batch carries the model's frontend stub (whisper's frames,
+    paligemma's patches), drawn as N(0, 0.02^2) as in the JAX package.
     """
     from ..configs import reduced_config
-    from ..launch.steps import make_serve_step, make_train_step
+    from ..launch.steps import frontend_stubs, make_serve_step, make_train_step
     from ..optim import adamw_init
 
     cfg = reduced_config(arch)
@@ -151,7 +153,8 @@ def step_seconds(arch: str, mode: str = "train", *, batch: int = 2,
         opt = adamw_init(params)
         toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
                              device=dev, dtype=torch.int32)
-        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             **frontend_stubs(cfg, batch, dev, gen)}
         return time_callable(lambda: train_step(params, opt, b, 0), repeats=repeats)
     if mode != "decode":
         raise ValueError(f"unknown step mode {mode!r}")

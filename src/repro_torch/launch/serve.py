@@ -8,6 +8,11 @@ feeds a mid-run slowdown to the runtime adapter and prints its decision
     python -m repro_torch.launch.serve --arch qwen3_32b [--reduced] [--device cuda]
         [--setting smart_home_2] [--dynamics]
 
+whisper_small gets zero encoder frames and paligemma_3b zero patch
+embeddings (the frontend stubs, as in the JAX launcher, in the model's
+dtype); paligemma's cache holds its patches too, and its decode positions
+start after them.
+
 ``--setting`` takes any registered scenario (``python -m
 repro_torch.scenarios --list``). The model runs on one device; the plan is
 printed, and the pipeline executor that runs a plan's stages is
@@ -28,7 +33,7 @@ from .. import dora
 from ..configs import get_config, reduced_config
 from ..core import DynamicsEvent, QoESpec, Workload
 from ..models.registry import planning_graph
-from .steps import make_prefill_step, make_serve_step
+from .steps import frontend_stubs, make_prefill_step, make_serve_step
 
 
 def _sync(device: torch.device) -> None:
@@ -67,7 +72,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     _, serve_step = make_serve_step(cfg, device=args.device)
     dev = model.device
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    cache = model.init_cache(args.batch, args.prompt_len + args.gen_len)
+    # the VLM's patches go before the prompt, in the cache too (the JAX
+    # launcher sizes its cache without them, and then every decode write
+    # clamps into the last slot)
+    offset = cfg.n_patches if cfg.vision_stub else 0
+    cache = model.init_cache(args.batch, offset + args.prompt_len + args.gen_len)
+    extras = frontend_stubs(cfg, args.batch, dev)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
                              dtype=torch.int32, device=dev)
@@ -76,14 +86,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     _sync(dev)
     t0 = time.perf_counter()
-    tok, cache = prefill_step(params, tokens, cache)
+    tok, cache = prefill_step(params, tokens, cache, extras)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     print(f"prefill({args.prompt_len} tokens): {prefill_ms:.1f}ms")
     lat = []
     dynamics = None
     for i in range(args.gen_len):
-        pos = torch.full((args.batch,), args.prompt_len + i, dtype=torch.int32, device=dev)
+        pos = torch.full((args.batch,), offset + args.prompt_len + i, dtype=torch.int32,
+                         device=dev)
         t1 = time.perf_counter()
         tok, cache = serve_step(params, tok, cache, pos)
         _sync(dev)

@@ -1,14 +1,21 @@
 """Step builders (PyTorch counterpart of ``repro.launch.steps``):
 ``make_train_step`` (loss, gradients, AdamW), and the serving steps
 ``make_prefill_step`` / ``make_serve_step`` (greedy argmax to int32 tokens
-of shape (B, 1))."""
+of shape (B, 1)).
+
+The modality frontends are stubs, as in the JAX package: whisper takes
+precomputed frame embeddings (``encoder_frames``, (B, enc_seq, d_model)),
+paligemma precomputed patch embeddings (``extra_embeddings``, (B,
+n_patches, d_model)), in the training batch and in the prefill step's
+``extras``."""
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..models import Model, build_model
+from ..models.common import dtype_of
 from ..models.config import ArchConfig
 from ..models.sharding_utils import is_dtensor
 from ..optim import AdamWConfig, adamw_update, warmup_cosine
@@ -20,11 +27,32 @@ def _plain(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if is_dtensor(t) else t
 
 
+def frontend_stubs(cfg: ArchConfig, batch: int, device,
+                   gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """The frontend stub ``cfg``'s model takes, in its dtype: whisper's
+    frames {"encoder_frames": (batch, enc_seq, d_model)}, paligemma's
+    patches {"extra_embeddings": (batch, n_patches, d_model)}, {} for the
+    others. Zeros, as the JAX launchers feed them, or N(0, 0.02^2) drawn
+    from ``gen`` (on ``device``)."""
+    shapes = {}
+    if cfg.encdec:
+        shapes["encoder_frames"] = (batch, cfg.enc_seq, cfg.d_model)
+    if cfg.vision_stub:
+        shapes["extra_embeddings"] = (batch, cfg.n_patches, cfg.d_model)
+    dtype = dtype_of(cfg.dtype)
+    if gen is None:
+        return {k: torch.zeros(s, dtype=dtype, device=device) for k, s in shapes.items()}
+    return {k: (torch.randn(s, generator=gen, device=device) * 0.02).to(dtype)
+            for k, s in shapes.items()}
+
+
 def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
                     total: int = 10000, remat: str = "full", opt: AdamWConfig = AdamWConfig(),
                     device="cuda") -> Tuple[Model, Callable]:
     """``train_step(params, opt_state, batch, step)`` →
     ``(params, opt_state, {"loss", "lr", "nll", "aux", "grad_norm", "clip_scale"})``.
+    ``batch`` holds ``tokens`` and ``labels`` (B, S), and the frontend stub
+    its model takes, which ``model.loss`` reads from it.
 
     The gradients of ``model.loss`` come from autograd (the flash kernel's
     backward on the card); AdamW then updates ``params`` and the moments in
@@ -56,8 +84,18 @@ def make_prefill_step(cfg: ArchConfig, device="cuda") -> Tuple[Model, Callable]:
     model = build_model(cfg, device=device)
 
     @torch.no_grad()
-    def prefill_step(params, tokens, cache):
-        logits, cache = model.prefill(params, tokens, cache)
+    def prefill_step(params, tokens, cache, extras=None):
+        """``extras``: {"encoder_frames": ...} for the encoder-decoder,
+        {"extra_embeddings": ...} for the VLM; other models ignore it."""
+        extras = extras or {}
+        if cfg.encdec:
+            logits, cache = model.prefill(params, tokens, cache,
+                                          encoder_frames=extras["encoder_frames"])
+        elif cfg.vision_stub:
+            logits, cache = model.prefill(params, tokens, cache,
+                                          extra_embeddings=extras["extra_embeddings"])
+        else:
+            logits, cache = model.prefill(params, tokens, cache)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return model, prefill_step

@@ -12,7 +12,10 @@ otherwise). With a process group (``torchrun``, which this driver joins
 over nccl on the card it is given and gloo on the CPU, or ranks started by
 ``runtime.ranks.run_ranks``), it trains under the JAX driver's mesh: every
 rank of the group as a (1, world) ('data', 'model') mesh, the parameters and
-AdamW state laid out by ``ShardingRules``; without one, on one device. With
+AdamW state laid out by ``ShardingRules``; without one, on one device.
+whisper_small's batches carry zero encoder frames and paligemma_3b's zero
+patch embeddings (the frontend stubs, as in the JAX launcher, in the model's
+dtype); those two train on one device only. With
 ``--ckpt-dir`` it restores the latest committed step onto the mesh it runs
 on and saves (sharded) every ``--ckpt-every`` steps and at the end.
 """
@@ -35,7 +38,7 @@ from ..models.sharding import ShardingRules
 from ..models.sharding_utils import distribute_tree
 from ..optim import adamw_init
 from .mesh import make_host_mesh, use_mesh
-from .steps import make_train_step
+from .steps import frontend_stubs, make_train_step
 
 
 def _join_torchrun(device: str) -> bool:
@@ -81,6 +84,11 @@ def _train(args, cfg) -> dict:
                                         total=args.steps, remat="none", device=args.device)
     dev = model.device
     mesh = make_host_mesh(dev) if dist.is_initialized() else None
+    stubs = frontend_stubs(cfg, args.global_batch, dev)
+    if mesh is not None and stubs:
+        raise NotImplementedError(f"{cfg.name} under a mesh: its frontend stub is not laid out "
+                                  "on one (ROADMAP: Queue 1 item 9, 'Elasticity, sharding and "
+                                  "the mesh')")
     say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     if mesh is not None:
@@ -106,7 +114,7 @@ def _train(args, cfg) -> dict:
         losses = []
         t0 = time.time()
         for step in range(step0, args.steps):
-            batch = next(data)
+            batch = {**next(data), **stubs}
             params, opt, metrics = train_step(params, opt, batch, step)
             losses.append(float(metrics["loss"]))
             if step % args.log_every == 0 or step == args.steps - 1:

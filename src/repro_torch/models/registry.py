@@ -1,24 +1,28 @@
 """Model registry: ArchConfig → model object + planning-graph extractor."""
 from __future__ import annotations
 
+from typing import Union
+
 from ..core.graph_builders import GraphSpec, build_lm_graph, build_multimodal_graph
 from ..core.planning_graph import ModelGraph
 from .config import ArchConfig
+from .encdec import EncDecLM
 from .transformer import LM
 
-Model = LM
+Model = Union[LM, EncDecLM]
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
-    """The model for ``cfg`` on ``device``; the encoder-decoder and the VLM
-    prefix raise ``NotImplementedError`` naming their ROADMAP item."""
+    """The model for ``cfg`` on ``device``: ``EncDecLM`` for the
+    encoder-decoder, else ``LM``."""
+    if cfg.encdec:
+        return EncDecLM(cfg, device=device)
     return LM(cfg, device=device)
 
 
 def planning_graph(cfg: ArchConfig, seq_len: int) -> ModelGraph:
     """Dora planning graph for any zoo architecture, a copy of the JAX
-    package's: graph data only, so it is built for every config, also for
-    the families the port cannot execute yet."""
+    package's: graph data only."""
     spec = GraphSpec(
         name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,

@@ -26,8 +26,11 @@ never copies it.
 
 Layer kinds ported: ``dense``, ``moe`` and ``dense_mlp`` (attention or
 MLA, then an MoE or a dense MLP), ``ssm`` (Mamba-2), ``rec`` (RG-LRU) and
-``local_attn``; the encoder-decoder and the VLM prefix raise
-``NotImplementedError`` naming their ROADMAP item.
+``local_attn``. The VLM prefix (PaliGemma) is ``extra_embeddings`` (B, P,
+D) prepended to the token embeddings, attending bidirectionally over the
+first ``prefix_len`` positions: ``apply`` starts from ``prefix_len=0``,
+``prefill`` from ``cfg.prefix_len``, each raised to P, as in the JAX
+package. The encoder-decoder is ``models.encdec.EncDecLM``.
 """
 from __future__ import annotations
 
@@ -50,11 +53,9 @@ Params = Dict[str, Any]
 
 
 def unsupported(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` cannot run on the port yet, or None when it can."""
-    if cfg.encdec:
-        return "encoder-decoder (ROADMAP: Queue 1 'Encoder-decoder and VLM prefix')"
-    if cfg.vision_stub or cfg.prefix_len:
-        return "VLM prefix (ROADMAP: Queue 1 'Encoder-decoder and VLM prefix')"
+    """Why ``cfg`` cannot run on the port yet, or None when it can: every
+    family of the JAX package runs (the encoder-decoder through
+    ``models.encdec.EncDecLM``, which ``build_model`` picks)."""
     return None
 
 
@@ -155,7 +156,7 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.T
 
 def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                cache: Optional[Params], pos: Optional[torch.Tensor],
-               window: Optional[int]) -> torch.Tensor:
+               window: Optional[int], prefix_len: int = 0) -> torch.Tensor:
     B, S, _ = x.shape
     if mode == "decode":
         positions = pos[:, None] if pos.ndim == 1 else pos
@@ -183,9 +184,9 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     q, k, v = _project_qkv(p, x, cfg, positions)
     if S > cfg.attn_chunk:
         o = attn_lib.gqa_attention_chunked(q, k, v, causal=True, window=window,
-                                           q_chunk=cfg.attn_chunk // 4)
+                                           prefix_len=prefix_len, q_chunk=cfg.attn_chunk // 4)
     else:
-        o = attn_lib.gqa_attention(q, k, v, causal=True, window=window)
+        o = attn_lib.gqa_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
     if mode == "prefill":
         _fit_cache(cache["k"], k)
         _fit_cache(cache["v"], v)
@@ -245,17 +246,20 @@ def _store(cache: Params, new: Dict[str, torch.Tensor]) -> None:
 
 def apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 mode: str = "train", cache: Optional[Params] = None,
-                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos: Optional[torch.Tensor] = None, prefix_len: int = 0) -> torch.Tensor:
     """One layer: the residual stream after it (an MoE layer's aux loss is
     dropped; ``apply_block_aux`` returns it)."""
-    return apply_block_aux(p, x, cfg, kind, mode=mode, cache=cache, pos=pos)[0]
+    return apply_block_aux(p, x, cfg, kind, mode=mode, cache=cache, pos=pos,
+                           prefix_len=prefix_len)[0]
 
 
 def apply_block_aux(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                     mode: str = "train", cache: Optional[Params] = None,
-                    pos: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    pos: Optional[torch.Tensor] = None, prefix_len: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: (the residual stream after it, its aux loss: an MoE
-    layer's load-balance loss, else a float32 zero)."""
+    layer's load-balance loss, else a float32 zero). ``prefix_len`` reaches
+    GQA attention only (the reference's MLA takes none)."""
     aux = torch.zeros((), device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
@@ -274,7 +278,8 @@ def apply_block_aux(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
         y = apply_mla_block(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos)
     elif kind in ATTN_KINDS + ("local_attn",):
         window = (cfg.window or 2048) if kind == "local_attn" else cfg.window
-        y = apply_attn(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos, window=window)
+        y = apply_attn(p["mixer"], h, cfg, mode=mode, cache=cache, pos=pos, window=window,
+                       prefix_len=prefix_len)
     else:
         raise ValueError(f"layer kind {kind!r}")
     # under a mesh each branch's output is laid out as the residual stream
@@ -295,6 +300,26 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     return (lse - ll) * mask
+
+
+def head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits of the final-normed ``x``, the padded vocabulary's
+    columns at -inf."""
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    logits = (x @ w).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = logits + replicate_like(torch.where(live, 0.0, attn_lib.NEG_INF), logits)
+    return logits
+
+
+def _prepend(x: torch.Tensor, extra: Optional[torch.Tensor], prefix_len: int
+             ) -> Tuple[torch.Tensor, int]:
+    """The token embeddings ``x`` with ``extra`` (B, P, D) prepended in
+    their dtype, and ``prefix_len`` raised to P."""
+    if extra is None:
+        return x, prefix_len
+    return torch.cat([extra.to(x.dtype), x], dim=1), max(prefix_len, extra.shape[1])
 
 
 def _layer(tree: Union[Params, torch.Tensor], i: int):
@@ -319,9 +344,6 @@ def _unbind(tree: Union[Params, torch.Tensor], n: int):
 # ==============================================================================
 class LM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        reason = unsupported(cfg)
-        if reason is not None:
-            raise NotImplementedError(f"{cfg.name}: {reason}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -425,9 +447,13 @@ class LM:
         return cache
 
     # -- forward (train/eval) -------------------------------------------------------
-    def apply(self, params: Params, tokens: torch.Tensor, *, remat: str = "full"
+    def apply(self, params: Params, tokens: torch.Tensor, *, prefix_len: int = 0,
+              extra_embeddings: Optional[torch.Tensor] = None, remat: str = "full"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) → (logits (B, S, V) f32, aux_loss).
+        """tokens (B, S) → (logits (B, S, V) f32, aux_loss); with
+        ``extra_embeddings`` (B, P, D) prepended (the VLM's patch stubs, cast
+        to the model's dtype), logits (B, P + S, V) and ``prefix_len`` at
+        least P.
 
         ``remat="full"`` recomputes each stacked unit in the backward
         (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
@@ -445,34 +471,39 @@ class LM:
         # does not); on the card its backward accumulates a repeated token's
         # rows in float32, indexing's in bf16 (h2o's bf16 grad norms differed
         # by ~1%), so the plain and the mesh step take it alike
-        x = maybe_shard(F.embedding(tokens.long(), params["embed"]), RESIDUAL)
+        x, prefix_len = _prepend(F.embedding(tokens.long(), params["embed"]), extra_embeddings,
+                                 prefix_len)
+        x = maybe_shard(x, RESIDUAL)
         unit, n_units, tail = self.scan_groups()
         aux = torch.zeros((), device=x.device)
 
         def run_tail(x, aux):
             for i, kind in enumerate(tail):
-                x, a = apply_block_aux(params["tail"][f"t{i}"], x, cfg, kind, mode="train")
+                x, a = apply_block_aux(params["tail"][f"t{i}"], x, cfg, kind, mode="train",
+                                       prefix_len=prefix_len)
                 aux = aux + a
             return x, aux
         if self.tail_first:
             x, aux = run_tail(x, aux)
         for unit_params in _unbind(params["stack"], n_units):
             if remat == "full" and torch.is_grad_enabled():
-                x, a = checkpoint(self._unit_apply, x, unit_params, use_reentrant=False)
+                x, a = checkpoint(self._unit_apply, x, unit_params, prefix_len,
+                                  use_reentrant=False)
             else:
-                x, a = self._unit_apply(x, unit_params)
+                x, a = self._unit_apply(x, unit_params, prefix_len)
             aux = aux + a
         if not self.tail_first:
             x, aux = run_tail(x, aux)
         x = maybe_shard(rms_norm(x, params["ln_f"], cfg.norm_eps), GATHERED)
         return self._head(params, x), aux
 
-    def _unit_apply(self, x: torch.Tensor, unit_params: Params
+    def _unit_apply(self, x: torch.Tensor, unit_params: Params, prefix_len: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         unit = self.scan_groups()[0]
         aux = torch.zeros((), device=x.device)
         for i, kind in enumerate(unit):
-            x, a = apply_block_aux(unit_params[f"u{i}"], x, self.cfg, kind, mode="train")
+            x, a = apply_block_aux(unit_params[f"u{i}"], x, self.cfg, kind, mode="train",
+                                   prefix_len=prefix_len)
             aux = aux + a
         return x, aux
 
@@ -480,8 +511,11 @@ class LM:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *, remat: str = "full"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token NLL over the ``mask``ed label positions (all when
-        no ``mask``) plus the aux loss: ``(loss, {"nll", "aux"})``."""
-        logits, aux = self.apply(params, batch["tokens"], remat=remat)
+        no ``mask``) plus the aux loss: ``(loss, {"nll", "aux"})``. The
+        batch's ``extra_embeddings`` (the VLM's patches), where it has them,
+        are prepended; their rows carry no loss."""
+        logits, aux = self.apply(params, batch["tokens"], remat=remat,
+                                 extra_embeddings=batch.get("extra_embeddings"))
         nll = self._nll(logits, batch)
         return nll + aux, {"nll": nll, "aux": aux}
 
@@ -515,18 +549,16 @@ class LM:
         return torch.sum(tok) / torch.clamp(torch.sum(mask), min=1.0)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        logits = (x @ w).float()
-        if cfg.padded_vocab != cfg.vocab_size:
-            live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-            logits = logits + replicate_like(torch.where(live, 0.0, attn_lib.NEG_INF), logits)
-        return logits
+        return head(self.cfg, params, x)
 
     # -- prefill / decode -------------------------------------------------------------
-    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params
-                ) -> Tuple[torch.Tensor, Params]:
-        return self._serve(params, tokens, cache, mode="prefill", pos=None)
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params, *,
+                extra_embeddings: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
+        """The last position's logits (B, 1, V); ``extra_embeddings`` (B, P,
+        D) are prepended, so the cache holds P + S positions and decode
+        continues at position P + S."""
+        return self._serve(params, tokens, cache, mode="prefill", pos=None,
+                           extra_embeddings=extra_embeddings)
 
     def decode(self, params: Params, token: torch.Tensor, cache: Params,
                pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
@@ -534,10 +566,14 @@ class LM:
         return self._serve(params, token, cache, mode="decode", pos=pos)
 
     def _serve(self, params: Params, tokens: torch.Tensor, cache: Params, *,
-               mode: str, pos: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Params]:
+               mode: str, pos: Optional[torch.Tensor],
+               extra_embeddings: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
+        # serving starts from the config's prefix (``apply`` from none), as
+        # the JAX package does
+        x, prefix_len = _prepend(params["embed"][tokens.long()], extra_embeddings,
+                                 cfg.prefix_len)
         for kind, p, c in self._layers(params, cache):
-            x = apply_block(p, x, cfg, kind, mode=mode, cache=c, pos=pos)
+            x = apply_block(p, x, cfg, kind, mode=mode, cache=c, pos=pos, prefix_len=prefix_len)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._head(params, x[:, -1:]), cache

@@ -273,7 +273,10 @@ def test_kernel_rates_on_the_cpu_launch_nothing():
 
 
 @pytest.mark.parametrize("arch,mode", [("qwen3_32b", "train"), ("qwen3_32b", "decode"),
-                                       ("mamba2_780m", "train"), ("mamba2_780m", "decode")])
+                                       ("mamba2_780m", "train"), ("mamba2_780m", "decode"),
+                                       # the frontend stubs in the batch (frames, patches)
+                                       ("whisper_small", "train"), ("whisper_small", "decode"),
+                                       ("paligemma_3b", "train")])
 def test_step_seconds_on_the_cpu(arch, mode):
     before = kernels.launch_counts()
     assert microbench.step_seconds(arch, mode, repeats=1, device="cpu") > 0

@@ -106,22 +106,41 @@ def test_flash_attention_bf16_head_dim_256_ragged_and_small_windows():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain(dtype):
     gen = _card()
-    for (B, T, H, KV, d), lens, window in [
-            ((4, 256, 4, 4, 64), [1, 17, 100, 256], None),
-            ((3, 300, 8, 1, 128), [101, 300, 7], 96),
-            ((2, 4128, 64, 8, 128), [4128, 3000], None),
-            ((1, 64, 48, 1, 128), [0], None),           # no live key: zeros
-            ((4, 2048, 16, 1, 256), [2048, 1793, 256, 1], None),   # recurrentgemma MQA ring
-            ((3, 300, 8, 2, 256), [300, 101, 7], 96),
-            ((4, 4128, 16, 2, 128), [4128, 1, 0, 4127], None),    # most splits empty
-            ((3, 32, 8, 1, 64), [32, 5, 1], 8),                   # one split
-            ((4, 4128, 32, 8, 80), [4128, 4097, 100, 0], None),   # h2o-danube-1.8b
-            ((3, 300, 8, 2, 80), [300, 101, 7], 96),
-            ((4, 4128, 48, 1, 128), [4128, 4000, 17, 1], None),   # granite-20b's G = 48
-            ((2, 64, 8, 2, 16), [64, 33], None),        # the reduced dense configs' d = 16
-            ((3, 300, 8, 2, 16), [300, 101, 0], 96)]:
-        if T == 32:
-            assert kernels.decode_attention.split_plan(T, B, KV, H // KV)[1] == 1
+    cases = [((4, 256, 4, 4, 64), [1, 17, 100, 256], None),
+             ((3, 300, 8, 1, 128), [101, 300, 7], 96),
+             ((2, 4128, 64, 8, 128), [4128, 3000], None),
+             ((1, 64, 48, 1, 128), [0], None),           # no live key: zeros
+             ((4, 2048, 16, 1, 256), [2048, 1793, 256, 1], None),   # recurrentgemma MQA ring
+             ((3, 300, 8, 2, 256), [300, 101, 7], 96),
+             ((4, 4128, 16, 2, 128), [4128, 1, 0, 4127], None),    # most splits empty
+             ((3, 32, 8, 1, 64), [32, 5, 1], 8),                   # one split
+             ((4, 4128, 32, 8, 80), [4128, 4097, 100, 0], None),   # h2o-danube-1.8b
+             ((3, 300, 8, 2, 80), [300, 101, 7], 96),
+             ((4, 4128, 48, 1, 128), [4128, 4000, 17, 1], None),   # granite-20b's G = 48
+             ((2, 64, 8, 2, 16), [64, 33], None),        # the reduced dense configs' d = 16
+             ((3, 300, 8, 2, 16), [300, 101, 0], 96)]
+    assert kernels.decode_attention.split_plan(32, 3, 1, 8)[1] == 1      # "one split"
+    _check_decode(gen, dtype, cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_whisper_and_paligemma_shapes(dtype):
+    """whisper-small's decoder self-attention (head_dim 64, 12 heads on 12 KV
+    heads: G = 1) and paligemma-3b's (head_dim 256, 8 heads on one KV head:
+    G = 8) at their served caches (224 + 32 and 256 + 128 + 32 slots) and at
+    batch 1 part-filled."""
+    _check_decode(_card(), dtype, [
+        ((4, 256, 12, 12, 64), [256, 225, 17, 0], None),
+        ((1, 241, 12, 12, 64), [240], None),
+        ((4, 416, 8, 1, 256), [416, 257, 100, 0], None),
+        ((1, 401, 8, 1, 256), [400], None)])
+
+
+def _check_decode(gen, dtype, cases):
+    """Each ((B, T, H, KV, d), lens, window) case: one launch, zeros where no
+    key is live, the rest against the plain version."""
+    for (B, T, H, KV, d), lens, window in cases:
         q = torch.randn((B, 1, H, d), generator=gen, device="cuda").to(dtype)
         kc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
         vc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
@@ -700,6 +719,41 @@ def test_small_moe_model_serves_on_card_as_on_cpu():
     assert counts["cuda"] == {k: {"flash_attention": cfg.n_layers,
                                   "decode_attention": cfg.n_layers * steps}.get(k, 0)
                               for k in kernels.KERNELS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_small", "paligemma_3b"])
+def test_encdec_and_vlm_decode_match_a_fresh_prefill_at_full_width(arch):
+    """whisper-small (2 encoder and 2 decoder layers over 1500 frames) and
+    paligemma-3b (2 layers, 256 patches) at full width in float32, wq and wk
+    at the fan-in of d_model (neither has qk-norm; ``chip_smoke.fan_in_qk``):
+    prefill 64 tokens after the frontend stubs, then 8 decode steps on the
+    decode kernel (d = 64, G = 1; d = 256, G = 8), against one fresh prefill
+    of them all: the last logits within a relative L2 of 3e-2, as
+    chip_smoke's check; no launch in prefill, one a layer a decode step."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    _card()
+    cs, _ = _chip_smoke()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    if cfg.encdec:
+        cfg = dataclasses.replace(cfg, n_enc_layers=2)
+    model = build_model(cfg, device="cuda")
+    params = cs.fan_in_qk(cfg, model.init(torch.Generator(device="cuda").manual_seed(0)))
+    stubs = cs.stubs_for(torch, cfg, 1)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 72)),
+                           dtype=torch.int32, device="cuda")
+    kernels.reset_launches()
+    with torch.no_grad():
+        _, cache = model.prefill(params, toks[:, :64], model.init_cache(1, 320 + 8), **stubs)
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+    got = cs.decode_vs_prefill(torch, model, params, toks[:, :64], toks[:, 64:71], stubs)
+    counts = kernels.launch_counts()
+    assert counts["decode_attention"] == 2 * 8 and counts["flash_attention"] == 0, counts
+    assert got["rel_l2"] < 3e-2, got
 
 
 def _to(tree, device):

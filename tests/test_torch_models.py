@@ -69,6 +69,19 @@ def test_rms_norm():
            jcommon.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-6), F32)
 
 
+def test_layer_norm():
+    rng = np.random.default_rng(0)
+    x, s, b = _arr(rng, 2, 5, 64, scale=3.0), _arr(rng, 64, scale=0.1), _arr(rng, 64, scale=0.1)
+    x = x + np.float32(2.0)               # a mean far from 0
+    for eps in (1e-5, 1e-6):
+        _close(tcommon.layer_norm(*map(torch.from_numpy, (x, s, b)), eps),
+               jcommon.layer_norm(*map(jnp.asarray, (x, s, b)), eps), F32)
+    xb = torch.from_numpy(x).bfloat16()
+    out = tcommon.layer_norm(xb, torch.from_numpy(s), torch.from_numpy(b))
+    _close(out, jcommon.layer_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(s), jnp.asarray(b)),
+           BF16_BLOCK)
+
+
 @pytest.mark.parametrize("theta", [10000.0, 1_000_000.0])
 def test_apply_rope(theta):
     rng = np.random.default_rng(1)
@@ -242,24 +255,31 @@ def test_blocks_in_bfloat16_match_jax(block, S, with_state):
 
 
 # ---------------------------------------------------------------- whole model
-def _models(arch, **overrides):
+def _models(arch, wv_fan_in_d_model=False, **overrides):
     """Both models with one set of weights: the JAX package's init, as numpy.
 
     The JAX init draws wq and wk with std heads**-0.5, which makes the
     attention logits of these narrow models large and the softmax nearly
     one-hot; without qk-norm a last-bit difference in the logits then grows
     ~6x per layer. Scaling wq and wk by 0.3 in the shared numpy weights keeps
-    the comparison well conditioned; both packages get the same numbers."""
+    the comparison well conditioned; both packages get the same numbers.
+    With ``wv_fan_in_d_model`` wv is scaled by d_model**-0.5 too: the JAX init
+    reads its fan-in from the KV-head axis, 1 in an MQA model, so V comes out
+    with std ~sqrt(d_model) (entries up to ~40 in the reduced paligemma), and
+    the V cache's float32 roundoff alone reaches an elementwise 1e-4."""
     jcfg = dataclasses.replace(j_reduced(arch), **overrides)
     tcfg = dataclasses.replace(reduced_config(arch), **overrides)
     jm = JLM(jcfg)
     weights = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
     for group in ("stack", "tail"):
         for block in weights.get(group, {}).values():
-            for name in ("wq", "wk"):
+            scales = {"wq": 0.3, "wk": 0.3}
+            if wv_fan_in_d_model:
+                scales["wv"] = jcfg.d_model ** -0.5
+            for name, scale in scales.items():
                 if name in block["mixer"]:
                     w = block["mixer"][name]
-                    block["mixer"][name] = (w * np.float32(0.3)).astype(w.dtype)
+                    block["mixer"][name] = (w * np.float32(scale)).astype(w.dtype)
     tm = build_model(tcfg, device="cpu")
     return jm, jax.tree.map(jnp.asarray, weights), tm, from_numpy(weights, device="cpu")
 
@@ -490,9 +510,77 @@ def test_lm_loss_matches_jax(arch, overrides):
 
 
 def test_non_dense_families_name_their_roadmap_item():
-    for arch in ("whisper_small", "paligemma_3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(reduced_config(arch), device="cpu")
+    """Every config of the JAX package runs on the port: ``unsupported()``
+    names no ROADMAP item for any of the ten, full or reduced, and the
+    encoder-decoder builds as ``EncDecLM``."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.transformer import unsupported
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        assert unsupported(get_config(arch)) is None, arch
+        assert unsupported(reduced_config(arch)) is None, arch
+    assert isinstance(build_model(reduced_config("whisper_small"), device="cpu"), EncDecLM)
+    assert not isinstance(build_model(reduced_config("paligemma_3b"), device="cpu"), EncDecLM)
+
+
+@pytest.mark.parametrize("prompt,overrides,patches", [
+    (16, {}, True),                         # 16 patches + 16 tokens, below attn_chunk
+    # above attn_chunk the prefix keeps attention off flash: the query-chunked
+    # plain path (16 + 112 = 128 rows, chunks of 16), and one plain pass where
+    # the rows are no multiple of the chunk (16 + 105 = 121)
+    (112, {"attn_chunk": 64}, True),
+    (105, {"attn_chunk": 64}, True),
+    # float32 patches into the bf16 model: cast to its dtype, as in JAX
+    (16, {"dtype": "bfloat16"}, True),
+    # no patches: apply starts from prefix 0, prefill from the config's 16
+    (24, {}, False),
+])
+def test_vlm_prefix_apply_loss_prefill_decode_match_jax(prompt, overrides, patches):
+    """PaliGemma's prefix: logits (the patch rows included), the loss (patch
+    rows carry none), prefill over patches + prompt, 4 decode steps at
+    positions offset by the patches, and every cache leaf (wv at the fan-in
+    of d_model: see ``_models``)."""
+    B, steps = 2, 4
+    jm, jparams, tm, tparams = _models("paligemma_3b", wv_fan_in_d_model=True, **overrides)
+    cfg = tm.cfg
+    tol = BF16_MODEL if cfg.dtype == "bfloat16" else MODEL
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, (B, prompt + steps + 1)).astype(np.int32)
+    P = cfg.n_patches if patches else 0
+    extra = _arr(rng, B, cfg.n_patches, cfg.d_model, scale=0.5)
+    tx = {"extra_embeddings": torch.from_numpy(extra)} if patches else {}
+    jx = {"extra_embeddings": jnp.asarray(extra)} if patches else {}
+
+    logits, aux = tm.apply(tparams, torch.from_numpy(toks[:, :prompt]), **tx)
+    jlogits, jaux = jm.apply(jparams, jnp.asarray(toks[:, :prompt]), remat="none", **jx)
+    assert logits.shape[1] == P + prompt
+    _close(logits, jlogits, tol)
+
+    batch = {"tokens": toks[:, :prompt], "labels": toks[:, 1:prompt + 1]}
+    loss, parts = tm.loss(tparams, {**{k: torch.from_numpy(v) for k, v in batch.items()}, **tx})
+    jloss, jparts = jm.loss(jparams, {**jax.tree.map(jnp.asarray, batch), **jx}, remat="none")
+    _close(loss, jloss, tol)
+    _close(parts["nll"], jparts["nll"], tol)
+
+    max_len = P + prompt + steps
+    before = launch_counts()
+    with torch.no_grad():
+        out, cache = tm.prefill(tparams, torch.from_numpy(toks[:, :prompt]),
+                                tm.init_cache(B, max_len), **tx)
+    jout, jcache = jm.prefill(jparams, jnp.asarray(toks[:, :prompt]), jm.init_cache(B, max_len),
+                              **jx)
+    _close(out, jout, tol)
+    jdecode = jax.jit(jm.decode)
+    for i in range(steps):
+        pos = np.full((B,), P + prompt + i, np.int32)
+        tok = toks[:, prompt + i:prompt + i + 1]
+        with torch.no_grad():
+            out, cache = tm.decode(tparams, torch.from_numpy(tok), cache, torch.from_numpy(pos))
+        jout, jcache = jdecode(jparams, jnp.asarray(tok), jcache, jnp.asarray(pos))
+        _close(out, jout, tol)
+    walk_close(cache, jax.tree.map(np.asarray, jcache), tol)
+    assert launch_counts() == before          # CPU tensors launch no kernel
 
 
 def test_init_is_seeded_and_laid_out_like_jax():

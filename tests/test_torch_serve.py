@@ -20,7 +20,8 @@ ARGS = ["--arch", "qwen3_32b", "--reduced", "--batch", "2", "--prompt-len", "12"
 
 
 @pytest.mark.parametrize("arch", ["qwen3_32b", "mamba2_780m", "recurrentgemma_9b",
-                                  "h2o_danube_1_8b", "olmoe_1b_7b", "deepseek_v2_236b"])
+                                  "h2o_danube_1_8b", "olmoe_1b_7b", "deepseek_v2_236b",
+                                  "whisper_small", "paligemma_3b"])
 def test_serve_reduced_on_cpu_prints_latency(capsys, arch):
     out = serve.main(["--arch", arch] + ARGS[2:] + ["--device", "cpu"])
     text = capsys.readouterr().out
