@@ -17,7 +17,8 @@ phases:
    prefill (also at 8192 tokens, where its 4096 window binds) and decode,
    granite-20b's 48 query heads on one KV head, olmoe-1b-7b's 16 query
    heads on 16 KV heads (G = 1, prefill and decode, also in float32 for
-   phase 3's check), decode at whisper-small's head_dim 64 with G = 1 and
+   phase 3's check; the forward also at its training shape, B = 2),
+   decode at whisper-small's head_dim 64 with G = 1 and
    paligemma-3b's head_dim 256 with G = 8 (their served caches, also ragged
    and in float32), mamba2-780m's SSD scan
    with each of its four bf16 stages timed by the profiler,
@@ -33,6 +34,7 @@ phases:
    L2 flushed before each launch); the flash backward (dq, dk, dv) at
    qwen3-32b's training shape (B=2, S=4096), h2o-danube-1.8b's (B=2,
    S=8192, head_dim 80, window 4096) and granite-20b's group (G = 48),
+   olmoe-1b-7b's (B=2, S=4096, 16 heads on 16 KV heads of 128: G = 1),
    and at head_dim 64, G = 1, a 2048 window, ragged S, the query group
    split across blocks (G = 48, one key tile) and float32, each of its
    three kernels (dsum, the wgmma kernel, the convert) timed by the
@@ -91,8 +93,11 @@ phases:
    of the reduced recurrentgemma (head_dim 64, S = 256 above its window of
    32: the RG-LRU scan's and the flash kernels, forward and backward), and
    of the reduced mamba2 (S = 128, chunk 32: the SSD scan's forward
-   and backward kernels), on the card against the CPU: loss, grad norm and
-   every gradient;
+   and backward kernels), of the reduced olmoe (head_dim 64, attn_chunk 64
+   < S = 256: the flash kernels at G = 1, slots dropped at capacity 1.25)
+   and of the reduced deepseek (MLA's query chunks under the units' remat,
+   no kernel), on the card against the CPU: loss, the MoE aux loss, grad
+   norm and every gradient;
 5. training through ``make_train_step`` and ``TokenPipeline`` (bf16,
    remat="full", 10 steps each): qwen3-32b at full width (depth cut to 4
    layers, batch 2 x 4096), then h2o-danube-1.8b at full width and depth
@@ -103,7 +108,11 @@ phases:
    2048 window; wq and wk at the fan-in of d_model), then whisper-small at
    full width and depth (batch 8 x 448 over 1500 frames) and paligemma-3b at
    full width (depth cut to 4 layers; batch 2 x 512 after 256 patches), both
-   launching no kernel: each step's loss
+   launching no kernel, then olmoe-1b-7b at full width (depth cut to 8 of 16
+   MoE layers; batch 2 x 4096, the reference's capacity factor 1.25; the
+   dropped share of an untimed forward before and after the steps and the
+   expert products' capacity overhead printed):
+   each step's loss
    (the last below the first), its launches checked exactly (a stacked
    layer's kernel two forwards, forward and recompute, and one backward;
    a tail layer's, which is not rematerialised, one of each), the median
@@ -111,7 +120,13 @@ phases:
    a profiler window over one step with the flash forward's and
    backward's shares; after qwen3's steps a Checkpointer round trip of the
    trained parameters and AdamW state, restored onto the card bit for
-   bit; and the train launcher (``python -m repro_torch.launch.train --arch
+   bit; after olmoe's steps ``ef_compress`` over the gradients of the
+   trained parameters, a second call carrying the first's residual against
+   the same call on CPU copies (bit for bit, the residual norm within 1e-5);
+   deepseek-v2-236b's loss and gradients at full width (3 of 60 layers: the
+   dense-first tail and two MoE units; batch 1 x 4096, MLA's query chunks
+   nested in the units' remat; no optimizer), 3 passes, every gradient
+   finite, no launch; and the train launcher (``python -m repro_torch.launch.train --arch
    recurrentgemma_9b --reduced --steps 20``, through its ``main``): the loss
    falls and every rec layer launches the RG-LRU scan forward and backward
    once a step;
@@ -175,7 +190,14 @@ phases:
    bound), the flash forward and backward launches of the DTensor steps
    exact and the DTensor entry's local branch once a flash forward; step
    times, peak memory and the remesh time (from the verdict to the first
-   resumed step's end).
+   resumed step's end);
+9. the examples through their ``main`` on the card: the smart-home example
+   (``examples/smart_home_training_torch.py``) plans smart_home_2, trains 20
+   steps and checkpoints, then resumes at step 20 and trains to 40 (no
+   launch: its sequences stay below attn_chunk); the traffic-monitor example
+   replays its dynamics timeline and decodes greedily, one decode launch a
+   layer a step, checked exactly, its tokens equal to the same decode of CPU
+   copies of its weights.
 
 The h2o, whisper and paligemma paths and recurrentgemma's training path
 draw wq and wk at the fan-in of d_model (``fan_in_qk``):
@@ -191,6 +213,7 @@ build/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -244,6 +267,14 @@ PG_PROMPT, PG_PATCHES, PG_HEADS, PG_HEAD_DIM = 128, 256, 8, 256
 # paligemma at 4 of 18 layers (the script's time), B=2 x 512 tokens after its patches
 WH_TRAIN_BATCH, WH_TRAIN_SEQ = 8, 448
 PG_TRAIN_LAYERS, PG_TRAIN_BATCH, PG_TRAIN_SEQ = 4, 2, 512
+# olmoe-1b-7b's training path: 8 of 16 layers (AdamW's float32 state of all 16
+# would not fit), batch 2 x 4096 (train_4k's sequence, above attn_chunk: the flash
+# forward and backward at G = 1, d = 128), bf16
+OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ = 8, 2, 4096
+# deepseek-v2-236b's loss and gradients (no AdamW: 2 layers' state alone is ~64 GB):
+# 3 of 60 layers (the dense-first tail and two stacked MoE units), batch 1 x 4096
+# (MLA's query-chunked prefill under its checkpoints), 3 timed passes
+DS_GRAD_LAYERS, DS_GRAD_BATCH, DS_GRAD_SEQ, DS_GRAD_PASSES = 3, 1, 4096, 3
 # calibration's steps on the reduced configs (batch 2, sequence 32, float32):
 # mamba2's SSD scan (B, S, H, P, G, N, chunk) in training, and qwen3's decode
 # attention (B, T, H, KV, d) at the first position of a 32-slot cache
@@ -434,7 +465,7 @@ def kernels_flash(kp: KernelPhase) -> None:
     Bk, Sk, Hk, KVk, Dk = mb.FLASH_SHAPE
     mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256",
              "d80 main path": "flash_attention_d80", "G=48 main path": "flash_attention_g48",
-             "G=1 main path": "flash_attention_g1"}
+             "G=1 main path": "flash_attention_g1", "G=1 train path": "flash_attention_g1_train"}
 
     for name, (B, S, T, h, kv, d), causal, window, dt in [
             ("main path", (BATCH, PROMPT, PROMPT, H, KV, D), True, None, "bfloat16"),
@@ -471,6 +502,9 @@ def kernels_flash(kp: KernelPhase) -> None:
              "bfloat16"),
             ("f32 G=1", (1, PROMPT // 4, PROMPT // 4, OLMOE_HEADS, OLMOE_HEADS, D), True, None,
              "float32"),
+            # olmoe-1b-7b's training shape (phase 5): B = 2
+            ("G=1 train path", (OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, OLMOE_TRAIN_SEQ, OLMOE_HEADS,
+                                OLMOE_HEADS, D), True, None, "bfloat16"),
             # phase 6's microbatches: granite-8b's, and h2o-danube-1.8b's in bf16 and in
             # float32 (its float32 gradient check runs the CUDA-core kernel)
             ("granite-8b plan", (GRANITE_MB, PLAN_SEQ, PLAN_SEQ, GRANITE_HEADS, GRANITE_KV, D),
@@ -532,7 +566,8 @@ def kernels_flash(kp: KernelPhase) -> None:
                       ("flash_attention_d256", "recurrentgemma-9b's d=256 prefill shape"),
                       ("flash_attention_d80", "h2o-danube-1.8b's d=80 prefill shape"),
                       ("flash_attention_g48", "granite-20b's G=48 prefill shape"),
-                      ("flash_attention_g1", "olmoe-1b-7b's G=1 prefill shape")):
+                      ("flash_attention_g1", "olmoe-1b-7b's G=1 prefill shape"),
+                      ("flash_attention_g1_train", "olmoe-1b-7b's G=1 training shape")):
         r = rec[key]
         log(card, f"flash_attention at {what}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention "
@@ -545,8 +580,8 @@ def kernels_decode(kp: KernelPhase) -> None:
     """decode_attention at qwen3-32b's, recurrentgemma-9b's,
     h2o-danube-1.8b's (head_dim 80), granite-20b's (G = 48), olmoe-1b-7b's
     (G = 1), whisper-small's (head_dim 64, G = 1) and paligemma-3b's (head_dim
-    256, G = 8) decode shapes, and phase 7's calibration shapes (head_dim 64
-    and 16)."""
+    256, G = 8) decode shapes, phase 7's calibration shapes (head_dim 64
+    and 16) and the traffic-monitor example's (head_dim 16, float32)."""
     import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.calibrate import microbench as mb
@@ -641,7 +676,10 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("d16 f32", (2, T, Hc, KVc, Dc), [T, 17], None, "float32"),
         ("d16 f32 window", (3, 300, Hc, KVc, Dc), [300, 101, 0], 96, "float32"),
         ("d16 bf16", (4, T, Hc, KVc, Dc), [T, PROMPT + 1, 100, 1], None, "bfloat16"),
-        ("d16 bf16 window", (3, 300, Hc, KVc, Dc), [300, 101, 7], 96, "bfloat16")])
+        ("d16 bf16 window", (3, 300, Hc, KVc, Dc), [300, 101, 7], 96, "bfloat16"),
+        # the traffic-monitor example's cache: lengths 17 (the warm-up step) to 48
+        ("d16 traffic example first step", TRAFFIC_DECODE, [17] * 4, None, "float32"),
+        ("d16 traffic example", TRAFFIC_DECODE, [48, 17, 33, 40], None, "float32")])
     # granite-20b's group: 48 query heads on one KV head of 128
     run_decode("decode_attention_g48", "G=48 main path", [
         ("G=48 main path", (BATCH, T, G48_HEADS, 1, D), [T] * BATCH, None, "bfloat16"),
@@ -1116,10 +1154,14 @@ BWD_CASES = [
      "bfloat16"),
     ("d256 ragged S", (2, 333, RG_HEADS, 1, RG_HEAD_DIM), None, "bfloat16"),
     ("d256 window 40", (1, 1000, RG_HEADS, 1, RG_HEAD_DIM), 40, "bfloat16"),
-    ("d256 split one tile", (1, 64, RG_HEADS, 1, RG_HEAD_DIM), None, "bfloat16")]
+    ("d256 split one tile", (1, 64, RG_HEADS, 1, RG_HEAD_DIM), None, "bfloat16"),
+    # olmoe-1b-7b's training shape: 16 query heads on 16 KV heads (G = 1), d = 128
+    ("G=1 train path", (OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, OLMOE_HEADS, OLMOE_HEADS, HEAD_DIM),
+     None, "bfloat16")]
 # the cases timed against their bound and the library, by record key
 BWD_MAINS = {"train path": "flash_attention_bwd", "d80 train path": "flash_attention_bwd_d80",
-             "G=48": "flash_attention_bwd_g48", "d256 train path": "flash_attention_bwd_d256"}
+             "G=48": "flash_attention_bwd_g48", "d256 train path": "flash_attention_bwd_d256",
+             "G=1 train path": "flash_attention_bwd_g1"}
 
 
 def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
@@ -1141,8 +1183,8 @@ def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
 
 
 def kernels_flash_bwd(kp: KernelPhase) -> None:
-    """flash_attention_bwd at qwen3-32b's, h2o-danube-1.8b's and
-    recurrentgemma-9b's training shapes, head_dim 64, 80 and 256, G = 1, 8,
+    """flash_attention_bwd at qwen3-32b's, h2o-danube-1.8b's,
+    recurrentgemma-9b's and olmoe-1b-7b's training shapes, head_dim 64, 80 and 256, G = 1, 8,
     16 and 48, windows at S = 4096 and 8192, ragged S, float32,
     h2o-danube-1.8b's pipeline microbatch in bf16 and float32, a group split
     over every head at head_dim 256; each against its plain version on the same
@@ -1497,6 +1539,14 @@ class RoutingDrops:
         return float(sum(int(d) for d in self.dropped)) / sum(self.slots)
 
 
+def drop_share(torch, model, params, batch) -> float:
+    """The share of routed (token, slot)s that one untimed forward of
+    ``model.loss`` on ``batch`` drops: the counter stays out of timed steps."""
+    with RoutingDrops() as drops, torch.no_grad():
+        model.loss(params, batch, remat="full")
+    return drops.share()
+
+
 def phase_serve(torch, card: str, path: ServePath) -> dict:
     import numpy as np
     from repro_torch import kernels
@@ -1744,12 +1794,20 @@ SMALL_TRAIN = [
     # head_dim 80, and a window below S that binds in both kernels
     ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 256, True),
     ("mamba2_780m", {}, 128, False),
+    # MoE: the reduced olmoe (3 MoE layers of 8 experts top-2 at the reference's
+    # capacity, so slots drop) at head_dim 64: the flash forward and backward at
+    # G = 1; the reduced deepseek (MLA's query-chunked prefill nested in the unit's
+    # remat, the dense-first tail first, shared experts): no kernel. The aux loss
+    # is compared too
+    ("olmoe_1b_7b", dict(head_dim=64, attn_chunk=64), 256, False),
+    ("deepseek_v2_236b", dict(attn_chunk=64), 256, False),
 ]
 
 
-# the forward and backward kernel of each layer kind
-KIND_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
-                "local_attn": ("flash_attention", "flash_attention_bwd"),
+# the forward and backward kernel of each layer kind (an MoE model's layers
+# attend as the dense ones; with MLA they take no kernel)
+ATTN = ("flash_attention", "flash_attention_bwd")
+KIND_KERNELS = {"dense": ATTN, "local_attn": ATTN, "moe": ATTN, "dense_mlp": ATTN,
                 "ssm": ("ssd_scan", "ssd_scan_bwd"), "rec": ("rglru_scan", "rglru_scan_bwd")}
 
 
@@ -1759,9 +1817,9 @@ def train_launches(cfg, seq: int) -> Dict[str, int]:
     twice (forward and the unit's recompute) and backward once; a tail
     layer, which ``LM.apply`` does not rematerialise, forward once and
     backward once. Attention launches flash only above attn_chunk and
-    without a prefix (a VLM always has one); the encoder-decoder's decoder
-    layers are each rematerialised, its encoder and cross-attention launch
-    nothing."""
+    without a prefix (a VLM always has one), MLA never; the encoder-decoder's
+    decoder layers are each rematerialised, its encoder and cross-attention
+    launch nothing."""
     from repro_torch.models import build_model
     flash = seq > cfg.attn_chunk and not cfg.prefix_len
     if cfg.encdec:
@@ -1771,7 +1829,7 @@ def train_launches(cfg, seq: int) -> Dict[str, int]:
     out: Dict[str, int] = {}
     for kinds, fwd_calls, reps in ((unit, 2, n_units), (tail, 1, 1)):
         for kind in kinds:
-            if kind in ("dense", "local_attn") and not flash:
+            if KIND_KERNELS[kind] == ATTN and (cfg.mla or not flash):
                 continue
             fwd, bwd = KIND_KERNELS[kind]
             out[fwd] = out.get(fwd, 0) + fwd_calls * reps
@@ -1905,8 +1963,8 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
                       qk_fan_in: bool) -> dict:
     """One float32 train step of a small model on the card against the same
     step on the CPU (the plain path). attn_chunk < S, so the flash forward
-    and backward kernels run (for mamba2 the SSD scan's): loss and grad_norm
-    within 1e-4 relative,
+    and backward kernels run (for mamba2 the SSD scan's): loss, grad_norm
+    and the MoE aux loss within 1e-4 relative,
     every gradient within 1e-4 of
     its leaf's largest magnitude (post-Adam parameters are not compared:
     Adam turns rounding noise on tiny gradients into lr-sized differences),
@@ -1945,15 +2003,17 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
     if out[DEVICE]["launches"] != want:
         raise AssertionError(f"small train step launches {out[DEVICE]['launches']}, "
                              f"expected {want}")
-    step_err = {k: abs(float(out[DEVICE][k]) - float(out["cpu"][k])) / abs(float(out["cpu"][k]))
-                for k in ("loss", "grad_norm")}
+    # relative, but the aux loss of a model without MoE layers is 0 on both
+    step_err = {k: abs(float(out[DEVICE][k]) - float(out["cpu"][k]))
+                / (abs(float(out["cpu"][k])) or 1.0) for k in ("loss", "grad_norm", "aux")}
     log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}, wq/wk fan-in "
               f"{'d_model' if qk_fan_in else 'heads'}, "
               f"S={S}) train step, card vs CPU: loss rel err {loss_err:.3e}; a 1e-7 change of "
               f"the embedding moves the CPU's gradients by up to {cond:.3e} of a leaf's max; "
               f"worst gradient "
-              f"{grad_err:.3e} of its leaf's max, train-step loss {step_err['loss']:.3e} and "
-              f"grad_norm {step_err['grad_norm']:.3e} relative (tol {tol}); launches "
+              f"{grad_err:.3e} of its leaf's max, train-step loss {step_err['loss']:.3e}, "
+              f"grad_norm {step_err['grad_norm']:.3e} and aux {step_err['aux']:.3e} (aux "
+              f"{float(out['cpu']['aux']):.6f} on the CPU) relative (tol {tol}); launches "
               f"{out[DEVICE]['launches']}")
     if max(loss_err, grad_err, *step_err.values()) > tol:
         raise AssertionError("the card's train step disagrees with the CPU's")
@@ -1981,8 +2041,10 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     encoder-decoder also the encoder over its frames (non-causal), the
     cross-attention's K/V projections over the frames and its scores (every
     token against every frame); for a VLM the layers and the head run over
-    the patches too, and the prefix's pairs above the diagonal are live. The
-    recomputation of remat="full" is not counted."""
+    the patches too, and the prefix's pairs above the diagonal are live; an
+    MoE layer counts its active parameters (router, K experts, shared
+    experts), MLA its projections and its pairs' (dn + dr)- and dv-wide
+    products. The recomputation of remat="full" is not counted."""
     if cfg.ssm:
         from repro_torch.kernels import flops
         d, din, gn, nh = cfg.d_model, cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state, \
@@ -2004,14 +2066,38 @@ def train_flops(cfg, batch: int, seq: int) -> float:
         return 6.0 * matmul_tokens * batch + 3 * 4 * hd * h * batch * pairs
     P = prefix_slots(cfg)         # training's prefix is the patches (LM.apply)
     seq += P
-    mixer = {"dense": 2 * d * h * hd + 2 * d * kv * hd, "local_attn": 2 * d * h * hd + 2 * d * kv * hd,
+    if cfg.mla:      # wq_a, wq_nope/wq_rope, wkv_a, wk_nope/wv, wo; a pair's q.k and p.v
+        rq, rkv, dn, dr, dv = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_dim, \
+            cfg.qk_rope_dim, cfg.v_head_dim
+        attn_proj = d * rq + rq * h * (dn + dr) + d * (rkv + dr) + rkv * h * (dn + dv) \
+            + h * dv * d
+        pair_ops = 2 * (dn + dr) + 2 * dv
+    else:
+        attn_proj, pair_ops = 2 * d * h * hd + 2 * d * kv * hd, 4 * hd
+    mixer = {"dense": attn_proj, "local_attn": attn_proj, "moe": attn_proj,
+             "dense_mlp": attn_proj,
              "rec": 3 * d * w + 2 * w * w}       # RG-LRU: w_in, gate branch, w_out; wa, wx
+    # an MoE layer's active parameters: the router, K of E experts' three products
+    # and the shared experts (the dispatch's empty and dropped rows not counted)
+    moe = d * cfg.n_experts + cfg.experts_per_token * 3 * d * cfg.moe_d_ff \
+        + cfg.n_shared_experts * (3 if cfg.gated_mlp else 2) * d * cfg.moe_d_ff
     kinds = build_model(cfg, device="cpu").layer_kinds()
-    matmul = sum(mixer[k] + mlp for k in kinds) + d * cfg.padded_vocab
+    matmul = sum(mixer[k] + (moe if k == "moe" else mlp) for k in kinds) \
+        + d * cfg.padded_vocab
     n_attn = sum(k != "rec" for k in kinds)
     pairs = live_pairs(seq, seq, True, cfg.window) + P * (P - 1) // 2
-    attn = 3 * 4 * hd * h * batch * pairs * n_attn
+    attn = 3 * pair_ops * h * batch * pairs * n_attn
     return 6.0 * matmul * batch * seq + attn
+
+
+def moe_rows_share(cfg, batch: int, seq: int) -> float:
+    """The rows the expert products compute (E x C a dispatch group, dropped
+    and empty slots included) over the routed (token, slot)s, K x T: the
+    capacity overhead that ``train_flops`` does not count."""
+    from repro_torch.models.mlp import dispatch_groups, moe_capacity
+    T = batch * seq
+    G = dispatch_groups(T, cfg)
+    return cfg.n_experts * moe_capacity(cfg, T // G) * G / (cfg.experts_per_token * T)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2026,6 +2112,7 @@ class TrainPath:
     steps: int
     checkpoint: bool
     qk_fan_in: bool = False   # wq and wk at the fan-in of d_model (see fan_in_qk)
+    compress: bool = False    # ef_compress over the trained state's gradients, card vs CPU
 
 
 TRAIN_PATHS = [
@@ -2050,6 +2137,12 @@ TRAIN_PATHS = [
     # fan-in of d_model, as whisper's
     TrainPath("paligemma_3b", PG_TRAIN_LAYERS, PG_TRAIN_BATCH, PG_TRAIN_SEQ, TRAIN_STEPS, False,
               True),
+    # 8 of 16 MoE layers (64 experts top-8 at the reference's capacity factor 1.25),
+    # S = 4096 above attn_chunk: the flash forward and backward at G = 1, d = 128, 16
+    # forwards (forward and recompute of 8 stacked units) and 8 backwards a step; then
+    # ef_compress over the trained state's gradients on the card against the CPU
+    TrainPath("olmoe_1b_7b", OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, TRAIN_STEPS,
+              False, compress=True),
 ]
 
 
@@ -2082,7 +2175,10 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
              f"{cfg.ssm_chunk}" if cfg.ssm else f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV "
              f"heads of {cfg.hd}, d_ff {cfg.d_ff}"
              + (f", lru width {cfg.lru_dim}, layers {'/'.join(model.layer_kinds())}"
-                if "rec" in cfg.block_pattern else ""))
+                if "rec" in cfg.block_pattern else "")
+             + (f", {cfg.n_experts} experts top-{cfg.experts_per_token} of d_ff "
+                f"{cfg.moe_d_ff} at capacity factor {cfg.capacity_factor}"
+                if cfg.n_experts else ""))
     log(card, f"training {cfg.name} at full width (d_model {cfg.d_model}, {width}, vocab "
               f"{cfg.vocab_size}, {cfg.dtype}), {cfg.n_layers} of {full.n_layers} layers: "
               f"{n_params / 1e9:.3f} B "
@@ -2095,12 +2191,17 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
               f"fan-in {'d_model' if path.qk_fan_in else 'heads (the reference init)'}")
     per_step = {k: 0 for k in kernels.KERNELS}
     per_step.update(train_launches(cfg, S))
+    batch = {**next(data), **stubs}
+    # an MoE model: the share of routed (token, slot)s that the first batch drops
+    # before training and a fresh batch after it (untimed forwards, no launch counted)
+    drop_shares = [drop_share(torch, model, params, batch)] if cfg.n_experts else []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses, step_ms, metrics = [], [], []
     for step in range(steps):
-        batch = {**next(data), **stubs}
+        if step:
+            batch = {**next(data), **stubs}
         torch.cuda.synchronize()
         before = kernels.launch_counts()
         t0 = time.perf_counter()
@@ -2118,9 +2219,13 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
         metrics.append(m)
         log(card, f"{cfg.name} train step {step}: loss {m['loss']:.4f} (nll {m['nll']:.4f}), "
                   f"grad_norm {m['grad_norm']:.3f}, clip {m['clip_scale']:.4f}, lr "
-                  f"{m['lr']:.3e}, {step_ms[-1]:.1f} ms")
+                  f"{m['lr']:.3e}, {step_ms[-1]:.1f} ms"
+                  + (f", aux {m['aux']:.5f}" if cfg.n_experts else ""))
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    batch = {**next(data), **stubs}
+    if cfg.n_experts:
+        drop_shares.append(drop_share(torch, model, params, batch))
     alloc = torch.cuda.memory_stats()
     retries, reserved = alloc.get("num_alloc_retries", 0), alloc.get("reserved_bytes.all.peak", 0)
     if not losses[-1] < losses[0]:
@@ -2136,7 +2241,13 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
               f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), {reserved / 2**30:.2f} "
               f"GiB reserved, {retries} allocation retries (the caching allocator freed its "
               f"cache and synchronised); launches over {steps} steps {counts}")
-    batch = {**next(data), **stubs}
+    if cfg.n_experts:
+        log(card, f"{cfg.name} training: the expert products compute "
+                  f"{moe_rows_share(cfg, B, S):.4f} x the routed (token, slot)s' rows (E x C x "
+                  f"G / (K x T), capacity overhead not in the model FLOPs); dropped slots "
+                  f"{100 * drop_shares[0]:.2f}% of step 0's batch before training, "
+                  f"{100 * drop_shares[-1]:.2f}% of a fresh batch after step {steps - 1} "
+                  f"(untimed forwards)")
     groups = {"ssd_scan forward": ("ssd_cb_", "ssd_chunk_state_", "ssd_state_passing_",
                                    "ssd_chunk_scan_"), "ssd_scan backward": "ssd_bwd_"} \
         if cfg.ssm else {"flash_attention forward": "flash_wgmma_kernel",
@@ -2145,6 +2256,7 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
         groups.update({"rglru_scan forward": "rglru_kernel", "rglru_scan backward": "rglru_bwd_kernel"})
     prof = profile(torch, lambda: train_step(params, opt, batch, steps), card,
                    f"one {cfg.name} train step ({B}x{S})", groups=groups)
+    compress_batch = {**next(data), **stubs} if path.compress else None
     data.close()
     del batch
     out = dict(config=full.name, n_layers=cfg.n_layers, full_layers=full.n_layers,
@@ -2153,6 +2265,8 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
                tokens_s=tok_s, model_flops=flops, mfu=mfu, peak_bytes=peak, launches=counts,
                launches_per_step=per_step, profile=prof, alloc_retries=retries,
                reserved_peak_bytes=reserved)
+    if cfg.n_experts:
+        out.update(drop_shares=drop_shares, expert_rows_share=moe_rows_share(cfg, B, S))
 
     if path.checkpoint:
         out["checkpoint"] = checkpoint_round_trip(torch, card, cfg.name, steps, params, opt)
@@ -2162,7 +2276,13 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
     grads = _fill_like(params, 1e-3)
     out["profile_adamw"] = profile(torch, lambda: adamw_update(grads, opt, params, 1e-5), card,
                                    f"one AdamW update of the {n_params / 1e9:.3f} B parameters")
-    del grads, params, opt        # the trained state is not needed past here
+    del grads, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if path.compress:
+        out["compress"] = compress_check(torch, card, cfg.name, model, params, compress_batch)
+        del compress_batch
+    del params                    # the trained state is not needed past here
     gc.collect()
     torch.cuda.empty_cache()
     if path.qk_fan_in:      # the first batch's gradient with the reference init's wq and wk
@@ -2179,6 +2299,53 @@ def phase_train(torch, card: str, path: TrainPath) -> dict:
                   f"(against {metrics[0]['grad_norm']:.4g} above; the clip to 1 then leaves "
                   f"updates of ~{1 / norm:.1g} of the gradient)")
         del ref_params, grads_ref, batch
+    return out
+
+
+COMPRESS_NORM_TOL = 1e-5     # relative: the residual norm sums its leaves in another order
+
+
+def compress_check(torch, card: str, name: str, model, params, batch) -> dict:
+    """``ef_compress`` over the gradients of one batch of the trained
+    parameters on the card: a first call from the zero residual, then a
+    second that carries the first's residual, held against the same second
+    call on CPU copies of its inputs, a leaf at a time: every dequantised
+    gradient and residual bit for bit (one float32 division, a half-to-even
+    round, exact products and differences on both devices), the residual
+    norm within ``COMPRESS_NORM_TOL`` (float32 sums in another order). One
+    call is compared: the CPU's side of it takes about a minute."""
+    from repro_torch.optim import ef_compress, ef_init
+    leaves = list(_leaves(params))         # they require grad since the train step
+    loss, _ = model.loss(params, batch, remat="full")
+    grads = _rebuild(params, iter(torch.autograd.grad(loss, leaves)))
+    del loss
+    _, ef, first = ef_compress(grads, ef_init(grads))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deq, new_ef, m = ef_compress(grads, ef)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    equal, sq = True, 0.0
+    for g, e, d, r in zip(_leaves(grads), _leaves(ef), _leaves(deq), _leaves(new_ef)):
+        d_c, r_c, _ = ef_compress({"x": g.cpu()}, {"x": e.cpu()})
+        equal &= bool(torch.equal(d.cpu(), d_c["x"]) and torch.equal(r.cpu(), r_c["x"]))
+        sq += float(torch.sum(torch.square(r_c["x"])))
+    cpu_s = time.perf_counter() - t0
+    norm, cpu_norm = float(m["ef_residual_norm"]), math.sqrt(sq)
+    err = abs(norm - cpu_norm) / cpu_norm
+    out = dict(leaves=len(leaves), elements=sum(t.numel() for t in leaves), card_ms=card_ms,
+               cpu_s=cpu_s, equal=equal, first_norm=float(first["ef_residual_norm"]), norm=norm,
+               cpu_norm=cpu_norm, norm_rel_err=err, norm_tol=COMPRESS_NORM_TOL)
+    log(card, f"{name} ef_compress over the gradients of {out['leaves']} leaves "
+              f"({out['elements'] / 1e9:.3f} B elements), the call carrying the first call's "
+              f"residual (norm {out['first_norm']:.6g}): {card_ms:.1f} ms on the card (host "
+              f"clock); dequantised gradients and residuals "
+              f"{'equal bit for bit to' if equal else 'DIFFERENT from'} the same call's on CPU "
+              f"copies ({cpu_s:.1f} s); residual norm {norm:.6g}, within {err:.2e} of the "
+              f"CPU's (tol {COMPRESS_NORM_TOL})")
+    if not equal or not err <= COMPRESS_NORM_TOL:
+        raise AssertionError(f"ef_compress on the card disagrees with the CPU: {out}")
     return out
 
 
@@ -2211,6 +2378,91 @@ def checkpoint_round_trip(torch, card: str, name: str, step: int, params, opt) -
               f"(async save, then wait), restored onto the card and equal bit for bit in "
               f"{restore_s:.1f} s")
     return dict(bytes=written, save_s=save_s, restore_s=restore_s)
+
+
+def phase_grads(torch, card: str) -> dict:
+    """deepseek-v2-236b's loss and gradients at full width through
+    ``LM.loss`` (remat="full") and autograd, with no optimizer: its
+    dense-first tail and two stacked MoE units hold ~9.3 B parameters, whose
+    AdamW state would not fit beside them on one card. ``DS_GRAD_PASSES``
+    passes timed on the host clock (median), then one profiled; every
+    gradient finite, no kernel launched (MLA takes neither kernel), the
+    model-FLOP share of 989 TFLOP/s, the peak memory, and the routed slots'
+    drop share from one untimed forward after the timed passes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+
+    batch, seq, passes = DS_GRAD_BATCH, DS_GRAD_SEQ, DS_GRAD_PASSES
+    full = get_config("deepseek_v2_236b")
+    cfg = dataclasses.replace(full, n_layers=DS_GRAD_LAYERS)
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    n_params = sum(t.numel() for t in leaves)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                    seed=0), device=DEVICE)
+    tokens = next(data)
+    data.close()
+    unit, n_units, tail = model.scan_groups()
+    log(card, f"{cfg.name} loss and gradients at full width (d_model {cfg.d_model}, "
+              f"{cfg.n_heads} MLA heads, kv rank {cfg.kv_lora_rank}, {cfg.n_experts} experts "
+              f"top-{cfg.experts_per_token} + {cfg.n_shared_experts} shared at capacity factor "
+              f"{cfg.capacity_factor}), {cfg.n_layers} of {full.n_layers} layers (tail "
+              f"{'/'.join(tail)} first, {n_units} stacked {'/'.join(unit)} units): "
+              f"{n_params / 1e9:.3f} B parameters; batch {batch} x {seq} (MLA's query chunks of "
+              f"{cfg.attn_chunk // 4} under the units' remat), {cfg.dtype}, no optimizer")
+
+    def grads():
+        loss, met = model.loss(params, tokens, remat="full")
+        return loss.detach(), met["aux"].detach(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ms, losses = [], []
+    for i in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux, g = grads()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all())
+        norm = float(torch.sqrt(sum(x.float().pow(2).sum() for x in g)))
+        losses.append(float(loss))
+        log(card, f"{cfg.name} gradients pass {i}: loss {float(loss):.4f}, aux "
+                  f"{float(aux):.5f}, grad norm {norm:.4g}, every gradient finite: {finite}, "
+                  f"{ms[-1]:.1f} ms")
+        if not (finite and math.isfinite(float(loss))):
+            raise AssertionError(f"{cfg.name}: a non-finite loss or gradient")
+        del g
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    dropped = drop_share(torch, model, params, tokens)
+    if any(counts.values()):
+        raise AssertionError(f"{cfg.name}'s gradients launched {counts}: MLA takes no kernel")
+    med = statistics.median(ms)
+    flops = train_flops(cfg, batch, seq)
+    mfu = flops / (med / 1e3) / PEAK_OPS["bfloat16"]
+    log(card, f"{cfg.name} gradients: {med:.1f} ms (median of {passes} passes), "
+              f"{batch * seq / med * 1e3:.0f} tokens/s, model FLOPs {flops / 1e12:.2f} TFLOP a "
+              f"pass, {100 * mfu:.1f}% of 989 TFLOP/s; the expert products compute "
+              f"{moe_rows_share(cfg, batch, seq):.4f} x the routed rows; "
+              f"{100 * dropped:.2f}% of routed slots dropped (an untimed forward); peak memory "
+              f"{peak / 2**30:.2f} GiB; launches {counts}")
+    prof = profile(torch, grads, card, f"one {cfg.name} loss-and-gradients pass ({batch}x{seq})")
+    out = dict(config=full.name, n_layers=cfg.n_layers, full_layers=full.n_layers,
+               params=n_params, batch=batch, seq=seq, ms=ms, ms_median=med, losses=losses,
+               model_flops=flops, mfu=mfu, peak_bytes=peak, launches=counts,
+               dropped_share=dropped, expert_rows_share=moe_rows_share(cfg, batch, seq),
+               profile=prof)
+    del params, leaves, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # the train launcher's run on the card: the reduced recurrentgemma (remat "none",
@@ -3843,6 +4095,104 @@ def phase_mesh(torch, card: str) -> dict:
     return out
 
 
+# ==============================================================================
+# phase 9: the examples
+# ==============================================================================
+EXAMPLE_SMART_HOME_STEPS = (20, 40)     # a first run, then a restart from its checkpoint
+# the traffic-monitor example's decode (B, cache slots, H, KV, d): 4 streams, prompt 16 +
+# 32 steps of the reduced qwen3 in float32; phase 2 holds the kernel at this shape
+TRAFFIC_DECODE = (4, 48, 8, 2, 16)
+
+
+def _with_card(card: str, fn):
+    """``fn()`` with its standard output printed after it, a line at a time
+    with the card's name (an example's own prints carry none)."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn()
+    finally:
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(card, "  " + line)
+
+
+def phase_examples(torch, card: str) -> dict:
+    """The port's examples through their ``main`` on the card: the smart-home
+    example trains 20 steps and checkpoints, a second run resumes at step 20
+    and trains to 40 (its 128-token sequences stay below attn_chunk: no
+    launch); the traffic-monitor example replays its dynamics timeline and
+    decodes greedily, one decode kernel a layer a step (d = 16, float32),
+    counted exactly, its tokens equal to the same greedy decode of CPU
+    copies of its weights (the plain path)."""
+    import importlib
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    smart_home = importlib.import_module("smart_home_training_torch")
+    traffic = importlib.import_module("traffic_monitor_serving_torch")
+    none = {k: 0 for k in kernels.KERNELS}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs = [_with_card(card, lambda n=n: smart_home.main(
+            ["--steps", str(n), "--ckpt-dir", tmp, "--device", DEVICE]))
+            for n in EXAMPLE_SMART_HOME_STEPS]
+        wall_s = time.perf_counter() - t0
+    first, second = runs
+    counts = kernels.launch_counts()
+    log(card, f"smart_home_training_torch: plan {first['plan'].best.summary()}; "
+              f"{first['n_params'] / 1e6:.1f}M parameters; loss {first['first']:.4f} -> "
+              f"{first['final']:.4f} over steps 0-{EXAMPLE_SMART_HOME_STEPS[0] - 1}, resumed at "
+              f"step {second['step0']}, {second['first']:.4f} -> {second['final']:.4f} to step "
+              f"{EXAMPLE_SMART_HOME_STEPS[1] - 1}; {wall_s:.1f} s; launches {counts}")
+    losses = first["losses"] + second["losses"]
+    if not (second["step0"] == EXAMPLE_SMART_HOME_STEPS[0]
+            and second["opt_count"] == EXAMPLE_SMART_HOME_STEPS[1]
+            and len(losses) == EXAMPLE_SMART_HOME_STEPS[1]
+            and all(math.isfinite(x) for x in losses) and second["final"] < first["first"]):
+        raise AssertionError(f"the smart-home example did not resume and train: {runs}")
+    if counts != none:
+        raise AssertionError(f"the smart-home example launched {counts}")
+    out["smart_home"] = dict(first=first["first"], final=second["final"], losses=losses,
+                             resumed_at=second["step0"], wall_s=wall_s, launches=counts)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = _with_card(card, lambda: traffic.main(["--device", DEVICE]))
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = dict(none, decode_attention=res["n_layers"] * res["decode_steps"])
+    log(card, f"traffic_monitor_serving_torch: {res['trace'].qoe_violations} QoE violations over "
+              f"{len(res['trace'].steps)} events; {res['tokens'].shape[0]} streams x "
+              f"{res['tokens'].shape[1] - 1} greedy tokens in {res['seconds']:.3f} s; "
+              f"{wall_s:.1f} s; launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"the traffic-monitor example launched {counts}, expected {want}")
+    cfg = reduced_config("qwen3_32b")
+    shape = (traffic.B, traffic.PROMPT + traffic.GEN, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    if shape != TRAFFIC_DECODE:
+        raise AssertionError(f"the traffic-monitor example decodes at {shape}; phase 2 holds "
+                             f"the kernel at TRAFFIC_DECODE = {TRAFFIC_DECODE}")
+    cpu_tokens, _ = traffic.greedy(build_model(cfg, device="cpu"), _to(res["params"], "cpu"),
+                                   res["prompt"], traffic.GEN)
+    same = int((cpu_tokens == res["tokens"]).sum())
+    log(card, f"traffic_monitor_serving_torch: {same} of {cpu_tokens.numel()} greedy tokens "
+              f"equal to the CPU's from copies of the same weights")
+    if not torch.equal(cpu_tokens, res["tokens"]):
+        raise AssertionError(f"the traffic-monitor example's tokens on the card differ from "
+                             f"the CPU's: {res['tokens'].tolist()} against {cpu_tokens.tolist()}")
+    out["traffic_monitor"] = dict(decode_s=res["seconds"], wall_s=wall_s, launches=counts,
+                                  qoe_violations=res["trace"].qoe_violations,
+                                  tokens_equal_cpu=same)
+    return out
+
+
 def _to(tree, device):
     """A copy of ``tree`` on ``device`` (a copy on the same device too: the
     train step updates its parameters in place)."""
@@ -4055,6 +4405,9 @@ def main() -> int:
         train[tpath.arch] = phase_train(torch, card, tpath)
     gc.collect()
     torch.cuda.empty_cache()
+    grads = phase_grads(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launcher = phase_train_launcher(torch, card)
     timed("5 training", t0)
     gc.collect()
@@ -4072,6 +4425,11 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = phase_mesh(torch, card)           # phase 8
     timed("8 mesh", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples = phase_examples(torch, card)   # phase 9
+    timed("9 examples", t0)
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -4097,11 +4455,12 @@ def main() -> int:
     kernels_line = {"kernels": []}
     # the main entry is each kernel's qwen3-32b (or only) shape; the other
     # timed shapes ride beside it, each with the same keys
-    extra = {"flash_attention": ("d256", "d80", "g48", "g1"),
+    extra = {"flash_attention": ("d256", "d80", "g48", "g1", "g1_train"),
              "decode_attention": ("d256", "d80", "g48", "d16", "g1", "whisper", "paligemma"),
-             "flash_attention_bwd": ("d80", "g48", "d256"), "rglru_scan": ("train",)}
+             "flash_attention_bwd": ("d80", "g48", "d256", "g1"), "rglru_scan": ("train",)}
     extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
                  "g1": "group_1", "d16": "head_dim_16", "train": "training_shape",
+                 "g1_train": "group_1_training_shape",
                  "whisper": "whisper_d64_group_1", "paligemma": "paligemma_d256_group_8"}
     for name in sources:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
@@ -4118,6 +4477,8 @@ def main() -> int:
         by_path["calibration"] = calibration["launches"][name]
         by_path[f"{mesh['config']} mesh (1, 1)"] = mesh["launches"][name]
         by_path["train launcher"] = train_launcher["launches"][name]
+        by_path[f"{grads['config']} gradients"] = grads["launches"][name]
+        by_path.update({f"{ex} example": examples[ex]["launches"][name] for ex in examples})
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
@@ -4129,7 +4490,7 @@ def main() -> int:
         kernels_line["kernels"].append(entry)
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
               "small_train": small_train, "train": train, "train_launcher": train_launcher,
-              "dora": dora,
+              "grads": grads, "examples": examples, "dora": dora,
               "calibration": calibration, "mesh": mesh, "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")

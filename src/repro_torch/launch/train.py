@@ -15,7 +15,8 @@ rank of the group as a (1, world) ('data', 'model') mesh, the parameters and
 AdamW state laid out by ``ShardingRules``; without one, on one device.
 whisper_small's batches carry zero encoder frames and paligemma_3b's zero
 patch embeddings (the frontend stubs, as in the JAX launcher, in the model's
-dtype); those two train on one device only. With
+dtype); those two, and the MoE models (olmoe_1b_7b, deepseek_v2_236b), train
+on one device only. With
 ``--ckpt-dir`` it restores the latest committed step onto the mesh it runs
 on and saves (sharded) every ``--ckpt-every`` steps and at the end.
 """
@@ -89,6 +90,10 @@ def _train(args, cfg) -> dict:
         raise NotImplementedError(f"{cfg.name} under a mesh: its frontend stub is not laid out "
                                   "on one (ROADMAP: Queue 1 item 9, 'Elasticity, sharding and "
                                   "the mesh')")
+    if mesh is not None and (cfg.n_experts or cfg.mla):
+        raise NotImplementedError(f"{cfg.name} under a mesh: the MoE dispatch and MLA are untried "
+                                  "on DTensors (ROADMAP: Queue 1 item 18, 'MoE and MLA under a "
+                                  "mesh')")
     say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     if mesh is not None:

@@ -1019,3 +1019,86 @@ def test_elastic_tensor_parallel_four_cards_to_two(tmp_path):
         assert out["restored_bitwise"] and len(out["rows"]) == steps
         assert out["branches"] == {"local": out["launches"]["flash_attention"], "replicate": 0}
         assert sorted(out["step_ms_by_mesh"]) == ["(1, 2)", "(1, 4)"]
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_at_olmoe_training_shape():
+    """The bf16 flash backward at olmoe-1b-7b's training shape (B = 2, S =
+    4096, 16 query heads on 16 KV heads: G = 1, d = 128, causal), one launch,
+    against its plain version a (batch row, head) at a time (chip_smoke's
+    ``flash_bwd_plain``) within the bf16 bound with the backward's floor."""
+    gen = _card()
+    cs, _ = _chip_smoke()
+    B, S, H, d = cs.OLMOE_TRAIN_BATCH, cs.OLMOE_TRAIN_SEQ, cs.OLMOE_HEADS, cs.HEAD_DIM
+    q, k, v, dout = (torch.randn((B, S, H, d), generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    b0 = kernels.flash_attention.bwd_launches
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.bwd_launches == b0 + 1
+    exp = cs.flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, None)
+    for g, e in zip(got, exp):
+        assert g.dtype == torch.bfloat16
+        _assert_within_bf16_bound(g, e, BWD_FLOOR)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b"])
+def test_moe_train_step_card_matches_cpu(arch):
+    """chip_smoke.py phase 4's float32 MoE train steps: the reduced olmoe
+    (head_dim 64, attn_chunk 64 < S = 256: the flash forward and backward at
+    G = 1, launches exact) and the reduced deepseek (MLA's query chunks under
+    the units' remat, no launch), each on the card against the CPU: the
+    loss, the aux loss and grad_norm within 1e-4 relative, every gradient
+    within 1e-4 of its leaf's max."""
+    _card()
+    cs, card = _chip_smoke()
+    spec, = [s for s in cs.SMALL_TRAIN if s[0] == arch]
+    out = cs.phase_small_train(torch, card, *spec)
+    assert max(out["loss_rel_err"], out["grad_rel_err"], *out["step_rel_err"].values()) <= 1e-4
+    assert out["launches"]["flash_attention"] == (6 if arch == "olmoe_1b_7b" else 0)
+
+
+@pytest.mark.gpu
+def test_elastic_example_on_four_cards():
+    """``examples/elastic_recovery_torch.py --ranks 4`` on four cards, one
+    nccl rank a card: 4 steps, a sharded checkpoint, ranks 2 and 3 fail, the
+    survivors regroup into a (1, 2) mesh, restore step 4 and take a finite
+    step. With fewer than 4 cards it skips (the example itself exits
+    non-zero there)."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards (one rank a card), saw {torch.cuda.device_count()}")
+    import importlib
+    import math
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                                    "examples"))
+    out = importlib.import_module("elastic_recovery_torch").main(["--ranks", "4"])
+    assert out["failed"] == [2, 3] and out["world"] == 2 and out["step"] == 4
+    assert all(math.isfinite(x) for x in out["losses"] + [out["resumed_loss"]])
+
+
+@pytest.mark.gpu
+def test_quantize_int8_on_card_matches_cpu_bitwise():
+    """``quantize_int8`` and ``ef_compress`` on the card against the same
+    calls on CPU copies, bit for bit, over 2000 tensors of random absmax (a
+    scale computed as absmax times the float32 reciprocal of 127, as a CUDA
+    tensor divided by a Python number is, differs from the quotient by an
+    ulp for ~5% of them)."""
+    from repro_torch.optim import ef_compress, quantize_int8
+
+    gen = _card()
+    for i in range(2000):
+        x = torch.randn((33,), generator=gen, device="cuda") * float(1.5 ** (i % 40 - 20))
+        q, s = quantize_int8(x)
+        q_c, s_c = quantize_int8(x.cpu())
+        assert float(s) == float(s_c) and torch.equal(q.cpu(), q_c), i
+    g = {"w": torch.randn((64, 64), generator=gen, device="cuda").to(torch.bfloat16)}
+    e = {"w": torch.randn((64, 64), generator=gen, device="cuda") * 1e-3}
+    d, r, _ = ef_compress(g, e)
+    d_c, r_c, _ = ef_compress({"w": g["w"].cpu()}, {"w": e["w"].cpu()})
+    assert torch.equal(d["w"].cpu(), d_c["w"]) and torch.equal(r["w"].cpu(), r_c["w"])

@@ -26,6 +26,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.convert import from_numpy
+from repro_torch.optim.adamw import tree_leaves
 
 from test_torch_models import F32, MODEL, _arr, _close, walk_close
 
@@ -300,3 +301,129 @@ def test_tail_runs_first_in_deepseek_and_last_elsewhere():
     rg = ttransformer.LM(reduced_config("recurrentgemma_9b"), device="cpu")
     kinds = [kind for kind, _, _ in rg._layers(rg.init(torch.Generator().manual_seed(0)))]
     assert kinds == list(rg.layer_kinds()) and not rg.tail_first
+
+
+# ---------------------------------------------------------------- gradients
+def _jleaves(t, j):
+    """The leaves of the JAX tree ``j`` in the port tree ``t``'s key order."""
+    if isinstance(t, dict):
+        assert t.keys() == j.keys()
+        return [x for k in t for x in _jleaves(t[k], j[k])]
+    assert tuple(t.shape) == j.shape
+    return [j]
+
+
+def _grad_close(t, j):
+    """A gradient within 2e-5 of its leaf's largest magnitude (float32 sums
+    in another order), as ``tests/test_torch_train.py`` holds the LM's."""
+    j = np.asarray(j, np.float32)
+    np.testing.assert_allclose(t.detach().numpy(), j, rtol=0,
+                               atol=2e-5 * max(float(np.abs(j).max()), 1e-30))
+
+
+@pytest.mark.parametrize("arch,overrides,B,S", [
+    ("olmoe_1b_7b", dict(capacity_factor=4.0), 2, 16),        # lossless
+    ("olmoe_1b_7b", {}, 2, 64),                               # 1.25: slots drop
+    ("olmoe_1b_7b", dict(capacity_factor=0.05, moe_groups=1), 2, 32),   # most slots drop
+    ("deepseek_v2_236b", {}, 2, 32),                          # shared experts
+])
+@pytest.mark.parametrize("part", ["out", "aux"])
+def test_apply_moe_gradients_match_jax(arch, overrides, B, S, part):
+    """jax.grad against autograd through the dispatch, for every weight and
+    the input: the scatter into the trash-row buffer (a dropped slot's input
+    gets no gradient, as JAX's ``.at[d].set(..., mode="drop")`` gives it
+    none), the combine's gathers (dropped slots read row 0 weighted by 0, so
+    row 0's gradient gains only zeros), the gates through the stable top-k,
+    and the aux loss alone (through the mean probabilities; the top-1
+    one-hot carries none)."""
+    jcfg, tcfg = _cfgs(arch, **overrides)
+    jp, tp = _moe_weights(jcfg)
+    rng = np.random.default_rng(21)
+    x = _arr(rng, B, S, jcfg.d_model)
+    r = _arr(rng, B, S, jcfg.d_model)
+
+    def jloss(p, x):
+        out, aux = jmlp.apply_moe(p, x, jcfg)
+        return jnp.sum(out * r) if part == "out" else aux
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, jnp.asarray(x))
+
+    leaves = [t.requires_grad_(True) for t in tree_leaves(tp)]
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out, aux = tmlp.apply_moe(tp, tx, tcfg)
+    loss = torch.sum(out * torch.from_numpy(r)) if part == "out" else aux
+    grads = torch.autograd.grad(loss, leaves + [tx], allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves + [tx])]
+    jleaves = _jleaves(tp, jax.tree.map(np.asarray, jgp))
+    assert len(jleaves) == len(leaves)
+    for g, j in zip(grads[:-1], jleaves):
+        _grad_close(g, j)
+    _grad_close(grads[-1], jgx)
+    if part == "aux":      # only the router feeds the aux loss
+        assert all(float(g.abs().max()) == 0 for g, t in zip(grads[:-1], leaves)
+                   if t is not tp["router"])
+
+
+def test_dropped_slots_get_no_input_gradient():
+    """With the router at zero (uniform probabilities: every token picks
+    experts 0 and 1 by the tie order, and a capacity of 2 keeps the first
+    tokens), a token whose slots all dropped gets no input gradient at all
+    (no expert path, and the zero router passes none), the kept tokens do."""
+    jcfg, tcfg = _cfgs("olmoe_1b_7b", capacity_factor=0.05, moe_groups=1)
+    _, tp = _moe_weights(jcfg)
+    tp = {k: (torch.zeros_like(v) if k == "router" else v) for k, v in tp.items()}
+    x = torch.from_numpy(_arr(np.random.default_rng(22), 1, 32, jcfg.d_model))
+    x.requires_grad_(True)
+    r = tmlp.route(tp, x.detach().reshape(1, 32, -1), tcfg)
+    dead = (r.dest == tcfg.n_experts * r.capacity).all(-1)[0]
+    assert bool(dead.any()) and not bool(dead.all())
+    out, _ = tmlp.apply_moe(tp, x, tcfg)
+    g, = torch.autograd.grad(out.sum(), [x])
+    assert float(g[0, dead].abs().max()) == 0.0
+    assert float(g[0, ~dead].abs().max()) > 0.0
+
+
+def test_mla_prefill_chunked_gradients_match_jax():
+    """jax.grad through the reference's remat'd query chunks against
+    autograd through the port's checkpointed chunks (S = 32 in chunks of 8),
+    for every input and weight."""
+    jcfg, _ = _cfgs("deepseek_v2_236b")
+    cq, ckv, kr, ws = _mla_inputs(23, 2, 32, 32, jcfg)
+    r = _arr(np.random.default_rng(24), 2, 32, jcfg.n_heads, jcfg.v_head_dim)
+    kw = dict(rope_theta=jcfg.rope_theta, q_chunk=8)
+
+    def jloss(*xs):
+        return jnp.sum(jattn.mla_prefill(*xs, **kw) * r)
+    jg = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(*map(jnp.asarray, [cq, ckv, kr] + ws))
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in [cq, ckv, kr] + ws]
+    loss = torch.sum(tattn.mla_prefill(*xs, **kw) * torch.from_numpy(r))
+    for a, b in zip(torch.autograd.grad(loss, xs), jg):
+        _grad_close(a, b)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b"])
+def test_remat_recompute_routes_as_the_forward(arch, monkeypatch):
+    """Under remat="full" every stacked unit's recompute routes its tokens
+    exactly as its first forward did: the same experts, gates and
+    destination rows, in reverse unit order, with nothing read on the host."""
+    tcfg = reduced_config(arch)
+    model = ttransformer.LM(tcfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    seen = []
+    route = tmlp.route
+
+    def logged(p, xg, cfg):
+        r = route(p, xg, cfg)
+        seen.append(tuple(t.detach().clone() for t in (r.experts, r.gate, r.dest)))
+        return r
+    monkeypatch.setattr(tmlp, "route", logged)
+    toks = torch.randint(0, tcfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(4))
+    loss, _ = model.loss(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, remat="full")
+    n_fwd = len(seen)
+    _, n_units, _ = model.scan_groups()
+    assert n_fwd == n_units
+    torch.autograd.grad(loss, leaves)
+    assert len(seen) == 2 * n_fwd
+    for first, again in zip(seen[:n_fwd], reversed(seen[n_fwd:])):
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)

@@ -241,3 +241,37 @@ def parity_rank(rank, world, states_np, blocks, steps0, ckpt_in, ckpt_out, save_
                 restored_placements={"wq": [str(p) for p in
                                             back["params"]["stack"]["u0"]["mixer"]["wq"]
                                             .placements]})
+
+
+def compress_rank(rank, world, tree, steps):
+    """``ef_compress`` over ``tree`` (name -> (tensor, spec)) laid out on a
+    (1, world) mesh (spec "partial": each rank holds a share of the tensor,
+    summed across "model" when read), ``steps`` times with the residual
+    carried; also ``quantize_int8``'s scale of each leaf. Returns the
+    gathered outputs, residuals, norms, scales and int8 codes, and whether
+    every output is laid out as its residual, with no pending sum."""
+    from repro_torch.optim import ef_compress, ef_init, quantize_int8
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = make_host_mesh()
+    grads = {}
+    for k, (t, spec) in tree.items():
+        if spec == "partial":     # pending sums, as a gradient may come: rank r holds (r + 1) parts
+            share = t * (rank + 1) / (world * (world + 1) / 2)
+            grads[k] = DTensor.from_local(share, mesh, [Replicate(), Partial()])
+        else:
+            grads[k] = distribute(t, spec, mesh)
+    out = {"scales": {}, "codes": {}, "deq": [], "res": [], "norms": [], "laid_out": True}
+    for k, g in grads.items():
+        q, s = quantize_int8(g)
+        out["laid_out"] &= isinstance(q, DTensor) and not any(p.is_partial() for p in q.placements)
+        out["scales"][k], out["codes"][k] = s, q.full_tensor()
+    ef = ef_init(grads)
+    for _ in range(steps):
+        deq, ef, m = ef_compress(grads, ef)
+        out["laid_out"] &= all(d.placements == ef[k].placements and
+                               not any(p.is_partial() for p in d.placements)
+                               for k, d in deq.items())
+        out["deq"].append({k: d.full_tensor() for k, d in deq.items()})
+        out["res"].append({k: e.full_tensor() for k, e in ef.items()})
+        out["norms"].append(m["ef_residual_norm"])
+    return out
