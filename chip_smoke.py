@@ -190,7 +190,16 @@ phases:
    bound), the flash forward and backward launches of the DTensor steps
    exact and the DTensor entry's local branch once a flash forward; step
    times, peak memory and the remesh time (from the verdict to the first
-   resumed step's end);
+   resumed step's end); then the MoE, MLA, encoder-decoder and VLM models
+   on a (1, 1) mesh of one nccl rank (``phase_mesh_archs``, one process
+   for all four): olmoe-1b-7b at full width (2 of 16 layers, 2 x 4096, 3
+   steps, the flash forward and backward launches exact), deepseek-v2-236b's
+   loss and gradients (2 of 60 layers, 1 x 4096, no AdamW), whisper-small
+   (2 + 2 layers, 8 x 448) and paligemma-3b (2 layers, 2 x (256 + 512)),
+   one step each; each step's loss bitwise and its grad norm (deepseek:
+   each gradient's norm) within ``MESH_ONE_GNORM_TOL`` of the plain step
+   from the same state, the attention on the DTensor entry's local branch
+   only, every expert leaf's rows whole on the one rank;
 9. the examples through their ``main`` on the card: the smart-home example
    (``examples/smart_home_training_torch.py``) plans smart_home_2, trains 20
    steps and checkpoints, then resumes at step 20 and trains to 40 (no
@@ -225,7 +234,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -4095,6 +4104,343 @@ def phase_mesh(torch, card: str) -> dict:
     return out
 
 
+# -- phase 8: the MoE, MLA, encoder-decoder and VLM models under the mesh ----------
+@dataclasses.dataclass(frozen=True)
+class ArchMeshRun:
+    """One arch trained under a ("data", "model") mesh of ``mesh`` (None: the
+    plain one-card step, no DTensor): full width (the smoke-scale config
+    where ``reduced``), ``layers`` of its depth (None: all; an
+    encoder-decoder's encoder cut alike), ``overrides`` of its config, the
+    dtype, batch x sequence, and ``steps`` AdamW steps, or with ``adamw``
+    false that many loss-and-gradient passes. With ``compare``, before each
+    step rank 0 gathers the whole state and takes the plain step (or pass)
+    from it on its own card. ``qk_fan_in``: wq and wk at the fan-in of
+    d_model (``fan_in_qk``)."""
+    arch: str
+    layers: Optional[int]
+    dtype: str
+    batch: int
+    seq: int
+    steps: int
+    mesh: Optional[Tuple[int, int]] = (1, 1)
+    adamw: bool = True
+    compare: bool = True
+    qk_fan_in: bool = False
+    reduced: bool = False
+    overrides: tuple = ()
+
+
+def arch_mesh_cfg(run: ArchMeshRun):
+    from repro_torch.configs import get_config, reduced_config
+    full = reduced_config(run.arch) if run.reduced else get_config(run.arch)
+    cfg = dataclasses.replace(full, n_layers=run.layers or full.n_layers, dtype=run.dtype,
+                              **dict(run.overrides))
+    if cfg.encdec and run.layers:
+        cfg = dataclasses.replace(cfg, n_enc_layers=run.layers)
+    return full, cfg
+
+
+def arch_mesh_rank(rank: int, world: int, runs) -> list:
+    """The ``ArchMeshRun``s on this rank (started by ``run_ranks``, one
+    process for all of them): the model drawn from seed 0 on the rank's
+    device and laid out by ``ShardingRules``, AdamW state alike,
+    ``TokenPipeline`` and the frontend stubs (``frontend_stubs``, seed 3)
+    placing each batch on the mesh, ``make_train_step`` (remat="full"). Each
+    step's loss, grad norm (a pass: each gradient's norm), host-clock ms
+    (synchronised), peak bytes and launches; rank 0's plain step from the
+    same state beside it (``compare``; in float32 also the state after it
+    against the DTensor step's: the first moments within a share of each
+    leaf's max, the parameters by the float32 tolerance); the rows of each
+    expert leaf this rank holds. Returns the numbers; the gates are the
+    caller's."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.launch.steps import _plain, frontend_stubs, make_train_step
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.models.sharding_utils import distribute_tree
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime import ranks
+
+    device = ranks.rank_device()
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = []
+    for run in runs:
+        full, cfg = arch_mesh_cfg(run)
+        model, train_step = make_train_step(cfg, peak_lr=3e-4, warmup=2,
+                                            total=max(run.steps, 2), remat="full",
+                                            device=device)
+        mesh = None if run.mesh is None else make_mesh(run.mesh, ("data", "model"),
+                                                       device=device)
+        params = fan_in_qk(cfg, model.init(torch.Generator(device=device).manual_seed(0)),
+                           run.qk_fan_in)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if mesh is not None:
+            params = distribute_tree(params, ShardingRules(cfg, mesh).param_specs(params),
+                                     mesh)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        opt = adamw_init(params) if run.adamw else None
+        data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=run.seq,
+                                        global_batch=run.batch, seed=0), device=device,
+                             mesh=mesh)
+        stubs = frontend_stubs(cfg, run.batch, device,
+                               torch.Generator(device=device).manual_seed(3), mesh=mesh)
+        rows = {}
+        for path, t in _named(params):
+            if "/moe/w_" in path:
+                rows[path] = (t.to_local() if hasattr(t, "to_local") else t).shape[
+                    1 if path.startswith("/stack") else 0]
+        rec = dict(rank=rank, world=world, arch=run.arch, config=full.name,
+                   n_layers=cfg.n_layers, full_layers=full.n_layers, dtype=cfg.dtype,
+                   batch=run.batch, seq=run.seq, mesh=run.mesh, params=n_params,
+                   expert_rows=rows, per_step_launches=train_launches(cfg, run.seq),
+                   steps=[], launches={k: 0 for k in kernels.KERNELS},
+                   branches={"local": 0, "replicate": 0})
+
+        def loss_grads(p, batch):
+            """(loss, aux, {path: grad norm}) of one pass (no optimizer)."""
+            leaves = list(tree_leaves(p))
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, met = model.loss(p, batch, remat="full")
+            loss = _plain(loss)
+            grads = torch.autograd.grad(loss, leaves)
+            norms = {path: float(_plain(g.float().pow(2).sum()).sqrt())
+                     for (path, _), g in zip(_named(p), grads)}
+            del grads
+            for t in leaves:
+                t.requires_grad_(False)
+            return float(loss), float(_plain(met["aux"])), norms
+
+        def plain_step(state, batch, i):
+            snap = gather(state, rank == 0)
+            plain_batch = {k: _plain(v) for k, v in batch.items()}
+            if rank != 0:
+                return None
+            sync()
+            t0 = time.perf_counter()
+            if not run.adamw:
+                loss, aux, norms = loss_grads(snap["params"], plain_batch)
+                ref = dict(loss=loss, aux=aux, grad_norms=norms)
+            else:
+                p, o, m = train_step(snap["params"], snap["opt"], plain_batch, i)
+                ref = dict(loss=float(m["loss"]), aux=float(m["aux"]),
+                           grad_norm=float(m["grad_norm"]))
+                if cfg.dtype == "float32":
+                    ref["state"] = {"params": p, "m": o["m"]}
+            sync()
+            ref["ms"] = (time.perf_counter() - t0) * 1e3
+            return ref
+
+        for i in range(run.steps):
+            batch = {**next(data), **stubs}
+            state = {"params": params, "opt": opt} if run.adamw else {"params": params}
+            ref = plain_step(state, batch, i) if run.compare and mesh is not None else None
+            del state
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            before, br = kernels.launch_counts(), dict(ops.dtensor_branch)
+            sync()
+            t0 = time.perf_counter()
+            with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+                if run.adamw:
+                    params, opt, m = train_step(params, opt, batch, i)
+                    r = dict(loss=float(m["loss"]), aux=float(m["aux"]),
+                             grad_norm=float(m["grad_norm"]))
+                else:
+                    loss, aux, norms = loss_grads(params, batch)
+                    r = dict(loss=loss, aux=aux, grad_norms=norms)
+            sync()
+            r.update(step=i, ms=(time.perf_counter() - t0) * 1e3,
+                     peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0)
+            after = kernels.launch_counts()
+            r["launches"] = {k: after[k] - before[k] for k in after}
+            for k in after:
+                rec["launches"][k] += r["launches"][k]
+            for k in br:
+                rec["branches"][k] += ops.dtensor_branch[k] - br[k]
+            if run.compare and mesh is not None and run.adamw and cfg.dtype == "float32":
+                st = gather({"params": params, "m": opt["m"]}, rank == 0)
+                if rank == 0:
+                    m_err, p_share = {}, {}
+                    for (path, a), (_, b) in zip(_named(st), _named(ref.pop("state"))):
+                        a, b = a.detach().float(), b.detach().float()
+                        if path.startswith("/m/"):
+                            m_err[path] = float((a - b).abs().max()
+                                                / b.abs().max().clamp(min=1e-30))
+                        else:
+                            p_share[path] = bound_share(torch, a, b, "float32")[1]
+                    wm, wp = max(m_err, key=m_err.get), max(p_share, key=p_share.get)
+                    r["state_worst"] = dict(moment=wm, moment_rel_to_max=m_err[wm], param=wp,
+                                            param_f32_share=p_share[wp])
+                del st
+            if ref is not None:
+                r["plain"] = ref
+            rec["steps"].append(r)
+        data.close()
+        out.append(rec)
+        del params, opt, data, stubs
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def arch_mesh_gate(torch, card: str, recs: list, what: str) -> list:
+    """Gate and log the ``arch_mesh_rank`` records of ``world`` ranks (rank
+    0's comparisons): every loss and grad norm finite; in bf16 on a (1, 1)
+    mesh the loss bitwise and the grad norm (a pass: each gradient's norm)
+    within ``MESH_ONE_GNORM_TOL`` relative of the plain step's; in float32
+    loss and grad norm within ``MESH_ONE_GNORM_TOL`` relative, the first
+    moments after each step within ``PIPE_GRAD_TOL`` of each leaf's max and
+    the parameters within the float32 tolerance; on the card the DTensor
+    steps' launches exact; every rank's expert leaves hold E / model-axis
+    rows. Returns one summary a run."""
+    from repro_torch.configs import get_config, reduced_config
+    summaries = []
+    for j, r0 in enumerate(recs[0]):
+        name = f"{what} {r0['config']} ({r0['n_layers']} of {r0['full_layers']} layers, " \
+               f"{r0['dtype']}, {r0['batch']} x {r0['seq']}) on {r0['mesh']}"
+        for rk in recs:
+            r = rk[j]
+            for s in r["steps"]:
+                vals = [s["loss"]] + ([s["grad_norm"]] if "grad_norm" in s
+                                      else list(s["grad_norms"].values()))
+                if not all(math.isfinite(v) for v in vals):
+                    raise AssertionError(f"{name} rank {r['rank']} step {s['step']}: non-finite "
+                                         f"loss or gradient")
+            want = {k: v * len(r["steps"]) for k, v in r["per_step_launches"].items()}
+            got = {k: v for k, v in r["launches"].items() if v}
+            if DEVICE == "cuda" and got != want:
+                raise AssertionError(f"{name} rank {r['rank']}: the DTensor steps launched "
+                                     f"{got}, expected {want}")
+            if r["mesh"] is not None and tuple(r["mesh"]) == (1, 1) and r["branches"]["replicate"]:
+                raise AssertionError(f"{name}: the attention took the DTensor entry's replicate "
+                                     f"branch {r['branches']['replicate']} times on a (1, 1) mesh")
+            if r["mesh"] is not None and r["expert_rows"]:
+                cfg = (reduced_config if r["config"].endswith("reduced") else get_config)(r["arch"])
+                tp = r["mesh"][1]
+                if set(r["expert_rows"].values()) != {cfg.n_experts // tp}:
+                    raise AssertionError(f"{name} rank {r['rank']}: expert rows "
+                                         f"{r['expert_rows']}, expected {cfg.n_experts // tp}")
+        rows = []
+        for s in r0["steps"]:
+            p = s.get("plain")
+            if p is None:
+                continue
+            worst_leaf = None
+            if "grad_norms" in s:
+                errs = {k: abs(s["grad_norms"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in p["grad_norms"].items()}
+                worst_leaf = max(errs, key=errs.get)
+                gn_rel = errs[worst_leaf]
+                gn = (float(math.sqrt(sum(v * v for v in s["grad_norms"].values()))),
+                      float(math.sqrt(sum(v * v for v in p["grad_norms"].values()))))
+            else:
+                gn_rel = abs(s["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"])
+                gn = (s["grad_norm"], p["grad_norm"])
+            loss_rel = abs(s["loss"] - p["loss"]) / abs(p["loss"])
+            bitwise = s["loss"] == p["loss"]
+            if r0["dtype"] == "float32":
+                worst = s.get("state_worst")
+                if (max(loss_rel, gn_rel) > MESH_ONE_GNORM_TOL
+                        or (worst and (worst["moment_rel_to_max"] > PIPE_GRAD_TOL
+                                       or worst["param_f32_share"] > 1.0))):
+                    raise AssertionError(f"{name} step {s['step']}: loss rel err {loss_rel:.3e}, "
+                                         f"grad norm rel err {gn_rel:.3e}, worst state {worst}")
+            elif tuple(r0["mesh"]) == (1, 1):
+                if not bitwise or gn_rel > MESH_ONE_GNORM_TOL:
+                    raise AssertionError(
+                        f"{name} step {s['step']}: loss {s['loss']!r} against the plain step's "
+                        f"{p['loss']!r} (must be bitwise), grad norm rel err {gn_rel:.3e} "
+                        f"(tol {MESH_ONE_GNORM_TOL}{f', leaf {worst_leaf}' if worst_leaf else ''})")
+            rows.append(dict(step=s["step"], loss=s["loss"], plain_loss=p["loss"],
+                             bitwise=bitwise, loss_rel_err=loss_rel, grad_norm=gn[0],
+                             plain_grad_norm=gn[1], grad_norm_rel_err=gn_rel,
+                             state_worst=s.get("state_worst"), ms=s["ms"], plain_ms=p["ms"]))
+            log(card, f"{name} step {s['step']}: loss {s['loss']:.6f} (plain one-card step "
+                      f"{p['loss']:.6f}, {'bitwise' if bitwise else f'rel err {loss_rel:.3e}'}), "
+                      f"grad norm {gn[0]:.6f} (plain {gn[1]:.6f}; worst rel err "
+                      f"{gn_rel:.3e}{f', leaf {worst_leaf}' if worst_leaf else ''})"
+                      + (f", first moments' worst {s['state_worst']['moment']} at "
+                         f"{s['state_worst']['moment_rel_to_max']:.3e} of its max, parameters' "
+                         f"worst {s['state_worst']['param']} at "
+                         f"{s['state_worst']['param_f32_share']:.3g} x the f32 tolerance"
+                         if s.get("state_worst") else "")
+                      + f"; {s['ms']:.1f} ms (plain {p['ms']:.1f} ms)")
+        ms = [s["ms"] for s in r0["steps"]]
+        timed = ms[1:9] if len(ms) > 2 else ms
+        med = statistics.median(timed)
+        _, cfg = arch_mesh_cfg(ArchMeshRun(r0["arch"], r0["n_layers"], r0["dtype"], r0["batch"],
+                                           r0["seq"], 1, reduced=r0["config"].endswith("reduced")))
+        flops = train_flops(cfg, r0["batch"], r0["seq"])
+        n_cards = len(recs)
+        mfu = flops / (med / 1e3) / (PEAK_OPS[r0["dtype"]] * n_cards)
+        peaks = {rk[j]["rank"]: max(s["peak_bytes"] for s in rk[j]["steps"]) for rk in recs}
+        losses = [s["loss"] for s in r0["steps"]]
+        summary = dict(config=r0["config"], n_layers=r0["n_layers"], dtype=r0["dtype"],
+                       batch=r0["batch"], seq=r0["seq"], mesh=r0["mesh"], params=r0["params"],
+                       ranks=n_cards, losses=losses, ms=ms, ms_median=med,
+                       tokens_s=r0["batch"] * r0["seq"] / med * 1e3, model_flops=flops,
+                       mfu=mfu, peak_bytes=peaks, launches=r0["launches"],
+                       branches=r0["branches"], expert_rows=r0["expert_rows"], rows=rows)
+        log(card, f"{name}: {r0['params'] / 1e9:.3f} B parameters, {n_cards} rank(s); losses "
+                  f"{[round(x, 4) for x in losses]}; step ms (host clock, synchronised) "
+                  f"{[round(x, 1) for x in ms]}, median of {len(timed)} {med:.1f} ms, "
+                  f"{summary['tokens_s']:.0f} tokens/s, {100 * mfu:.1f}% of {n_cards} x "
+                  f"{PEAK_OPS[r0['dtype']] / 1e12:.0f} TFLOP/s; peak GiB a rank "
+                  f"{ {k: round(v / 2**30, 2) for k, v in peaks.items()} }; expert rows a rank "
+                  f"{sorted(set(r0['expert_rows'].values()))}; launches "
+                  f"{ {k: v for k, v in r0['launches'].items() if v} }; DTensor attention "
+                  f"branches {r0['branches']}")
+        summaries.append(summary)
+    return summaries
+
+
+# phase 8's (1, 1)-mesh runs of the MoE, MLA, encoder-decoder and VLM models
+# at full width, held to the plain one-card step as h2o's: olmoe 2 of 16
+# layers at train_4k's 2 x 4096 (the flash forward and backward at G = 1 on
+# the DTensor entry's local branch), 3 steps; deepseek's loss and gradients at
+# 2 of 60 layers (the dense-first tail and one MoE unit, ~5.4 B parameters,
+# no AdamW), 1 x 4096; whisper (2 + 2 layers, 8 x 448) and paligemma (2
+# layers, 2 x (256 + 512)), one step each, wq and wk at the fan-in of d_model
+MESH_ARCH_RUNS = [
+    ArchMeshRun("olmoe_1b_7b", 2, "bfloat16", OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, 3),
+    ArchMeshRun("deepseek_v2_236b", 2, "bfloat16", DS_GRAD_BATCH, DS_GRAD_SEQ, 1, adamw=False),
+    ArchMeshRun("whisper_small", 2, "bfloat16", WH_TRAIN_BATCH, WH_TRAIN_SEQ, 1, qk_fan_in=True),
+    ArchMeshRun("paligemma_3b", 2, "bfloat16", PG_TRAIN_BATCH, PG_TRAIN_SEQ, 1, qk_fan_in=True),
+]
+
+
+def phase_mesh_archs(torch, card: str, runs=MESH_ARCH_RUNS) -> dict:
+    """Phase 8's MoE, MLA, encoder-decoder and VLM runs on a (1, 1) mesh of
+    one nccl rank (one process for all of them), gated by
+    ``arch_mesh_gate``. On a (1, 1) mesh every placement replicates, so the
+    runs drive DTensor's dispatch and the ``local_map`` entries (routing,
+    dispatch, the expert products, the combine, MLA's heads, the NLL, the
+    flash kernel's local branch) on the card."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    free, total = torch.cuda.mem_get_info()
+    log(card, f"phase 8's arch runs start one nccl rank on cuda:0 with {free / 2**30:.1f} of "
+              f"{total / 2**30:.1f} GiB free")
+    t0 = time.perf_counter()
+    recs = run_ranks(arch_mesh_rank, 1, (runs,), backend="nccl", timeout=MESH_TIMEOUT,
+                     devices=["cuda:0"])
+    wall = time.perf_counter() - t0
+    summaries = arch_mesh_gate(torch, card, recs, "mesh")
+    log(card, f"phase 8's arch runs: wall {wall:.1f} s")
+    return {s["config"]: dict(s, wall_s=wall) for s in summaries}
+
 # ==============================================================================
 # phase 9: the examples
 # ==============================================================================
@@ -4424,6 +4770,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mesh = phase_mesh(torch, card)           # phase 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_archs = phase_mesh_archs(torch, card)
     timed("8 mesh", t0)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4476,6 +4825,7 @@ def main() -> int:
                         dora["ranks"][k]["launches"][name] for k in ("forward", "gradients")})
         by_path["calibration"] = calibration["launches"][name]
         by_path[f"{mesh['config']} mesh (1, 1)"] = mesh["launches"][name]
+        by_path.update({f"{c} mesh (1, 1)": r["launches"][name] for c, r in mesh_archs.items()})
         by_path["train launcher"] = train_launcher["launches"][name]
         by_path[f"{grads['config']} gradients"] = grads["launches"][name]
         by_path.update({f"{ex} example": examples[ex]["launches"][name] for ex in examples})
@@ -4491,7 +4841,8 @@ def main() -> int:
     record = {"card": card, "kernels": kern, "serve": serve, "small_model": small,
               "small_train": small_train, "train": train, "train_launcher": train_launcher,
               "grads": grads, "examples": examples, "dora": dora,
-              "calibration": calibration, "mesh": mesh, "ptxas": ptxas, "phase_s": phase_s,
+              "calibration": calibration, "mesh": mesh, "mesh_archs": mesh_archs,
+              "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -22,7 +22,8 @@ device as above:
   ``Replicate()`` first, as XLA does around an opaque custom call, and the
   output is returned in q's placements.
 
-``dtensor_branch`` counts the branches taken.
+A pending sum (``Partial()``, a projection whose contraction DTensor
+sharded) is carried out first. ``dtensor_branch`` counts the branches taken.
 """
 from __future__ import annotations
 
@@ -112,11 +113,23 @@ def _check_mesh(name: str, *tensors) -> None:
                         "or none of them")
 
 
+def _summed(t):
+    """The DTensor ``t`` with its pending sums (a projection whose
+    contraction DTensor sharded) carried out: ``Partial()`` placements
+    become ``Replicate()``."""
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
 def attend_on_shards(fn, q, k, v):
     """The DTensor entry: attention ``fn(q, k, v)`` of local tensors applied
     to DTensors q, k, v through the ``"local"`` or the ``"replicate"``
     branch (module docstring)."""
     _check_mesh("attention", q, k, v)
+    q, k, v = (_summed(t) for t in (q, k, v))
     if not _heads_local(q, k, v):
         return _replicated(fn, q, k, v)
     from torch.distributed.tensor.experimental import local_map

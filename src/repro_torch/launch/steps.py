@@ -17,7 +17,8 @@ import torch
 from ..models import Model, build_model
 from ..models.common import dtype_of
 from ..models.config import ArchConfig
-from ..models.sharding_utils import is_dtensor
+from ..models.sharding import ShardingRules
+from ..models.sharding_utils import distribute_tree, is_dtensor
 from ..optim import AdamWConfig, adamw_update, warmup_cosine
 from ..optim.adamw import tree_leaves, tree_map
 
@@ -28,12 +29,15 @@ def _plain(t: torch.Tensor) -> torch.Tensor:
 
 
 def frontend_stubs(cfg: ArchConfig, batch: int, device,
-                   gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                   gen: Optional[torch.Generator] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """The frontend stub ``cfg``'s model takes, in its dtype: whisper's
     frames {"encoder_frames": (batch, enc_seq, d_model)}, paligemma's
     patches {"extra_embeddings": (batch, n_patches, d_model)}, {} for the
     others. Zeros, as the JAX launchers feed them, or N(0, 0.02^2) drawn
-    from ``gen`` (on ``device``)."""
+    from ``gen`` (on ``device``; the same draw on every rank). Under a
+    device ``mesh`` they are DTensors laid out by
+    ``ShardingRules.batch_specs``, as the reference's ``batch_structs``
+    lays them out."""
     shapes = {}
     if cfg.encdec:
         shapes["encoder_frames"] = (batch, cfg.enc_seq, cfg.d_model)
@@ -41,9 +45,13 @@ def frontend_stubs(cfg: ArchConfig, batch: int, device,
         shapes["extra_embeddings"] = (batch, cfg.n_patches, cfg.d_model)
     dtype = dtype_of(cfg.dtype)
     if gen is None:
-        return {k: torch.zeros(s, dtype=dtype, device=device) for k, s in shapes.items()}
-    return {k: (torch.randn(s, generator=gen, device=device) * 0.02).to(dtype)
-            for k, s in shapes.items()}
+        stubs = {k: torch.zeros(s, dtype=dtype, device=device) for k, s in shapes.items()}
+    else:
+        stubs = {k: (torch.randn(s, generator=gen, device=device) * 0.02).to(dtype)
+                 for k, s in shapes.items()}
+    if mesh is None or not stubs:
+        return stubs
+    return distribute_tree(stubs, ShardingRules(cfg, mesh).batch_specs(stubs, batch), mesh)
 
 
 def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100,

@@ -12,11 +12,10 @@ otherwise). With a process group (``torchrun``, which this driver joins
 over nccl on the card it is given and gloo on the CPU, or ranks started by
 ``runtime.ranks.run_ranks``), it trains under the JAX driver's mesh: every
 rank of the group as a (1, world) ('data', 'model') mesh, the parameters and
-AdamW state laid out by ``ShardingRules``; without one, on one device.
-whisper_small's batches carry zero encoder frames and paligemma_3b's zero
-patch embeddings (the frontend stubs, as in the JAX launcher, in the model's
-dtype); those two, and the MoE models (olmoe_1b_7b, deepseek_v2_236b), train
-on one device only. With
+AdamW state laid out by ``ShardingRules``; without one, on one device. Every
+arch trains either way. whisper_small's batches carry zero encoder frames
+and paligemma_3b's zero patch embeddings (the frontend stubs, as in the JAX
+launcher, in the model's dtype, laid out on the mesh as the batch). With
 ``--ckpt-dir`` it restores the latest committed step onto the mesh it runs
 on and saves (sharded) every ``--ckpt-every`` steps and at the end.
 """
@@ -85,15 +84,7 @@ def _train(args, cfg) -> dict:
                                         total=args.steps, remat="none", device=args.device)
     dev = model.device
     mesh = make_host_mesh(dev) if dist.is_initialized() else None
-    stubs = frontend_stubs(cfg, args.global_batch, dev)
-    if mesh is not None and stubs:
-        raise NotImplementedError(f"{cfg.name} under a mesh: its frontend stub is not laid out "
-                                  "on one (ROADMAP: Queue 1 item 9, 'Elasticity, sharding and "
-                                  "the mesh')")
-    if mesh is not None and (cfg.n_experts or cfg.mla):
-        raise NotImplementedError(f"{cfg.name} under a mesh: the MoE dispatch and MLA are untried "
-                                  "on DTensors (ROADMAP: Queue 1 item 18, 'MoE and MLA under a "
-                                  "mesh')")
+    stubs = frontend_stubs(cfg, args.global_batch, dev, mesh=mesh)
     say = print if mesh is None or dist.get_rank() == 0 else (lambda *a, **k: None)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     if mesh is not None:
@@ -131,13 +122,14 @@ def _train(args, cfg) -> dict:
         if ckpt:
             ckpt.save(args.steps, {"params": params, "opt": opt}, wait=True)
         data.close()
+    out = {"losses": losses, "step0": step0, "params": params, "opt": opt}
     if not losses:
         say(f"nothing to train: the checkpoint is at step {step0} of {args.steps}")
-        return {"losses": losses, "step0": step0}
+        return out
     first, final = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
     say(f"loss {first:.4f} -> {final:.4f} "
         f"({'improved' if final < first else 'NOT improved'})")
-    return {"losses": losses, "step0": step0, "first": first, "final": final}
+    return {**out, "first": first, "final": final}
 
 
 if __name__ == "__main__":

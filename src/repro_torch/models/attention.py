@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import ops
 from ..kernels.decode_attention import decode_attention_ref
 from .common import apply_rope
-from .sharding_utils import BATCH, P, is_dtensor, maybe_shard
+from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, on_shards, summed_where
 
 NEG_INF = -2.0e38
 
@@ -113,7 +113,25 @@ def mla_prefill(cq: torch.Tensor, ckv: torch.Tensor, k_rope: torch.Tensor,
     wk_nope: (Rkv, H, dn); wv: (Rkv, H, dv)
     Returns (B, S, H, dv). ``q_chunk`` bounds score memory for long S: each
     chunk is recomputed in the backward (``torch.utils.checkpoint``), as the
-    JAX package wraps it in ``jax.remat``."""
+    JAX package wraps it in ``jax.remat``.
+
+    Under a mesh (DTensor arguments) each rank attends its own heads of its
+    own batch rows (``on_shards``): the latents whole over "model", the
+    weights head-sharded over "model" and gathered over the batch axes, the
+    output laid out as the reference's P(batch, None, "model", None)."""
+    if is_dtensor(cq):
+        fn = functools.partial(mla_prefill, rope_theta=rope_theta, causal=causal,
+                               q_chunk=q_chunk)
+        from torch.distributed.tensor import Replicate, Shard
+        # the batch rows over the batch axes, the heads (dim 1) over "model"
+        x_in = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in cq.placements)
+        w_in = tuple(Shard(1) if p.is_shard(1) else Replicate() for p in wq_nope.placements)
+        x_grad = summed_where(x_in, w_in, (1,))
+        w_grad = summed_where(w_in, x_in, (0,))
+        return on_shards(fn, (cq, ckv, k_rope, wq_nope, wq_rope, wk_nope, wv),
+                         ins=(x_in,) * 3 + (w_in,) * 4, grads=(x_grad,) * 3 + (w_grad,) * 4,
+                         outs=tuple(Shard(2) if w.is_shard(1) else x
+                                    for x, w in zip(x_in, w_in)))
     S = cq.shape[1]
     T = ckv.shape[1]
     k_nope = torch.einsum("btr,rhd->bthd", ckv, wk_nope)

@@ -34,8 +34,23 @@ from . import attention as attn_lib
 from .common import apply_rope, dtype_of, embed_init, resolve_device, rms_norm, zeros
 from .config import ArchConfig
 from .mlp import apply_mlp, init_mlp
-from .transformer import (Params, _fit_cache, _heads_in, _heads_out, _layer, _token_nll,
-                          _unbind, _write_cache, head, init_attn)
+from .sharding_utils import maybe_shard, replicate_like
+from .transformer import (GATHERED, RESIDUAL, Params, _fit_cache, _heads_in, _heads_out,
+                          _layer, _unbind, _write_cache, gathered_table, head, init_attn,
+                          token_nll)
+
+
+def _normed(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """The RMS-normed residual stream as the projections take it: under a
+    mesh its sequence gathered (the residual stream is sequence-sharded over
+    "model"), as ``LM``'s blocks take it."""
+    return maybe_shard(rms_norm(x, scale, eps), GATHERED)
+
+
+def _add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The residual add, the branch ``y`` laid out as the residual stream
+    first (a reduce-scatter of the row-parallel product under a mesh)."""
+    return maybe_shard(x + maybe_shard(y, RESIDUAL), RESIDUAL)
 
 
 def _init_enc_layers(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> Params:
@@ -129,17 +144,18 @@ class EncDecLM:
             raise TypeError(f"{cfg.name}: encoder frames are {frames.dtype}, the model "
                             f"computes in {dtype}; pass frames in {dtype}")
         x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
+        x = maybe_shard(x, RESIDUAL)
         for p in _unbind(params["enc"], cfg.n_enc_layers):
             if remat == "full" and torch.is_grad_enabled():
                 x = checkpoint(self._enc_layer, x, p, use_reentrant=False)
             else:
                 x = self._enc_layer(x, p)
-        return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+        return maybe_shard(rms_norm(x, params["ln_enc"], cfg.norm_eps), GATHERED)
 
     def _enc_layer(self, x: torch.Tensor, p: Params) -> torch.Tensor:
         eps = self.cfg.norm_eps
-        x = x + _attn_noncausal(p["attn"], rms_norm(x, p["ln1"], eps))
-        return x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], eps), self.cfg.act)
+        x = _add(x, _attn_noncausal(p["attn"], _normed(x, p["ln1"], eps)))
+        return _add(x, apply_mlp(p["mlp"], _normed(x, p["ln2"], eps), self.cfg.act))
 
     # -- decoder (train) ------------------------------------------------------------
     def apply(self, params: Params, tokens: torch.Tensor, *, encoder_frames: torch.Tensor,
@@ -151,23 +167,25 @@ class EncDecLM:
         if remat not in ("full", "none"):
             raise ValueError(f"remat={remat!r}: 'full' or 'none'")
         cfg = self.cfg
+        params = gathered_table(params)
         enc_out = self.encode(params, encoder_frames, remat)
-        x = F.embedding(tokens.long(), params["embed"])
+        x = maybe_shard(F.embedding(tokens.long(), params["embed"]), RESIDUAL)
         for p in _unbind(params["dec"], cfg.n_layers):
             if remat == "full" and torch.is_grad_enabled():
                 x = checkpoint(self._dec_layer, x, p, enc_out, use_reentrant=False)
             else:
                 x = self._dec_layer(x, p, enc_out)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        return head(cfg, params, x), torch.zeros((), device=x.device)
+        x = maybe_shard(rms_norm(x, params["ln_f"], cfg.norm_eps), GATHERED)
+        logits = head(cfg, params, x)
+        return logits, replicate_like(torch.zeros((), device=x.device), logits)
 
     def _dec_layer(self, x: torch.Tensor, p: Params, enc_out: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = x + _self_attn(p["self_attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                           mode="train", cache=None, pos=None)
+        x = _add(x, _self_attn(p["self_attn"], _normed(x, p["ln1"], cfg.norm_eps), cfg,
+                               mode="train", cache=None, pos=None))
         k, v = _cross_kv(p["cross_attn"], enc_out)
-        x = x + _cross_attn(p["cross_attn"], rms_norm(x, p["ln_x"], cfg.norm_eps), k, v)
-        return x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+        x = _add(x, _cross_attn(p["cross_attn"], _normed(x, p["ln_x"], cfg.norm_eps), k, v))
+        return _add(x, apply_mlp(p["mlp"], _normed(x, p["ln2"], cfg.norm_eps), cfg.act))
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor], *, remat: str = "full"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -176,7 +194,7 @@ class EncDecLM:
         logits, aux = self.apply(params, batch["tokens"], remat=remat,
                                  encoder_frames=batch["encoder_frames"])
         labels = batch["labels"].long()
-        nll = torch.mean(_token_nll(logits, labels, torch.ones_like(labels, dtype=logits.dtype)))
+        nll = torch.mean(token_nll(logits, labels, torch.ones_like(labels, dtype=logits.dtype)))
         return nll, {"nll": nll, "aux": aux}
 
     # -- serving --------------------------------------------------------------------

@@ -192,7 +192,12 @@ def maybe_shard(x: torch.Tensor, spec: Optional[Sequence]) -> torch.Tensor:
     if spec is None or mesh is None or not is_dtensor(x):
         return x
     cleaned = clean_spec(spec, x.shape, mesh_sizes(mesh))
-    target = placements(cleaned, x.device_mesh)
+    return relayout(x, placements(cleaned, x.device_mesh))
+
+
+def relayout(x, target: Sequence) -> torch.Tensor:
+    """The DTensor ``x`` redistributed to the placements ``target``."""
+    target = tuple(target)
     if tuple(x.placements) == target:
         return x
     if x.device_mesh.device_type == "cpu":
@@ -207,6 +212,56 @@ def maybe_shard(x: torch.Tensor, spec: Optional[Sequence]) -> torch.Tensor:
         if via != list(x.placements):
             x = x.redistribute(x.device_mesh, via)
     return x.redistribute(x.device_mesh, target)
+
+
+def moved(pl: Sequence, moves: Dict[int, Optional[int]]) -> tuple:
+    """``pl`` with each ``Shard(a)`` for ``a`` in ``moves`` turned into
+    ``Shard(moves[a])`` (``Replicate()`` where that is None)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in pl:
+        if p.is_shard() and p.dim in moves:
+            p = Replicate() if moves[p.dim] is None else Shard(moves[p.dim])
+        out.append(p)
+    return tuple(out)
+
+
+def summed_where(pl: Sequence, ref: Sequence, dims: Sequence[int]) -> tuple:
+    """``pl`` with a pending sum (``Partial()``) on each mesh dim where the
+    placement ``ref`` shards a tensor dim in ``dims``: the layout of the
+    gradient of an operand that every rank of such a mesh dim uses whole
+    with its own shard of ``ref``'s tensor."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if r.is_shard() and r.dim in dims else p for p, r in zip(pl, ref))
+
+
+def on_shards(fn, args: Sequence, ins: Sequence, outs, grads: Optional[Sequence] = None):
+    """``fn`` of local tensors applied to ``args``, some of them DTensors
+    (``local_map``): each DTensor argument is laid out by its entry of
+    ``ins`` (placements; None for a plain argument) first, its gradient comes
+    back laid out by its entry of ``grads`` (``ins``'s where None), and
+    ``fn``'s outputs become DTensors laid out by ``outs`` (one placements
+    tuple, or a tuple of them for a tuple of outputs)."""
+    from torch.distributed.tensor import DTensor, Placement
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    grads = grads or [None] * len(args)
+    laid, in_pl, grad_pl = [], [], []
+    for a, pl, gpl in zip(args, ins, grads):
+        if isinstance(a, DTensor):
+            a = relayout(a, pl)
+            in_pl.append(tuple(pl))
+            grad_pl.append(tuple(gpl) if gpl is not None else tuple(pl))
+        else:
+            in_pl.append(None)
+            grad_pl.append(None)
+        laid.append(a)
+    if all(isinstance(o, Placement) for o in outs):
+        outs = list(outs)                 # one output (local_map reads a tuple as several)
+    else:
+        outs = tuple(list(o) for o in outs)
+    return local_map(fn, out_placements=outs, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*laid)
 
 
 # canonical logical specs used across the model zoo ----------------------------

@@ -46,7 +46,7 @@ from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_devic
 from .config import ArchConfig
 from .mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from .rglru import apply_rglru, init_rglru, rglru_state_shape
-from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, replicate_like
+from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, on_shards, replicate_like
 from .ssm import apply_mamba2, apply_mamba2_decode, init_mamba2, mamba2_state_shape
 
 Params = Dict[str, Any]
@@ -215,7 +215,11 @@ def _fit_cache(cache: torch.Tensor, kv: torch.Tensor) -> None:
 def apply_mla_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                     cache: Optional[Params], pos: Optional[torch.Tensor]) -> torch.Tensor:
     S = x.shape[1]
-    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    # under a mesh: the sequence gathered (as GQA's projections take it), and
+    # the Rq-sharded query latent gathered over "model" before its norm; each
+    # rank then attends its own heads (``mla_prefill``)
+    x = maybe_shard(x, GATHERED)
+    cq = rms_norm(maybe_shard(x @ p["wq_a"], GATHERED), p["q_norm"], cfg.norm_eps)
     kv_a = x @ p["wkv_a"]
     ckv, k_rope = torch.split(kv_a, [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
     ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
@@ -260,7 +264,7 @@ def apply_block_aux(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     """One layer: (the residual stream after it, its aux loss: an MoE
     layer's load-balance loss, else a float32 zero). ``prefix_len`` reaches
     GQA attention only (the reference's MLA takes none)."""
-    aux = torch.zeros((), device=x.device)
+    aux = replicate_like(torch.zeros((), device=x.device), x)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         if mode == "decode":
@@ -302,6 +306,17 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -
     return (lse - ll) * mask
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``_token_nll``; under a mesh the (vocab-sharded) logits are laid out by
+    sequence, as the residual stream, and each rank takes its own tokens'."""
+    if not is_dtensor(logits):
+        return _token_nll(logits, labels, mask)
+    logits, labels, mask = (maybe_shard(t, RESIDUAL[:t.ndim]) for t in (logits, labels, mask))
+    pl = tuple(labels.placements)
+    return on_shards(_token_nll, (logits, labels, mask), ins=(tuple(logits.placements), pl, pl),
+                     outs=pl)
+
+
 def head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """float32 logits of the final-normed ``x``, the padded vocabulary's
     columns at -inf."""
@@ -313,13 +328,31 @@ def head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def gathered_table(params: Params) -> Params:
+    """``params`` with the embedding table gathered over the batch axes (its
+    vocab kept over "model") under a mesh, once a forward, as FSDP gathers a
+    weight before use; ``params`` itself when unsharded. torch 2.11's DTensor
+    looks tokens up in a table sharded on d by moving the tokens and then
+    masks the output with the unmoved tokens (an IndexError on four cards at
+    (2, 2)); and a tied table's two gradients, the lookup's and the head's,
+    then add in one layout (2.11 cannot bring the head's, sharded on d, to
+    the lookup's pending sum). One reduce-scatter returns the table's
+    gradient to its layout."""
+    if not is_dtensor(params["embed"]):
+        return params
+    return dict(params, embed=maybe_shard(params["embed"], P("model", None)))
+
+
 def _prepend(x: torch.Tensor, extra: Optional[torch.Tensor], prefix_len: int
              ) -> Tuple[torch.Tensor, int]:
     """The token embeddings ``x`` with ``extra`` (B, P, D) prepended in
-    their dtype, and ``prefix_len`` raised to P."""
+    their dtype, and ``prefix_len`` raised to P. Under a mesh both are laid
+    out alike first, the sequence whole (the table's vocab-sharded lookup
+    summed), so the concatenation is each rank's own."""
     if extra is None:
         return x, prefix_len
-    return torch.cat([extra.to(x.dtype), x], dim=1), max(prefix_len, extra.shape[1])
+    x, extra = maybe_shard(x, GATHERED), maybe_shard(extra.to(x.dtype), GATHERED)
+    return torch.cat([extra, x], dim=1), max(prefix_len, extra.shape[1])
 
 
 def _layer(tree: Union[Params, torch.Tensor], i: int):
@@ -467,6 +500,7 @@ class LM:
         if remat not in ("full", "none"):
             raise ValueError(f"remat={remat!r}: 'full' or 'none'")
         cfg = self.cfg
+        params = gathered_table(params)
         # F.embedding: DTensor shards it on a vocab-sharded table (indexing it
         # does not); on the card its backward accumulates a repeated token's
         # rows in float32, indexing's in bf16 (h2o's bf16 grad norms differed
@@ -475,7 +509,7 @@ class LM:
                                  prefix_len)
         x = maybe_shard(x, RESIDUAL)
         unit, n_units, tail = self.scan_groups()
-        aux = torch.zeros((), device=x.device)
+        aux = replicate_like(torch.zeros((), device=x.device), x)
 
         def run_tail(x, aux):
             for i, kind in enumerate(tail):
@@ -500,7 +534,7 @@ class LM:
     def _unit_apply(self, x: torch.Tensor, unit_params: Params, prefix_len: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         unit = self.scan_groups()[0]
-        aux = torch.zeros((), device=x.device)
+        aux = replicate_like(torch.zeros((), device=x.device), x)
         for i, kind in enumerate(unit):
             x, a = apply_block_aux(unit_params[f"u{i}"], x, self.cfg, kind, mode="train",
                                    prefix_len=prefix_len)
@@ -534,19 +568,7 @@ class LM:
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones_like(labels, dtype=torch.float32)
-        if is_dtensor(logits):
-            # under a mesh: lay the (vocab-sharded) logits out by sequence, as
-            # the residual stream, and take each rank's tokens' NLL locally
-            logits, labels, mask = (maybe_shard(t, RESIDUAL[:t.ndim])
-                                    for t in (logits, labels, mask))
-            from torch.distributed.tensor.experimental import local_map
-            tok = local_map(_token_nll, out_placements=list(labels.placements),
-                            in_placements=(logits.placements, labels.placements,
-                                           mask.placements),
-                            device_mesh=logits.device_mesh)(logits, labels, mask)
-        else:
-            tok = _token_nll(logits, labels, mask)
-        return torch.sum(tok) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(token_nll(logits, labels, mask)) / torch.clamp(torch.sum(mask), min=1.0)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return head(self.cfg, params, x)

@@ -1102,3 +1102,148 @@ def test_quantize_int8_on_card_matches_cpu_bitwise():
     d, r, _ = ef_compress(g, e)
     d_c, r_c, _ = ef_compress({"w": g["w"].cpu()}, {"w": e["w"].cpu()})
     assert torch.equal(d["w"].cpu(), d_c["w"]) and torch.equal(r["w"].cpu(), r_c["w"])
+
+
+@pytest.mark.gpu
+def test_mesh_archs_one_card_small():
+    """chip_smoke.py phase 8's arch runs at a small size on one nccl rank's
+    (1, 1) mesh: the reduced olmoe (head_dim 64, attn_chunk 64 < S = 256:
+    the flash kernels at G = 1, launches exact), deepseek's loss and
+    gradients (MLA, a shared expert), whisper and paligemma, bf16; the loss
+    bitwise and the grad norms within ``MESH_ONE_GNORM_TOL`` of the plain
+    step's, the DTensor entry's local branch only (``arch_mesh_gate``)."""
+    _card()
+    from repro_torch.runtime.ranks import run_ranks
+
+    cs, card = _chip_smoke()
+    R = cs.ArchMeshRun
+    runs = [R("olmoe_1b_7b", 2, "bfloat16", 2, 256, 2, reduced=True,
+              overrides=(("head_dim", 64), ("attn_chunk", 64))),
+            R("deepseek_v2_236b", 2, "bfloat16", 1, 256, 1, adamw=False, reduced=True,
+              overrides=(("attn_chunk", 64),)),
+            R("whisper_small", 2, "bfloat16", 4, 32, 1, qk_fan_in=True, reduced=True),
+            R("paligemma_3b", 2, "bfloat16", 2, 32, 1, qk_fan_in=True, reduced=True)]
+    recs = run_ranks(cs.arch_mesh_rank, 1, (runs,), backend="nccl", timeout=300,
+                     devices=["cuda:0"])
+    out = cs.arch_mesh_gate(torch, card, recs, "small mesh")
+    assert [len(s["rows"]) for s in out] == [2, 1, 1, 1]
+    assert all(r["bitwise"] for s in out for r in s["rows"])
+    assert out[0]["launches"]["flash_attention"] == 2 * 4
+    assert out[0]["branches"] == {"local": 2 * 4, "replicate": 0}
+
+
+def _four_cards():
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards (one rank a card), saw {torch.cuda.device_count()}")
+    return [f"cuda:{i}" for i in range(4)]
+
+
+@pytest.fixture(scope="module")
+def four_card_archs():
+    """The four-card runs, one process a card for all of them, and one card's
+    plain steps in a process of its own (``chip_smoke.arch_mesh_rank``):
+    olmoe_1b_7b at full width and depth (16 layers, 64 experts, 16 a rank),
+    deepseek_v2_236b at 4 of 60 layers with AdamW, whisper_small (12 + 12
+    layers) and paligemma_3b (18 layers) on a (1, 4) mesh, bf16, remat
+    "full"; beside them one card's plain step of olmoe at 8 layers and of
+    whisper and paligemma at full depth. Each gated by ``arch_mesh_gate``
+    (finite, launches exact, E / 4 expert rows a rank)."""
+    devices = _four_cards()
+    from repro_torch.runtime.ranks import run_ranks
+
+    cs, card = _chip_smoke()
+    R = cs.ArchMeshRun
+    mesh_runs = [R("olmoe_1b_7b", None, "bfloat16", 2, 4096, 10, mesh=(1, 4), compare=False),
+                 R("deepseek_v2_236b", 4, "bfloat16", 1, 4096, 6, mesh=(1, 4), compare=False),
+                 R("whisper_small", None, "bfloat16", 8, 448, 10, mesh=(1, 4), compare=False,
+                   qk_fan_in=True),
+                 R("paligemma_3b", None, "bfloat16", 2, 512, 10, mesh=(1, 4), compare=False,
+                   qk_fan_in=True)]
+    one_runs = [R("olmoe_1b_7b", 8, "bfloat16", 2, 4096, 10, mesh=None, compare=False),
+                R("whisper_small", None, "bfloat16", 8, 448, 10, mesh=None, compare=False,
+                  qk_fan_in=True),
+                R("paligemma_3b", None, "bfloat16", 2, 512, 10, mesh=None, compare=False,
+                  qk_fan_in=True)]
+    out = {}
+    # deepseek in a group of its own: the largest state, so a failure there
+    # leaves the other runs' results standing (each test raises its own group's)
+    for name, runs, world, timeout in (("four", mesh_runs[:1] + mesh_runs[2:], 4, 420),
+                                       ("deepseek", mesh_runs[1:2], 4, 300),
+                                       ("one", one_runs, 1, 300)):
+        try:
+            recs = run_ranks(cs.arch_mesh_rank, world, (runs,), backend="nccl", timeout=timeout,
+                             devices=devices[:world])
+            out[name] = {s["config"]: s for s in cs.arch_mesh_gate(
+                torch, card, recs, "four cards" if world == 4 else "one card")}
+        except Exception as e:          # re-raised by the tests that read this group
+            out[name] = e
+    return out
+
+
+def _group(runs, name):
+    if isinstance(runs[name], Exception):
+        raise runs[name]
+    return runs[name]
+
+
+@pytest.mark.gpu
+def test_olmoe_full_depth_trains_on_four_cards(four_card_archs):
+    """olmoe_1b_7b at all 16 layers, B = 2 x 4096, on a (1, 4) mesh: 16 of
+    its 64 experts on every rank, the flash launches exact, the loss falls
+    over 10 steps; one card's 8-layer step timed beside it."""
+    four, one = _group(four_card_archs, "four"), _group(four_card_archs, "one")
+    run = four["olmoe-1b-7b"]
+    assert run["n_layers"] == 16 and set(run["expert_rows"].values()) == {16}
+    assert run["losses"][-1] < run["losses"][0]
+    assert one["olmoe-1b-7b"]["n_layers"] == 8 and one["olmoe-1b-7b"]["ms_median"] > 0
+
+
+@pytest.mark.gpu
+def test_deepseek_adamw_step_on_four_cards(four_card_archs):
+    """deepseek_v2_236b's whole train step, AdamW included, at 4 of 60
+    layers (the dense-first layer and three MoE units, 40 of 160 experts a
+    rank), B = 1 x 4096, on a (1, 4) mesh: finite, the loss falling over 6
+    steps."""
+    run = _group(four_card_archs, "deepseek")["deepseek-v2-236b"]
+    assert run["n_layers"] == 4 and set(run["expert_rows"].values()) == {40}
+    assert run["losses"][-1] < run["losses"][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["whisper-small", "paligemma-3b"])
+def test_encdec_and_vlm_full_depth_on_four_cards(four_card_archs, config):
+    """whisper_small (12 + 12 layers, B = 8 x 448) and paligemma_3b (18
+    layers, B = 2 x (256 + 512)) at full depth on a (1, 4) mesh, the loss
+    falling over 10 steps, one card's full-depth plain step beside each."""
+    four, one = _group(four_card_archs, "four"), _group(four_card_archs, "one")
+    assert four[config]["n_layers"] == one[config]["n_layers"]
+    assert four[config]["losses"][-1] < four[config]["losses"][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)])
+def test_mesh_archs_float32_parity_on_four_cards(mesh):
+    """The four archs at small float32 configs (the reduced widths at 2
+    layers; olmoe at head_dim 64 and attn_chunk 64 < S = 256, so the flash
+    kernels run on each rank's heads; deepseek at attn_chunk 64: MLA's query
+    chunks), 2 AdamW steps on a (1, 4) and a (2, 2) mesh, each held against
+    the one-card plain step from the same state on cuda:0: loss and grad
+    norm within ``MESH_ONE_GNORM_TOL`` relative, the first moments within
+    1e-4 of each leaf's max, the parameters within the float32 tolerance."""
+    devices = _four_cards()
+    from repro_torch.runtime.ranks import run_ranks
+
+    cs, card = _chip_smoke()
+    R = cs.ArchMeshRun
+    runs = [R("olmoe_1b_7b", 2, "float32", 4, 256, 2, mesh=mesh, reduced=True,
+              overrides=(("head_dim", 64), ("attn_chunk", 64))),
+            R("deepseek_v2_236b", 2, "float32", 4, 256, 2, mesh=mesh, reduced=True,
+              overrides=(("attn_chunk", 64),)),
+            R("whisper_small", 2, "float32", 4, 32, 2, mesh=mesh, qk_fan_in=True, reduced=True),
+            R("paligemma_3b", 2, "float32", 4, 32, 2, mesh=mesh, qk_fan_in=True, reduced=True)]
+    out = cs.arch_mesh_gate(torch, card, run_ranks(cs.arch_mesh_rank, 4, (runs,),
+                                                   backend="nccl", timeout=300,
+                                                   devices=devices), f"f32 parity {mesh}")
+    assert [len(s["rows"]) for s in out] == [2, 2, 2, 2]
+    assert out[0]["launches"]["flash_attention"] == 2 * 4

@@ -47,6 +47,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.models.convert import from_numpy
+from repro_torch.optim.adamw import tree_leaves
 
 # two CPU threads each: the suite runs test files side by side in workers
 torch.set_num_threads(2)
@@ -252,9 +253,39 @@ def one_rank_group(tmp_path):
     dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b"])
-def test_train_launcher_refuses_moe_under_a_group(arch, one_rank_group):
-    """Under a process group the launcher refuses the MoE models before it
-    draws a parameter, naming the ROADMAP item that brings them to a mesh."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18, 'MoE and MLA under a mesh'"):
-        ttrain.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2"])
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b", "whisper_small",
+                                  "paligemma_3b"])
+def test_train_launcher_trains_under_a_group(arch, one_rank_group):
+    """Under a process group (one gloo rank) the launcher trains the MoE,
+    MLA, encoder-decoder and VLM models on a (1, 1) mesh, the frontend stubs
+    laid out as the batch: the parameters are DTensors, the loss falls and no
+    kernel launches."""
+    before = launch_counts()
+    out = ttrain.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "20",
+                       "--seq", "32", "--global-batch", "4"])
+    assert launch_counts() == before
+    assert all(hasattr(t, "full_tensor") for t in tree_leaves(out["params"]))
+    assert len(out["losses"]) == 20 and all(np.isfinite(out["losses"]))
+    assert out["final"] < out["first"], arch
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "whisper_small"])
+def test_train_launcher_restores_sharded_on_two_ranks(tmp_path, arch):
+    """olmoe (4 of its 8 experts a rank) and whisper's encoder-decoder
+    through the launcher on 2 gloo ranks ((1, 2) mesh) with ``--ckpt-dir``:
+    4 steps saved sharded; a restart at the same step count restores the
+    state bit for bit and trains nothing; a restart to 6 steps resumes at
+    step 4."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_mesh_ranks
+    from repro_torch.runtime.ranks import run_ranks
+
+    out = run_ranks(torch_mesh_ranks.launcher_ckpt_rank, 2, (arch, str(tmp_path / "ckpt")),
+                    backend="gloo", timeout=300)
+    E = reduced_config(arch).n_experts
+    for r in out:
+        assert r["restored_equal"] and r["leaves"] > 0
+        assert set(r["experts"].values()) == ({E // 2} if E else set())
+        assert r["steps0"] == [0, 4, 4] and r["n_losses"] == [4, 0, 2]
+        assert all(np.isfinite(r["losses"]))
+    assert out[0]["losses"] == out[1]["losses"]

@@ -275,3 +275,121 @@ def compress_rank(rank, world, tree, steps):
         out["res"].append({k: e.full_tensor() for k, e in ef.items()})
         out["norms"].append(m["ef_residual_norm"])
     return out
+
+
+def _arch_batch(cfg, block, stubs_np, mesh):
+    """A token block (B, S + 1) and the frontend stubs, laid out on ``mesh``
+    as the launcher lays them out (the batch over the batch axes)."""
+    batch = place_batch(block, mesh, P(("pod", "data"), None))
+    stubs = {k: torch.from_numpy(v) for k, v in stubs_np.items()}
+    if stubs:
+        batch.update(distribute_tree(stubs, ShardingRules(cfg, mesh).batch_specs(
+            stubs, block.shape[0]), mesh))
+    return batch
+
+
+def expert_rows(params) -> dict:
+    """path -> this rank's rows of each expert leaf (its local dim 0, past the
+    stacked layer dim where there is one)."""
+    out = {}
+    for group in ("stack", "tail"):
+        for name, block in params.get(group, {}).items():
+            for leaf in ("w_up", "w_gate", "w_down"):
+                if "moe" in block and leaf in block["moe"]:
+                    t = block["moe"][leaf]
+                    out[f"{group}/{name}/moe/{leaf}"] = t.to_local().shape[1 if group == "stack"
+                                                                          else 0]
+    return out
+
+
+def arch_steps_rank(rank, world, cases):
+    """Each case ``(arch, mesh_shape, state_np, blocks, stubs_np)``: the
+    reduced arch's train steps (remat "none", the launcher's make_train_step)
+    on a ("data", "model") mesh of ``mesh_shape`` from ``state_np`` (params
+    and AdamW state, numpy), one a token block, carried from step to step;
+    each step's loss, nll, aux and grad norm, the state after the last
+    (whole) and each expert leaf's local rows."""
+    out = []
+    for arch, mesh_shape, state_np, blocks, stubs_np in cases:
+        cfg = reduced_config(arch)
+        _, train_step = make_train_step(cfg, remat="none", device="cpu")
+        mesh = make_mesh(mesh_shape, ("data", "model"))
+        tree = from_numpy(state_np, device="cpu")
+        tree = distribute_tree(tree, train_state_specs(ShardingRules(cfg, mesh), tree), mesh)
+        p, o = tree["params"], tree["opt"]
+        rec = {k: [] for k in ("loss", "nll", "aux", "grad_norm")}
+        rec["experts"] = expert_rows(p)
+        with use_mesh(mesh):
+            for i, block in enumerate(blocks):
+                p, o, m = train_step(p, o, _arch_batch(cfg, block, stubs_np, mesh), i)
+                for k in ("loss", "nll", "aux", "grad_norm"):
+                    rec[k].append(float(m[k]))
+        rec["state"] = gather({"params": p, "opt": o}, True)
+        out.append(rec)
+    return out
+
+
+def moe_apply_rank(rank, world, cases):
+    """Each case ``(arch, overrides, mesh_shape, moe_np, x, r)``: ``apply_moe``
+    of one layer's MoE weights (laid out as ``ShardingRules`` lays out an
+    unstacked MoE layer) on x (B, S, D), laid out as the block gives it
+    (batch over the batch axes) on a ("data", "model") mesh; the output, aux
+    loss, the gradients of sum(out * r) + aux (whole), the routing's rows
+    (whole) and the expert leaves' local rows."""
+    from repro_torch.models import mlp
+    from repro_torch.models.sharding import map_with_path
+    out = []
+    for arch, overrides, mesh_shape, moe_np, x, r in cases:
+        cfg = dataclasses.replace(reduced_config(arch), **overrides)
+        mesh = make_mesh(mesh_shape, ("data", "model"))
+        rules = ShardingRules(cfg, mesh)
+        p = from_numpy(moe_np, device="cpu")
+        specs = map_with_path(lambda path, t: rules.param_spec(path, t.shape), {"moe": p},
+                              "tail/t0/")["moe"]
+        p = distribute_tree(p, specs, mesh)
+        leaves = list(tree_leaves(p))
+        for t in leaves:
+            t.requires_grad_(True)
+        dx = distribute(x, P(("pod", "data"), None, None), mesh).requires_grad_(True)
+        with use_mesh(mesh):
+            y, aux = mlp.apply_moe(p, dx, cfg)
+            B, S, D = x.shape
+            G = mlp.dispatch_groups(B * S, cfg)
+            xg = maybe_shard(dx.detach().reshape(G, B * S // G, D), P(("pod", "data"), None, None))
+            dest = mlp.route(p, xg, cfg).dest
+        loss = (y * distribute(r, P(), mesh)).sum() + aux
+        grads = torch.autograd.grad(loss.full_tensor(), [dx] + leaves)
+        out.append(dict(out=y.full_tensor().detach(), aux=aux.full_tensor().detach(),
+                        dx=grads[0].full_tensor(), dp=[g.full_tensor() for g in grads[1:]],
+                        dest=dest.full_tensor(), rows={k: t.to_local().shape[0] for k, t in
+                                                       p.items() if k != "router" and
+                                                       k != "shared"},
+                        placements={k: [str(q) for q in t.placements] for k, t in p.items()
+                                    if k in ("w_up", "w_down")}))
+    return out
+
+
+def mesh_archs_rank(rank, world, step_cases, moe_cases):
+    """``arch_steps_rank`` and ``moe_apply_rank`` in one start of the ranks."""
+    return {"steps": arch_steps_rank(rank, world, step_cases),
+            "moe": moe_apply_rank(rank, world, moe_cases)}
+
+
+def launcher_ckpt_rank(rank, world, arch, ckpt_dir):
+    """The train launcher (``launch.train.main``) on this group: ``arch``
+    reduced, 4 steps saved sharded into ``ckpt_dir``; the same run again
+    (restores step 4, trains nothing: its state against the first run's,
+    bit for bit); then 6 steps (resumes at 4)."""
+    from repro_torch.launch import train as ttrain
+    args = ["--arch", arch, "--reduced", "--device", "cpu", "--seq", "32",
+            "--global-batch", "4", "--ckpt-every", "2", "--ckpt-dir", ckpt_dir, "--steps"]
+    runs = [ttrain.main(args + [str(n)]) for n in (4, 4)]
+    saved, restored = (gather({"params": r["params"], "opt": r["opt"]}, True) for r in runs)
+    a, b = list(tree_leaves(saved)), list(tree_leaves(restored))
+    equal = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                     for x, y in zip(a, b))
+    experts = expert_rows(runs[0]["params"])
+    runs.append(ttrain.main(args + ["6"]))
+    return dict(restored_equal=equal, leaves=len(a), experts=experts,
+                steps0=[r["step0"] for r in runs], n_losses=[len(r["losses"]) for r in runs],
+                losses=runs[0]["losses"] + runs[2]["losses"])
