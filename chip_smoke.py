@@ -56,7 +56,11 @@ phases:
    cotangent, against its plain version; and every kernel at the shapes of
    phase 7's calibration path in float32 (``kernel_rates``' flash, decode,
    SSD scan and RG-LRU shapes, and the reduced mamba2 train step's SSD
-   scan forward);
+   scan forward); and decode's sharded-keys mode (``decode_attention_partial``)
+   at qwen3-32b's decode shape in 4 shards and at h2o-danube-1.8b's d = 80
+   with its window, each shard's o and lse against the plain version, the
+   shards merged against the one-card kernel, a quarter shard timed beside
+   the whole cache;
 3. four serving paths, each at full width, bf16, batch 4, with launch
    counters (zeroed just before the path runs, read just after) showing
    its kernels ran on every layer, a profiler window (device time by
@@ -199,7 +203,15 @@ phases:
    one step each; each step's loss bitwise and its grad norm (deepseek:
    each gradient's norm) within ``MESH_ONE_GNORM_TOL`` of the plain step
    from the same state, the attention on the DTensor entry's local branch
-   only, every expert leaf's rows whole on the one rank;
+   only, every expert leaf's rows whole on the one rank; then every cache
+   kind served on a (1, 1) mesh of one nccl rank (``phase_serve_mesh``,
+   ``SERVE_MESH_RUNS``: qwen3-32b 8 layers, h2o-danube-1.8b over its
+   wrapping ring, deepseek-v2-236b's MLA latents, mamba2-780m, recurrentgemma-9b,
+   olmoe-1b-7b, whisper-small's cross cache in float32, paligemma-3b's
+   patches; 2 layers each otherwise) through ``launch.serve.generate``, the
+   cache laid out by ``cache_specs``, against the plain serve in the same
+   rank: the greedy tokens equal, the logits within phase 3's bound, the
+   launches exact, every decode attention on the sharded-keys branch;
 9. the examples through their ``main`` on the card: the smart-home example
    (``examples/smart_home_training_torch.py``) plans smart_home_2, trains 20
    steps and checkpoints, then resumes at step 20 and trains to 40 (no
@@ -717,6 +729,125 @@ def kernels_decode(kp: KernelPhase) -> None:
         ("paligemma f32", (2, Tp, Hp, 1, Dp), [Tp, PG_PATCHES + PG_PROMPT + 1], None,
          "float32")])
     del flush
+    torch.cuda.empty_cache()
+
+
+# decode_attention's sharded-keys mode: a cache cut into this many shards (the
+# "model" axis of a (1, 4) mesh), each shard's (o, lse) held to its plain version
+PARTIAL_SHARDS = 4
+
+
+def merge_on_one_card(torch, parts):
+    """``ops.merge_partials``' rule over the partials ``[(o (B,1,H,d), lse
+    (B,H))]`` of one process: the output over every shard's keys, float32."""
+    from repro_torch.kernels.decode_attention import NEG_INF
+    o = torch.stack([p[0] for p in parts])
+    lse = torch.stack([p[1] for p in parts])[:, :, None]
+    w = torch.where(lse > NEG_INF, torch.exp(lse - lse.amax(dim=0)), 0.0)[..., None]
+    num, den = (w * o).sum(dim=0), w.sum(dim=0)
+    return torch.where(den > 0, num / den.clamp(min=1e-30), 0.0)
+
+
+def kernels_decode_partial(kp: KernelPhase) -> None:
+    """decode_attention's sharded-keys mode (``decode_attention_partial``)
+    at qwen3-32b's decode shape (B 4, T 4128 cut into 4 shards of 1032 at
+    offsets 0 / 1032 / 2064 / 3096) and at h2o-danube-1.8b's d = 80 with its
+    4096 window (T 8256 in 4 shards of 2064), with lengths that end inside a
+    shard, past a shard's end (cache_len - kv_offset > Tk) and below the
+    window, and shards with no live key: each shard's o (bf16 bound) and lse
+    (float32 tolerance) against ``decode_attention_partial_ref``, then the
+    four shards merged on the card against the one-card kernel on the
+    whole cache (bf16 bound) and the float32 plain version; and the partial
+    call on a quarter shard of the main shape (every key live) timed beside
+    the whole-cache call, with its byte bound and the efficient sdpa kernel
+    with ``compute_log_sumexp=True`` on the shard (K/V repeated over the
+    group) as a yardstick."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
+    T = PROMPT + GEN
+    bf16 = torch.bfloat16
+    for name, (B, t, h, kv, d), lens, window in [
+            ("sharded keys main path", (BATCH, T, HEADS, KV_HEADS, HEAD_DIM), [T, 3000, 1100, 17],
+             None),
+            ("sharded keys d80 window", (4, 2 * T, H2O_HEADS, H2O_KV, H2O_HEAD_DIM),
+             [2 * T, 5000, 2100, 1], H2O_WINDOW)]:
+        q = rand((B, 1, h, d), bf16)
+        kc, vc = rand((B, t, kv, d), bf16), rand((B, t, kv, d), bf16)
+        cl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        n = t // PARTIAL_SHARDS
+        parts = []
+        for i in range(PARTIAL_SHARDS):
+            a = i * n
+            ks, vs = kc[:, a:a + n].contiguous(), vc[:, a:a + n].contiguous()
+            o, lse = launched(dec, lambda: dec.decode_attention_partial(
+                q, ks, vs, cl, kv_offset=a, window=window))
+            exp_o, exp_lse = dec.decode_attention_partial_ref(q.float(), ks.float(), vs.float(),
+                                                              cl, kv_offset=a, window=window)
+            err, share = check(torch, o, exp_o, "bfloat16")
+            lerr, lshare = check(torch, lse, exp_lse, "float32")
+            cases_out.append(dict(kernel="decode_attention", case=f"{name} shard {i}",
+                                  dtype="bfloat16", max_abs_err=err, bound_share=share,
+                                  lse_max_abs_err=lerr, lse_bound_share=lshare, tol=TOL["bfloat16"],
+                                  kv_offset=a))
+            log(card, f"decode_attention_partial {name} shard {i} (keys {a}..{a + n}): B={B} "
+                      f"H={h} KV={kv} d={d} lens={lens} window={window}: o max abs err "
+                      f"{err:.3e} at {share:.3f} of its bound ({TOL['bfloat16']}), lse max abs "
+                      f"err {lerr:.3e} at {lshare:.3f} of its bound ({TOL['float32']})")
+            parts.append((o, lse))
+            del ks, vs
+        merged = merge_on_one_card(torch, parts)
+        one = launched(dec, lambda: ops.decode_attention(q, kc, vc, cl, window=window))
+        exp = dec.decode_attention_ref(q.float(), kc.float(), vc.float(), cl, window=window)
+        exp[cl == 0] = 0.0
+        err1, share1 = check(torch, merged, one.float(), "bfloat16")
+        err2, share2 = check(torch, merged, exp, "bfloat16")
+        cases_out.append(dict(kernel="decode_attention", case=f"{name} merged", dtype="bfloat16",
+                              max_abs_err=err2, bound_share=share2, vs_one_card_err=err1,
+                              vs_one_card_share=share1, tol=TOL["bfloat16"]))
+        log(card, f"decode_attention_partial {name}: {PARTIAL_SHARDS} shards merged by "
+                  f"log-sum-exp against the one-card kernel on the whole cache: max abs err "
+                  f"{err1:.3e} at {share1:.3f} of the bf16 bound; against the float32 plain "
+                  f"version {err2:.3e} at {share2:.3f}")
+        del q, kc, vc, parts, merged, one, exp
+
+    # a quarter shard of the main shape, every key live, timed beside the whole cache
+    B, h, kv, d = BATCH, HEADS, KV_HEADS, HEAD_DIM
+    n = T // PARTIAL_SHARDS
+    q = rand((B, 1, h, d), bf16)
+    kc, vc = rand((B, T, kv, d), bf16), rand((B, T, kv, d), bf16)
+    ks, vs = kc[:, :n].contiguous(), vc[:, :n].contiguous()
+    cl = torch.full((B,), T, dtype=torch.int32, device=DEVICE)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1).contiguous() for x in (ks, vs))
+    o, lse = dec.decode_attention_partial(q, ks, vs, cl, kv_offset=0)
+    err, share = check(torch, o, dec.decode_attention_partial_ref(
+        q.float(), ks.float(), vs.float(), cl, kv_offset=0)[0], "bfloat16")
+    flush = l2_flush(torch)
+    ms, lib_ms, readings = paired_ms(
+        torch, lambda: dec.decode_attention_partial(q, ks, vs, cl, kv_offset=0),
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, True),
+        reps=20, rounds=5, flush=flush)
+    whole_ms = _events_ms(torch, lambda: ops.decode_attention(q, kc, vc, cl), 20, flush)
+    plain_ms = cuda_ms(torch, lambda: dec.decode_attention_partial_ref(q, ks, vs, cl,
+                                                                       kv_offset=0), reps=20)
+    live = B * n
+    nbytes = 2 * (2 * live * kv * d + B * h * d) + 4 * (B * h * d + B * h) + 4 * B
+    ops_n = 4.0 * h * d * live
+    bound_ms, bound_by = bound(ops_n, nbytes, "bfloat16")
+    rec["decode_attention_partial"] = dict(
+        shape=dict(B=B, T_shard=n, T=T, H=h, KV=kv, d=d, dtype="bfloat16", kv_offset=0,
+                   cache_len=[T] * B, shards=PARTIAL_SHARDS),
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share, tol=TOL["bfloat16"],
+        whole_cache_ms=whole_ms, timing=readings, l2="flushed",
+        library="aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True), "
+                "K/V repeated over the group")
+    log(card, f"decode_attention_partial on a quarter shard of the main shape ({n} of {T} keys, "
+              f"all live): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, efficient sdpa with lse "
+              f"{lib_ms:.4f} ms (medians of turns, L2 flushed before each launch), bound "
+              f"{bound_ms:.4f} ms ({bound_by}); the whole-cache call {whole_ms:.4f} ms")
+    del q, kc, vc, ks, vs, kt, vt, flush
     torch.cuda.empty_cache()
 
 
@@ -1298,8 +1429,8 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
 
 def phase_kernels(torch, card: str) -> dict:
     kp = KernelPhase(torch, card)
-    for run in (kernels_flash, kernels_flash_bwd, kernels_decode, kernels_ssd, kernels_ssd_bwd,
-                kernels_rglru):
+    for run in (kernels_flash, kernels_flash_bwd, kernels_decode, kernels_decode_partial,
+                kernels_ssd, kernels_ssd_bwd, kernels_rglru):
         run(kp)
     kp.rec["cases"] = kp.cases
     return kp.rec
@@ -1556,6 +1687,11 @@ def drop_share(torch, model, params, batch) -> float:
     return drops.share()
 
 
+# decode steps against a fresh prefill of the same tokens: the last logits'
+# relative L2 error (bf16 decode and prefill round at different points)
+DECODE_PREFILL_TOL = 3e-2
+
+
 def phase_serve(torch, card: str, path: ServePath) -> dict:
     import numpy as np
     from repro_torch import kernels
@@ -1741,7 +1877,7 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                                           for k, t in params["stack"].items()}}
         check.update(decode_vs_prefill(torch, model, params, tokens[:1, :p0], extra, first))
     rel = check["rel_l2"]
-    consistency_tol = 3e-2
+    consistency_tol = DECODE_PREFILL_TOL
     log(card, f"{cfg.name} decode vs fresh prefill at batch 1, {cfg.dtype} weights, "
               f"{cfg.n_layers} layers: prefill {p0} (after {off} patches), {n} decode step(s), "
               f"against one prefill of {p0 + n}: relative L2 error {rel:.3e} (tol "
@@ -4441,6 +4577,394 @@ def phase_mesh_archs(torch, card: str, runs=MESH_ARCH_RUNS) -> dict:
     log(card, f"phase 8's arch runs: wall {wall:.1f} s")
     return {s["config"]: dict(s, wall_s=wall) for s in summaries}
 
+# -- phase 8: serving under the mesh ---------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ServeMeshRun:
+    """One arch served through ``launch.serve.generate`` on a ("data",
+    "model") mesh of ``mesh`` (parameters by ``param_specs``, the cache by
+    ``cache_specs``, prompt, positions and stubs by ``batch_specs``) and,
+    first in the same rank, on the rank's device alone: full
+    width (the smoke-scale config where ``reduced``), ``layers`` of its depth
+    (None: all; an encoder-decoder's encoder cut alike), the dtype, batch x
+    prompt and ``gen`` greedy steps; the kernel launches the mesh run's
+    prefill and each of its decode steps must make. ``qk_fan_in``: wq and wk
+    at the fan-in of d_model (``fan_in_qk``)."""
+    arch: str
+    layers: Optional[int]
+    dtype: str
+    batch: int
+    prompt: int
+    gen: int
+    prefill_launches: Dict[str, int]
+    step_launches: Dict[str, int]
+    mesh: Tuple[int, int] = (1, 1)
+    qk_fan_in: bool = False
+    reduced: bool = False
+    overrides: tuple = ()
+
+
+def decode_merges(cfg) -> int:
+    """The attentions one decode step runs over a cache under a mesh, each a
+    ``"sharded_keys"`` merge: every GQA and MLA layer, and an
+    encoder-decoder's self- and cross-attention."""
+    from repro_torch.models import build_model
+    if cfg.encdec:
+        return 2 * cfg.n_layers
+    return sum(k not in ("ssm", "rec") for k in build_model(cfg, device="meta").layer_kinds())
+
+
+def serve_mesh_rank(rank: int, world: int, runs) -> list:
+    """The ``ServeMeshRun``s on this rank (started by ``run_ranks``, one
+    process for all of them): the model drawn from seed 0 on the rank's
+    device, a prompt from numpy seed 0 and the frontend stubs from seed 3;
+    the plain serve first, then the mesh serve, each through
+    ``generate``. Returns each run's tokens, every step's logits (rank 0),
+    the launch counts of the mesh run (zeroed just before it, read after its
+    prefill and at its end), the DTensor decode entry's branches over its
+    decode steps, its times, peak memory and the cache's bytes a rank; the
+    gates are the caller's."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import frontend_stubs
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.models.sharding_utils import distribute_tree
+    from repro_torch.runtime import ranks
+
+    device = ranks.rank_device()
+    on_card = device.type == "cuda"
+    out = []
+    for run in runs:
+        full, cfg = arch_mesh_cfg(run)
+        model = build_model(cfg, device=device)
+        params = fan_in_qk(cfg, model.init(torch.Generator(device=device).manual_seed(0)),
+                           run.qk_fan_in)
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (run.batch, run.prompt)), dtype=torch.int32, device=device)
+        stubs = frontend_stubs(cfg, run.batch, device,
+                               torch.Generator(device=device).manual_seed(3))
+        rec = dict(rank=rank, world=world, arch=run.arch, config=full.name,
+                   n_layers=cfg.n_layers, full_layers=full.n_layers, dtype=cfg.dtype,
+                   batch=run.batch, prompt=run.prompt, gen=run.gen, mesh=run.mesh,
+                   vocab=cfg.vocab_size, merges_per_step=decode_merges(cfg),
+                   want_prefill={k: run.prefill_launches.get(k, 0) for k in kernels.KERNELS},
+                   want={k: run.prefill_launches.get(k, 0) + run.gen * run.step_launches.get(k, 0)
+                         for k in kernels.KERNELS})
+        p = generate(model, params, tokens, stubs, run.gen, keep_logits=rank == 0)
+        rec["plain"] = dict(tokens=p["tokens"].cpu(), logits=[x.cpu() for x in p["logits"]],
+                            prefill_ms=p["prefill_ms"], decode_ms=p["decode_ms"])
+        del p
+        mesh = make_mesh(run.mesh, ("data", "model"), device=device)
+        params = distribute_tree(params, ShardingRules(cfg, mesh).param_specs(params), mesh)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        snap = {}
+
+        def after(i: int) -> None:
+            if i < 0:
+                snap.update(launches=kernels.launch_counts(), branches=dict(ops.decode_branch))
+        kernels.reset_launches()
+        # every rank gathers the logits (a collective); rank 0 keeps them
+        m = generate(model, params, tokens, stubs, run.gen, mesh=mesh, keep_logits=True,
+                     on_step=after)
+        counts = kernels.launch_counts()
+        cache_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                          for t in _leaves(m["cache"]))
+        rec.update(tokens=m["tokens"].cpu(),
+                   logits=[x.cpu() for x in m["logits"]] if rank == 0 else [],
+                   prefill_ms=m["prefill_ms"], decode_ms=m["decode_ms"], launches=counts,
+                   prefill_launch_counts=snap["launches"],
+                   branches={k: ops.decode_branch[k] - snap["branches"][k]
+                             for k in ops.decode_branch},
+                   peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0,
+                   cache_bytes=cache_bytes)
+        out.append(rec)
+        del params, m, mesh
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_gate(torch, card: str, recs: list, what: str, logits_tol: float) -> list:
+    """Gate and log the ``serve_mesh_rank`` records of every rank: the tokens
+    within the vocabulary and equal to the plain serve's; every step's
+    logits finite, their relative L2 error against the plain serve's at most
+    ``logits_tol``; on the card the launches exact (after the prefill and at
+    the end); every decode step one ``"sharded_keys"`` merge an attention
+    and no ``"replicate"``. Returns one summary a run."""
+    import statistics as st
+    summaries = []
+    for j, r0 in enumerate(recs[0]):
+        name = f"{what} {r0['config']} ({r0['n_layers']} of {r0['full_layers']} layers, " \
+               f"{r0['dtype']}, {r0['batch']} x {r0['prompt']} + {r0['gen']} steps) on " \
+               f"{r0['mesh']}"
+        for rk in recs:
+            r = rk[j]
+            toks = r["tokens"]
+            if toks.shape != (r["batch"], r["gen"] + 1) or not bool(
+                    ((toks >= 0) & (toks < r["vocab"])).all()):
+                raise AssertionError(f"{name} rank {r['rank']}: tokens {tuple(toks.shape)} "
+                                     f"outside the vocabulary or of the wrong shape")
+            if not torch.equal(toks, r["plain"]["tokens"]):
+                raise AssertionError(f"{name} rank {r['rank']}: the mesh's greedy tokens "
+                                     f"{toks.tolist()} differ from the plain serve's "
+                                     f"{r['plain']['tokens'].tolist()}")
+            if DEVICE == "cuda" and (r["prefill_launch_counts"] != r["want_prefill"]
+                                     or r["launches"] != r["want"]):
+                raise AssertionError(f"{name} rank {r['rank']}: launches {r['launches']} "
+                                     f"(after the prefill {r['prefill_launch_counts']}), "
+                                     f"expected {r['want']} ({r['want_prefill']})")
+            want_br = {"sharded_keys": r["gen"] * r["merges_per_step"], "replicate": 0}
+            if r["branches"] != want_br:
+                raise AssertionError(f"{name} rank {r['rank']}: decode branches "
+                                     f"{r['branches']}, expected {want_br}")
+        rel, bitwise = [], True
+        for a, b in zip(r0["logits"], r0["plain"]["logits"]):
+            a, b = a[:, :r0["vocab"]], b[:, :r0["vocab"]]
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+                raise AssertionError(f"{name}: logits are not finite")
+            rel.append(float((a - b).norm() / b.norm()))
+            bitwise &= bool(torch.equal(a, b))
+        if max(rel) > logits_tol:
+            raise AssertionError(f"{name}: the mesh's logits against the plain serve's: "
+                                 f"relative L2 {max(rel):.3e} > {logits_tol}")
+        lat = r0["decode_ms"][1:] or r0["decode_ms"]
+        summary = dict(config=r0["config"], n_layers=r0["n_layers"], dtype=r0["dtype"],
+                       batch=r0["batch"], prompt=r0["prompt"], gen=r0["gen"], mesh=r0["mesh"],
+                       ranks=len(recs), logits_rel_l2=max(rel), bitwise=bitwise,
+                       prefill_ms=r0["prefill_ms"],
+                       decode_p50_ms=st.median(lat), decode_p99_ms=float(
+                           sorted(lat)[min(len(lat) - 1, int(0.99 * len(lat)))]),
+                       plain_prefill_ms=r0["plain"]["prefill_ms"],
+                       plain_decode_p50_ms=st.median(r0["plain"]["decode_ms"][1:]
+                                                     or r0["plain"]["decode_ms"]),
+                       launches=r0["launches"], branches=r0["branches"],
+                       peak_bytes={rk[j]["rank"]: rk[j]["peak_bytes"] for rk in recs},
+                       cache_bytes={rk[j]["rank"]: rk[j]["cache_bytes"] for rk in recs})
+        log(card, f"{name}: greedy tokens equal to the plain serve's on every rank; logits "
+                  f"against the plain serve's: worst relative L2 "
+                  f"{summary['logits_rel_l2']:.3e}{' (bitwise)' if bitwise else ''} (tol "
+                  f"{logits_tol}); prefill {r0['prefill_ms']:.1f} ms (plain "
+                  f"{summary['plain_prefill_ms']:.1f}), decode p50 "
+                  f"{summary['decode_p50_ms']:.2f} ms (plain "
+                  f"{summary['plain_decode_p50_ms']:.2f}) p99 "
+                  f"{summary['decode_p99_ms']:.2f} ms (host clock, synchronised); launches "
+                  f"{ {k: v for k, v in r0['launches'].items() if v} }; decode branches "
+                  f"{r0['branches']}; peak GiB a rank "
+                  f"{ {k: round(v / 2**30, 2) for k, v in summary['peak_bytes'].items()} }, "
+                  f"cache GiB a rank "
+                  f"{ {k: round(v / 2**30, 3) for k, v in summary['cache_bytes'].items()} }")
+        summaries.append(summary)
+    return summaries
+
+
+# phase 8's serving runs on a (1, 1) mesh of one nccl rank, one a cache kind, at
+# full width: qwen3 (GQA, G = 8) at 8 of 64 layers; h2o (d = 80) over a 4096
+# prompt, so its 4096-slot ring wraps at every step; deepseek's MLA latents; mamba2's
+# SSM state; recurrentgemma's RG-LRU state and local attention (d = 256, its
+# 2048-slot ring wrapping) at 3 layers (one (rec, rec, local_attn) unit); olmoe's
+# MoE at G = 1; whisper's cross cache, in float32 (the one-card decode takes the
+# plain cross-attention, the mesh the decode kernel: in bf16 their roundings differ
+# and a near tie of random logits would move a greedy token); paligemma's patch
+# prefix. 2 layers each otherwise, batch 4, 8 steps. On (1, 1) every placement
+# replicates: the runs drive the sharded-keys branch with no merge to do
+SERVE_MESH_GEN = 8
+SERVE_MESH_RUNS = [
+    ServeMeshRun("qwen3_32b", LAYERS, "bfloat16", BATCH, 512, SERVE_MESH_GEN, {},
+                 {"decode_attention": LAYERS}),
+    ServeMeshRun("h2o_danube_1_8b", 2, "bfloat16", BATCH, PROMPT, SERVE_MESH_GEN,
+                 {"flash_attention": 2}, {"decode_attention": 2}, qk_fan_in=True),
+    ServeMeshRun("deepseek_v2_236b", 2, "bfloat16", BATCH, 512, SERVE_MESH_GEN, {}, {}),
+    ServeMeshRun("mamba2_780m", 2, "bfloat16", BATCH, 512, SERVE_MESH_GEN, {"ssd_scan": 2},
+                 {}),
+    ServeMeshRun("recurrentgemma_9b", 3, "bfloat16", BATCH, RG_PROMPT, SERVE_MESH_GEN,
+                 {"rglru_scan": 2}, {"decode_attention": 1}),
+    ServeMeshRun("olmoe_1b_7b", 2, "bfloat16", BATCH, 512, SERVE_MESH_GEN, {},
+                 {"decode_attention": 2}),
+    ServeMeshRun("whisper_small", 2, "float32", BATCH, WH_PROMPT, SERVE_MESH_GEN, {},
+                 {"decode_attention": 4}, qk_fan_in=True),
+    ServeMeshRun("paligemma_3b", 2, "bfloat16", BATCH, PG_PROMPT, SERVE_MESH_GEN, {},
+                 {"decode_attention": 2}, qk_fan_in=True),
+]
+
+
+def phase_serve_mesh(torch, card: str, runs=SERVE_MESH_RUNS) -> dict:
+    """Phase 8's serving runs on a (1, 1) mesh of one nccl rank (one
+    process for all of them), gated by ``serve_mesh_gate`` against the
+    plain serve in the same rank (phase 3's decode-vs-prefill bound on the
+    logits)."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    free, total = torch.cuda.mem_get_info()
+    log(card, f"phase 8's serving runs start one nccl rank on cuda:0 with {free / 2**30:.1f} of "
+              f"{total / 2**30:.1f} GiB free")
+    t0 = time.perf_counter()
+    recs = run_ranks(serve_mesh_rank, 1, (runs,), backend="nccl", timeout=MESH_TIMEOUT,
+                     devices=["cuda:0"])
+    wall = time.perf_counter() - t0
+    summaries = serve_mesh_gate(torch, card, recs, "serving mesh", DECODE_PREFILL_TOL)
+    log(card, f"phase 8's serving runs: wall {wall:.1f} s")
+    return {s["config"]: dict(s, wall_s=wall) for s in summaries}
+
+
+# -- serving a long cache on four cards (tests/test_torch_gpu.py) -----------------
+@dataclasses.dataclass(frozen=True)
+class ServeLongRun:
+    """A long-cache serve at full width: ``layers`` of the arch's depth,
+    batch x prompt, ``gen`` greedy steps into a ``max_len``-slot cache, on a
+    ("data", "model") mesh of ``mesh`` (None: one card, no DTensor), then
+    (``check``) a fresh prefill of the prompt and the fed tokens on the same
+    mesh, whose last logits the last decode step's are held to.
+    ``overrides`` of the config (an MoE model's lossless capacity)."""
+    arch: str
+    layers: Optional[int]
+    dtype: str
+    batch: int
+    prompt: int
+    gen: int
+    max_len: int
+    mesh: Optional[Tuple[int, int]] = (1, 4)
+    check: bool = True
+    overrides: tuple = ()
+
+
+def init_params_on_mesh(model, mesh, seed: int):
+    """Random parameters laid out by ``param_specs`` on ``mesh`` with no whole
+    copy of the model on any rank: stacked unit u is drawn from generator
+    seed ``seed + u`` as the single unit of a model cut to one unit (the
+    tail and the other leaves from the first), and each rank keeps its own
+    shard of it."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import ShardingRules, map_with_path
+    from repro_torch.models.sharding_utils import distribute, zeros_on_mesh
+    cfg = model.cfg
+    unit, n_units, tail = model.scan_groups()
+    one = build_model(dataclasses.replace(cfg, n_layers=len(unit) + len(tail)),
+                      device=model.device)
+    rules = ShardingRules(cfg, mesh)
+
+    def alloc(path, t):
+        if path.startswith("stack/"):
+            shape = (n_units,) + tuple(t.shape[1:])
+            return zeros_on_mesh(shape, t.dtype, rules.param_spec(path, shape), mesh,
+                                 model.device)
+        return distribute(t, rules.param_spec(path, t.shape), mesh)
+    out = None
+    for u in range(n_units):
+        part = one.init(torch.Generator(device=model.device).manual_seed(seed + u))
+        if out is None:
+            out = map_with_path(alloc, part)
+        for path, t in _named(part["stack"], "stack"):
+            path = path.strip("/")
+            shape = (n_units,) + tuple(t.shape[1:])
+            dst = out
+            for key in path.split("/"):
+                dst = dst[key]
+            dst.to_local()[u].copy_(
+                distribute(t[0], rules.param_spec(path, shape)[1:], mesh).to_local())
+        del part
+    return out
+
+
+def serve_long_rank(rank: int, world: int, run: ServeLongRun) -> dict:
+    """``ServeLongRun`` on this rank (one card a rank): the model from
+    ``init_params_on_mesh`` (on one card ``model.init``), a prompt from
+    numpy seed 0, ``generate`` into a ``max_len``-slot cache; the prefill's
+    and every step's host-clock ms, the launches (zeroed before, read after),
+    peak memory and the cache's bytes a rank; a profiler window over three
+    decode steps on rank 0 (the other ranks run them too) with the device
+    time of the decode kernel and of the collectives; then the fresh
+    prefill's last logits beside the last step's (rank 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import lay_out_serving
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ranks
+
+    device = ranks.rank_device()
+    full = get_config(run.arch)
+    cfg = dataclasses.replace(full, n_layers=run.layers or full.n_layers, dtype=run.dtype,
+                              **dict(run.overrides))
+    model = build_model(cfg, device=device)
+    mesh = None if run.mesh is None else make_mesh(run.mesh, ("data", "model"), device=device)
+    t0 = time.perf_counter()
+    params = (model.init(torch.Generator(device=device).manual_seed(0)) if mesh is None
+              else init_params_on_mesh(model, mesh, 0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum((t.to_local() if hasattr(t, "to_local") else t).numel()
+                      * t.element_size() for t in _leaves(params))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (run.batch, run.prompt)), dtype=torch.int32, device=device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = generate(model, params, tokens, {}, run.gen, mesh=mesh, keep_logits=True,
+                   max_len=run.max_len)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cache = out["cache"]
+    cache_bytes = sum((t.to_local() if hasattr(t, "to_local") else t).numel() * t.element_size()
+                      for t in _leaves(cache))
+    rec = dict(rank=rank, world=world, config=full.name, n_layers=cfg.n_layers,
+               full_layers=full.n_layers, dtype=cfg.dtype, batch=run.batch, prompt=run.prompt,
+               gen=run.gen, max_len=run.max_len, mesh=run.mesh, init_s=init_s,
+               param_bytes=param_bytes, prefill_ms=out["prefill_ms"],
+               decode_ms=out["decode_ms"], launches=launches, peak_bytes=peak,
+               cache_bytes=cache_bytes, tokens=out["tokens"].cpu(), vocab=cfg.vocab_size)
+    # three decode steps again (the last slot rewritten) under the profiler on rank 0
+    B = run.batch
+    step = {"token": out["tokens"][:, -1:].to(device),
+            "pos": torch.full((B,), run.prompt + run.gen - 1, dtype=torch.int32, device=device)}
+    if mesh is not None:
+        step = lay_out_serving(cfg, mesh, step, B)
+    card = f"rank {rank}"
+
+    def steps():
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            for _ in range(3):
+                model.decode(params, step["token"], cache, step["pos"])
+    if rank == 0:
+        rec["profile"] = profile(torch, steps, card, f"three {cfg.name} decode steps on "
+                                 f"{run.mesh}", {"decode kernel": "decode_",
+                                                 "collectives": "nccl"})
+    else:
+        steps()
+        torch.cuda.synchronize()
+    if run.check:
+        last = out["logits"][-1] if rank == 0 else None
+        del cache, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq = torch.cat([tokens, rec["tokens"][:, :run.gen].to(device)], dim=1)
+        fresh = generate(model, params, seq, {}, 0, mesh=mesh, keep_logits=True,
+                         max_len=run.max_len)
+        if rank == 0:
+            a, b = last[:, :cfg.vocab_size], fresh["logits"][0][:, :cfg.vocab_size]
+            rec["check"] = dict(rel_l2=float((a - b).norm() / b.norm()),
+                                max_abs_err=float((a - b).abs().max()),
+                                finite=bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                                argmax_equal=float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+                                fresh_prefill_ms=fresh["prefill_ms"])
+    return rec
+
+
 # ==============================================================================
 # phase 9: the examples
 # ==============================================================================
@@ -4773,6 +5297,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_archs = phase_mesh_archs(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_mesh = phase_serve_mesh(torch, card)
     timed("8 mesh", t0)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4805,12 +5332,14 @@ def main() -> int:
     # the main entry is each kernel's qwen3-32b (or only) shape; the other
     # timed shapes ride beside it, each with the same keys
     extra = {"flash_attention": ("d256", "d80", "g48", "g1", "g1_train"),
-             "decode_attention": ("d256", "d80", "g48", "d16", "g1", "whisper", "paligemma"),
+             "decode_attention": ("d256", "d80", "g48", "d16", "g1", "whisper", "paligemma",
+                                  "partial"),
              "flash_attention_bwd": ("d80", "g48", "d256", "g1"), "rglru_scan": ("train",)}
     extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
                  "g1": "group_1", "d16": "head_dim_16", "train": "training_shape",
                  "g1_train": "group_1_training_shape",
-                 "whisper": "whisper_d64_group_1", "paligemma": "paligemma_d256_group_8"}
+                 "whisper": "whisper_d64_group_1", "paligemma": "paligemma_d256_group_8",
+                 "partial": "sharded_keys_quarter_shard"}
     for name in sources:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})
@@ -4826,6 +5355,8 @@ def main() -> int:
         by_path["calibration"] = calibration["launches"][name]
         by_path[f"{mesh['config']} mesh (1, 1)"] = mesh["launches"][name]
         by_path.update({f"{c} mesh (1, 1)": r["launches"][name] for c, r in mesh_archs.items()})
+        by_path.update({f"{c} serving mesh (1, 1)": r["launches"][name]
+                        for c, r in serve_mesh.items()})
         by_path["train launcher"] = train_launcher["launches"][name]
         by_path[f"{grads['config']} gradients"] = grads["launches"][name]
         by_path.update({f"{ex} example": examples[ex]["launches"][name] for ex in examples})
@@ -4842,6 +5373,7 @@ def main() -> int:
               "small_train": small_train, "train": train, "train_launcher": train_launcher,
               "grads": grads, "examples": examples, "dora": dora,
               "calibration": calibration, "mesh": mesh, "mesh_archs": mesh_archs,
+              "serve_mesh": serve_mesh,
               "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")

@@ -18,11 +18,14 @@
 //    The wrapper picks the split length from T, B, KV and G alone
 //    (kernels/decode_attention.py `split_plan`: about four blocks per SM, a
 //    split a whole number of 32-key tiles), never from cache_len, so it
-//    never reads the device. Each block reads cache_len[b] itself, clips
-//    its key range [s0, s1) to the live range, and if nothing is left
-//    writes m = NEG_INF, l = 0 and exits. Otherwise it scores its keys for
-//    all heads of its group (each K/V row read once per group) and writes
-//    the partial (m, l, acc[D]) in f32 to scratch the wrapper allocated.
+//    never reads the device. Each block reads cache_len[b] itself, computes
+//    the live range in global key positions ([cache_len - window,
+//    cache_len), or [0, cache_len) without a window), clips it to the keys
+//    this call holds, [kv_offset, kv_offset + Tk), and to its split, and if
+//    nothing is left writes m = NEG_INF, l = 0 and exits. Otherwise it
+//    scores its keys for all heads of its group (each K/V row read once per
+//    group) and writes the partial (m, l, acc[D]) in f32 to scratch the
+//    wrapper allocated.
 // 2. The combine kernel, one block per (b, h, 128 columns), merges the splits by
 //    log-sum-exp, weight 0 for an empty split (whose acc, never written,
 //    is discarded), and writes the output in q's type; 0 where no split
@@ -30,6 +33,16 @@
 //    maxima are reduced across the block first, then groups of threads sum
 //    float4 columns over interleaved splits, and the groups add up.
 //    Both kernels are launched from one C call on the caller's stream.
+//
+// Sharded keys (`decode_attention_partial_fwd`): a rank that holds keys
+// [kv_offset, kv_offset + Tk) of a cache sharded over its sequence runs the
+// same two kernels on its shard; the combine kernel then writes the output
+// in float32, normalised over this shard's live keys, and beside it
+// lse[b, h], the natural log of the shard's softmax denominator
+// (NEG_INF, with an output of 0, where the shard holds no live key), so the
+// ranks' partials merge by log-sum-exp without a second rounding
+// (kernels/ops.py). `decode_attention_fwd` is this with kv_offset 0, the
+// output in q's type and no lse.
 //
 // bfloat16 (the serving path) runs on the tensor cores with mma.sync
 // m16n8k16: the group's query heads are the 16 rows (G = 8 leaves half of
@@ -48,7 +61,7 @@
 // tiles of the same products, with rows padded to 88 elements (176 bytes,
 // conflict-free for ldmatrix). head_dim 16 (the reduced dense configs that
 // calibration times) is one k-step of Q K^T and two n8 tiles of P V. ptxas -v (nvcc 12.8, sm_90a), D = 64 / 80 /
-// 128 / 256: 79 / 118 / 124 / 180 registers, 0 bytes of spills, 29952 /
+// 128 / 256: 80 / 128 / 124 / 180 registers (with the sharded-keys offset), 0 bytes of spills, 29952 /
 // 36608 / 56576 / 109824 bytes of dynamic shared memory, so up to four
 // blocks fit on an SM at D <= 128 and two at D = 256.
 //
@@ -72,6 +85,7 @@ namespace {
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync partial kernel
@@ -145,7 +159,7 @@ __global__ void __launch_bounds__(MW * 32)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
                   const __nv_bfloat16* __restrict__ vc, const int32_t* __restrict__ cache_len,
                   float* __restrict__ part_ml, float* __restrict__ part_acc, int Tk, int H,
-                  int KV, int window, int split_len, int n_splits, float scale2) {
+                  int KV, int window, int kv_offset, int split_len, int n_splits, float scale2) {
   using L = MmaSmem<D>;
   constexpr int RS = L::RS;
   constexpr int NT = D / 8;          // n-tiles of the output
@@ -168,10 +182,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     cp_async16(smem_u32(Qs + r * RS + c), q + (row0 + (r < gc ? r : 0)) * D + c, r < gc);
   }
   cp_commit();
-  const int valid = min(cache_len[b], Tk);
-  const int lo = window >= 0 ? max(valid - window, 0) : 0;
+  const int len = cache_len[b] - kv_offset;   // the live range's end, in this call's keys
+  const int lo = window >= 0 ? max(len - window, 0) : 0;
   const int s0 = split * split_len;
-  const int kb = max(s0, lo), ke = min(s0 + split_len, valid);   // live keys [kb, ke)
+  const int kb = max(s0, lo), ke = min(min(s0 + split_len, len), Tk);   // live keys [kb, ke)
   if (kb >= ke) {
     for (int g = tid; g < gc; g += MW * 32) {
       float* ml = part_ml + ((row0 + g) * n_splits + split) * 2;
@@ -370,7 +384,7 @@ __global__ void __launch_bounds__(NT32, 1)
 decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                   const float* __restrict__ vc, const int32_t* __restrict__ cache_len,
                   float* __restrict__ part_ml, float* __restrict__ part_acc, int Tk, int H,
-                  int KV, int window, int split_len, int n_splits, float scale2) {
+                  int KV, int window, int kv_offset, int split_len, int n_splits, float scale2) {
   constexpr int KS = D + 8;          // padded K row: conflict-free float4 reads
   constexpr int NCH = D / 4;         // float4 chunks of an output row
   // key subsets in the PV step (threads past NKS * NCH idle); at most 16, so
@@ -398,10 +412,10 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const int gc = min(GC, G - g0);
   const int h0 = kvh * G + g0;       // first query head of this block
 
-  const int valid = min(cache_len[b], Tk);
-  const int lo = window >= 0 ? max(valid - window, 0) : 0;
+  const int len = cache_len[b] - kv_offset;   // the live range's end, in this call's keys
+  const int lo = window >= 0 ? max(len - window, 0) : 0;
   const int s0 = split * split_len;
-  const int kb = max(s0, lo), ke = min(s0 + split_len, valid);   // live keys [kb, ke)
+  const int kb = max(s0, lo), ke = min(min(s0 + split_len, len), Tk);   // live keys [kb, ke)
   const size_t row0 = size_t(b) * H + h0;
   if (kb >= ke) {
     if (tid < gc) {
@@ -567,7 +581,7 @@ template <int D> __host__ __device__ constexpr int comb_cols() { return D / 4 < 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTC)
 decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                      T* __restrict__ o, int n_splits) {
+                      T* __restrict__ o, float* __restrict__ lse, int n_splits) {
   constexpr int CB = comb_cols<D>(), NG = NTC / CB, NC = D / 4;
   __shared__ float red_m[NTC / 32];
   __shared__ float red_l[NG];
@@ -620,6 +634,9 @@ decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict
     l += red_l[i];
   }
   const float inv = l > 0.f ? 1.f / l : 0.f;
+  // m is in base-2 units: ln(sum_s 2^(m_s) l_s) = (m + log2 l) ln 2
+  if (lse != nullptr && tid == 0 && blockIdx.x % (NC / CB) == 0)
+    lse[bh] = l > 0.f ? (m + log2f(l)) * LN2 : NEG_INF;
   T* out = o + bh * D + 4 * c;
   out[0] = from_f32<T>(sum.x * inv);
   out[1] = from_f32<T>(sum.y * inv);
@@ -627,10 +644,12 @@ decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict
   out[3] = from_f32<T>(sum.w * inv);
 }
 
+// With `lse` (the sharded-keys mode) the output is float32 and lse is written.
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lens,
-                        float* ml, float* acc, void* o, int B, int Tk, int H, int KV, int window,
-                        int split_len, int n_splits, float scale, cudaStream_t stream) {
+                        float* ml, float* acc, void* o, float* lse, int B, int Tk, int H, int KV,
+                        int window, int kv_offset, int split_len, int n_splits, float scale,
+                        cudaStream_t stream) {
   constexpr size_t smem = MmaSmem<D>::bytes;
   static_assert(smem <= 232448, "shared memory of one block");
   cudaError_t err = cudaFuncSetAttribute(decode_mma_kernel<D>,
@@ -641,19 +660,24 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   decode_mma_kernel<D><<<grid, MW * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(lens), ml, acc, Tk, H,
-      KV, window, split_len, n_splits, scale * LOG2E);
+      KV, window, kv_offset, split_len, n_splits, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int comb_blocks = B * H * (D / 4 / comb_cols<D>());
-  decode_combine_kernel<__nv_bfloat16, D><<<comb_blocks, NTC, 0, stream>>>(
-      ml, acc, static_cast<__nv_bfloat16*>(o), n_splits);
+  if (lse != nullptr)
+    decode_combine_kernel<float, D><<<comb_blocks, NTC, 0, stream>>>(
+        ml, acc, static_cast<float*>(o), lse, n_splits);
+  else
+    decode_combine_kernel<__nv_bfloat16, D><<<comb_blocks, NTC, 0, stream>>>(
+        ml, acc, static_cast<__nv_bfloat16*>(o), nullptr, n_splits);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* lens, float* ml,
-                       float* acc, void* o, int B, int Tk, int H, int KV, int window,
-                       int split_len, int n_splits, float scale, cudaStream_t stream) {
+                       float* acc, void* o, float* lse, int B, int Tk, int H, int KV, int window,
+                       int kv_offset, int split_len, int n_splits, float scale,
+                       cudaStream_t stream) {
   constexpr int BK = key_tile<D>();
   constexpr size_t smem = smem_bytes<D, BK>();
   static_assert(smem <= 232448, "shared memory of one block");
@@ -664,14 +688,39 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   const dim3 grid(n_splits, KV * ((G + GC - 1) / GC), B);
   decode_f32_kernel<D, BK><<<grid, NT32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int32_t*>(lens), ml, acc, Tk, H, KV, window, split_len, n_splits,
-      scale * LOG2E);
+      static_cast<const int32_t*>(lens), ml, acc, Tk, H, KV, window, kv_offset, split_len,
+      n_splits, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int comb_blocks = B * H * (D / 4 / comb_cols<D>());
   decode_combine_kernel<float, D><<<comb_blocks, NTC, 0, stream>>>(ml, acc, static_cast<float*>(o),
-                                                           n_splits);
+                                                           lse, n_splits);
   return cudaGetLastError();
+}
+
+int decode_run(const void* q, const void* k, const void* v, const void* cache_len,
+               void* part_ml, void* part_acc, void* o, float* lse, int B, int Tk, int H, int KV,
+               int D, int dtype, int window, int kv_offset, int split_len, int n_splits,
+               float scale, void* stream) {
+  if (B <= 0 || H <= 0) return int(cudaSuccess);
+  if (split_len <= 0 || n_splits <= 0 || split_len % 32) return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+#define DECODE_ARGS q, k, v, cache_len, ml, acc, o, lse, B, Tk, H, KV, window, kv_offset, \
+    split_len, n_splits, scale, st
+  if (dtype == 1 && D == 16) return launch_bf16<16>(DECODE_ARGS);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(DECODE_ARGS);
+  if (dtype == 1 && D == 80) return launch_bf16<80>(DECODE_ARGS);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(DECODE_ARGS);
+  if (dtype == 1 && D == 256) return launch_bf16<256>(DECODE_ARGS);
+  if (dtype == 0 && D == 16) return launch_f32<16>(DECODE_ARGS);
+  if (dtype == 0 && D == 64) return launch_f32<64>(DECODE_ARGS);
+  if (dtype == 0 && D == 80) return launch_f32<80>(DECODE_ARGS);
+  if (dtype == 0 && D == 128) return launch_f32<128>(DECODE_ARGS);
+  if (dtype == 0 && D == 256) return launch_f32<256>(DECODE_ARGS);
+#undef DECODE_ARGS
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -688,24 +737,23 @@ int decode_attention_fwd(const void* q, const void* k, const void* v, const void
                          void* part_ml, void* part_acc, void* o, int B, int Tk, int H, int KV,
                          int D, int dtype, int window, int split_len, int n_splits, float scale,
                          void* stream) {
-  if (B <= 0 || H <= 0) return int(cudaSuccess);
-  if (split_len <= 0 || n_splits <= 0 || split_len % 32) return int(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-#define DECODE_ARGS q, k, v, cache_len, ml, acc, o, B, Tk, H, KV, window, split_len, n_splits, scale, st
-  if (dtype == 1 && D == 16) return launch_bf16<16>(DECODE_ARGS);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(DECODE_ARGS);
-  if (dtype == 1 && D == 80) return launch_bf16<80>(DECODE_ARGS);
-  if (dtype == 1 && D == 128) return launch_bf16<128>(DECODE_ARGS);
-  if (dtype == 1 && D == 256) return launch_bf16<256>(DECODE_ARGS);
-  if (dtype == 0 && D == 16) return launch_f32<16>(DECODE_ARGS);
-  if (dtype == 0 && D == 64) return launch_f32<64>(DECODE_ARGS);
-  if (dtype == 0 && D == 80) return launch_f32<80>(DECODE_ARGS);
-  if (dtype == 0 && D == 128) return launch_f32<128>(DECODE_ARGS);
-  if (dtype == 0 && D == 256) return launch_f32<256>(DECODE_ARGS);
-#undef DECODE_ARGS
-  return int(cudaErrorInvalidValue);
+  return decode_run(q, k, v, cache_len, part_ml, part_acc, o, nullptr, B, Tk, H, KV, D, dtype,
+                    window, 0, split_len, n_splits, scale, stream);
+}
+
+// The sharded-keys mode: k/v (B,Tk,KV,D) hold the cache's keys [kv_offset,
+// kv_offset + Tk); cache_len and window are in global key positions. o
+// (B,1,H,D) is float32 whatever q's type, normalised over the live keys of
+// this shard (0 where there are none); lse (B,H) float32 gets the natural
+// log of the shard's softmax denominator (NEG_INF where there are none).
+int decode_attention_partial_fwd(const void* q, const void* k, const void* v,
+                                 const void* cache_len, void* part_ml, void* part_acc, void* o,
+                                 void* lse, int B, int Tk, int H, int KV, int D, int dtype,
+                                 int window, int kv_offset, int split_len, int n_splits,
+                                 float scale, void* stream) {
+  if (lse == nullptr) return int(cudaErrorInvalidValue);
+  return decode_run(q, k, v, cache_len, part_ml, part_acc, o, static_cast<float*>(lse), B, Tk,
+                    H, KV, D, dtype, window, kv_offset, split_len, n_splits, scale, stream);
 }
 
 // Dynamic shared memory of one block of the partial kernel for (dtype, D), in bytes.

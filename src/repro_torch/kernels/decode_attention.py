@@ -15,6 +15,14 @@ CUDA kernel writes each range's partial softmax and a second merges them.
 CUDA kernels that call runs, and nothing else.
 ``decode_attention_splits_ref`` is the same split/combine algorithm in
 plain PyTorch, for the tests; nothing on the serving path calls it.
+
+``decode_attention_partial`` is the sharded-keys mode: the same two kernels
+on a rank's shard of a cache sharded over its sequence (keys ``kv_offset``
+to ``kv_offset + Tk``, with ``cache_len`` and the window in global
+positions), returning the output in float32 normalised over the shard and
+the log-sum-exp of its scores, which ``ops`` merges across the ranks. It
+counts in ``launches`` too. Its plain version is
+``decode_attention_partial_ref``.
 """
 from __future__ import annotations
 
@@ -113,15 +121,107 @@ def decode_attention_splits_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype).reshape(B, 1, H, d)
 
 
+def decode_attention_partial_ref(q: torch.Tensor, k_shard: torch.Tensor,
+                                 v_shard: torch.Tensor, cache_len: torch.Tensor, *,
+                                 kv_offset: int, window: Optional[int] = None,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the sharded-keys mode: q (B,1,H,d) against keys
+    ``kv_offset`` to ``kv_offset + Tk`` of a cache, (B,Tk,KV,d), key j live
+    when its global position ``kv_offset + j`` is below ``cache_len[b]``
+    (and, with a window, at or above ``cache_len[b] - window``) -> (o
+    (B,1,H,d) float32, the softmax over the shard's live keys applied to V;
+    lse (B,H) float32, the natural log of the softmax denominator), o = 0
+    and lse = NEG_INF where the shard holds no live key. The weights are
+    ``decode_attention_ref``'s (rounded to q's type before P V), so on one
+    shard holding the whole cache o is its output. Never dispatches."""
+    B, _, H, d = q.shape
+    T, KV = k_shard.shape[1], k_shard.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(B, KV, G, d)
+    logits = torch.einsum("bkgh,btkh->bkgt", qg, k_shard).float() * scale
+    kpos = torch.arange(T, device=q.device)[None, :] + kv_offset
+    lens = cache_len.to(q.device)[:, None]
+    ok = kpos < lens
+    if window is not None:
+        ok = ok & (kpos > lens - 1 - window)
+    live = ok.any(dim=-1)[:, None, None]                                    # (B, 1, 1)
+    logits = torch.where(ok[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgt,btkh->bkgh", w, v_shard).float()
+    o = torch.where(live[..., None], o, 0.0).reshape(B, 1, H, d)
+    lse = torch.where(live, torch.logsumexp(logits, dim=-1), NEG_INF).reshape(B, H)
+    return o, lse
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     lib.decode_attention_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.decode_attention_fwd.restype = ctypes.c_int
+    lib.decode_attention_partial_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.decode_attention_partial_fwd.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(what: str, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            cache_len: torch.Tensor, window: Optional[int], scale: Optional[float],
+            kv_offset: Optional[int]):
+    """Check the CUDA inputs, launch the partial and combine kernels and count
+    the launch: the output in q's type (``kv_offset`` None), or in the
+    sharded-keys mode (o float32, lse)."""
+    refuse_dtensor(what, q, k_cache, v_cache, cache_len)
+    require_no_grad(what, "'Backward kernels'", q, k_cache, v_cache)
+    B, one, H, d = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    tensors = (k_cache, v_cache, cache_len)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{what}: q, caches and cache_len must lie on one CUDA device")
+    if q.dtype not in _DTYPES or not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise ValueError(f"{what}: dtype {q.dtype}/{k_cache.dtype}/{v_cache.dtype} "
+                         "not supported (float32 or bfloat16, all alike)")
+    if (one != 1 or d not in HEAD_DIMS or k_cache.shape != (B, T, KV, d)
+            or v_cache.shape != k_cache.shape or tuple(cache_len.shape) != (B,)):
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "
+                         f"v{tuple(v_cache.shape)} cache_len{tuple(cache_len.shape)} not "
+                         f"supported (head_dim in {HEAD_DIMS})")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{what}: {H} heads not a multiple of {KV} KV heads")
+    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError(f"{what}: tensors must be 16-byte aligned")
+    lens = cache_len.to(torch.int32).contiguous()
+    split_len, n_splits = split_plan(T, B, KV, H // KV)
+    part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, H, n_splits, d), dtype=torch.float32, device=q.device)
+    scale = float(scale) if scale is not None else d ** -0.5
+    window = -1 if window is None else int(window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _lib()
+    if kv_offset is None:
+        out = torch.empty_like(q)
+        err = lib.decode_attention_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, T, H, KV, d,
+            _DTYPES[q.dtype], window, split_len, n_splits, scale, stream)
+    else:
+        out = (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+               torch.empty((B, H), dtype=torch.float32, device=q.device))
+        err = lib.decode_attention_partial_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), B,
+            T, H, KV, d, _DTYPES[q.dtype], window, int(kv_offset), split_len, n_splits, scale,
+            stream)
+    if err:
+        raise RuntimeError(f"{what} kernel: " + lib.decode_attention_error_string(err).decode())
+    global launches
+    launches += 1
+    return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -131,41 +231,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if not q.is_cuda:
         return decode_attention_ref(q, k_cache, v_cache, cache_len, window=window,
                                     scale=scale)
-    refuse_dtensor("decode_attention", q, k_cache, v_cache, cache_len)
-    require_no_grad("decode_attention", "'Backward kernels'", q, k_cache, v_cache)
-    B, one, H, d = q.shape
-    T, KV = k_cache.shape[1], k_cache.shape[2]
-    tensors = (k_cache, v_cache, cache_len)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("decode_attention: q, caches and cache_len must lie on one CUDA device")
-    if q.dtype not in _DTYPES or not q.dtype == k_cache.dtype == v_cache.dtype:
-        raise ValueError(f"decode_attention: dtype {q.dtype}/{k_cache.dtype}/{v_cache.dtype} "
-                         "not supported (float32 or bfloat16, all alike)")
-    if (one != 1 or d not in HEAD_DIMS or k_cache.shape != (B, T, KV, d)
-            or v_cache.shape != k_cache.shape or tuple(cache_len.shape) != (B,)):
-        raise ValueError(f"decode_attention: shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "
-                         f"v{tuple(v_cache.shape)} cache_len{tuple(cache_len.shape)} not "
-                         f"supported (head_dim in {HEAD_DIMS})")
-    if KV == 0 or H % KV:
-        raise ValueError(f"decode_attention: {H} heads not a multiple of {KV} KV heads")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("decode_attention: tensors must be 16-byte aligned")
-    lens = cache_len.to(torch.int32).contiguous()
-    split_len, n_splits = split_plan(T, B, KV, H // KV)
-    part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, H, n_splits, d), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
-    scale = float(scale) if scale is not None else d ** -0.5
-    lib = _lib()
-    err = lib.decode_attention_fwd(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, T, H, KV, d,
-        _DTYPES[q.dtype], -1 if window is None else int(window), split_len, n_splits, scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError("decode_attention kernel: "
-                           + lib.decode_attention_error_string(err).decode())
-    global launches
-    launches += 1
-    return out
+    return _launch("decode_attention", q, k_cache, v_cache, cache_len, window, scale, None)
+
+
+def decode_attention_partial(q: torch.Tensor, k_shard: torch.Tensor, v_shard: torch.Tensor,
+                             cache_len: torch.Tensor, *, kv_offset: int,
+                             window: Optional[int] = None, scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded-keys mode: q (B,1,H,d) against keys ``kv_offset`` to
+    ``kv_offset + Tk`` of a cache, k/v (B,Tk,KV,d); ``cache_len`` (B,) and
+    ``window`` in global positions -> (o (B,1,H,d) float32, lse (B,H)
+    float32); see ``decode_attention_partial_ref``."""
+    if not q.is_cuda:
+        return decode_attention_partial_ref(q, k_shard, v_shard, cache_len,
+                                            kv_offset=kv_offset, window=window, scale=scale)
+    return _launch("decode_attention_partial", q, k_shard, v_shard, cache_len, window, scale,
+                   kv_offset)

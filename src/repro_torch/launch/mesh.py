@@ -7,7 +7,9 @@ named axes. ``use_mesh`` makes a mesh ambient for ``maybe_shard``.
 
 The reference's ``compat_make_mesh`` shims jax versions and has no
 counterpart; ``make_production_mesh`` (the 256- and 512-device meshes)
-belongs to the dry-run and is not ported yet (ROADMAP).
+belongs to the dry-run (ROADMAP, Queue 1 item 14). The trainer and the
+server (``launch/train.py``, ``launch/serve.py``) run on
+``make_host_mesh`` under a process group.
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ from ..models import Model, build_model
 from ..models.common import dtype_of
 from ..models.config import ArchConfig
 from ..models.sharding import ShardingRules
-from ..models.sharding_utils import distribute_tree, is_dtensor
+from ..models.sharding_utils import distribute_tree, is_dtensor, zeros_on_mesh
 from ..optim import AdamWConfig, adamw_update, warmup_cosine
 from ..optim.adamw import tree_leaves, tree_map
 
@@ -88,6 +88,49 @@ def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100
     return model, train_step
 
 
+def serve_specs(cfg: ArchConfig, mesh, tree: Dict, global_batch: int) -> Dict:
+    """The specs of real serving tensors on ``mesh``, as the reference's
+    ``serve_structs`` lays them out: ``tree["cache"]`` by
+    ``ShardingRules.cache_specs``, every other entry (the prompt ``tokens``
+    or the ``token`` of a step, ``pos``, the frontend stubs under ``extras``)
+    by ``ShardingRules.batch_specs``."""
+    rules = ShardingRules(cfg, mesh)
+    return {k: (rules.cache_specs if k == "cache" else rules.batch_specs)(v, global_batch)
+            for k, v in tree.items()}
+
+
+def lay_out_serving(cfg: ArchConfig, mesh, tree: Dict, global_batch: int) -> Dict:
+    """``tree`` (see ``serve_specs``; the same full tensors on every rank)
+    as DTensors laid out by ``serve_specs``, with no communication."""
+    return distribute_tree(tree, serve_specs(cfg, mesh, tree, global_batch), mesh)
+
+
+def init_serving_cache(model: Model, batch: int, max_len: int, mesh=None) -> Dict:
+    """``model.init_cache(batch, max_len)``; under ``mesh`` as DTensors laid
+    out by ``ShardingRules.cache_specs``, each rank allocating only its own
+    shard (``zeros_on_mesh``)."""
+    if mesh is None:
+        return model.init_cache(batch, max_len)
+    shapes = type(model)(model.cfg, device="meta").init_cache(batch, max_len)
+    specs = ShardingRules(model.cfg, mesh).cache_specs(shapes, batch)
+    return tree_map(lambda t, spec: zeros_on_mesh(t.shape, t.dtype, spec, mesh, model.device),
+                    shapes, specs)
+
+
+def prefill_logits(model: Model, params, tokens, cache, extras=None):
+    """``model.prefill`` with the frontend stub its model takes from
+    ``extras`` ({"encoder_frames": ...} for the encoder-decoder,
+    {"extra_embeddings": ...} for the VLM; other models ignore it):
+    (the last position's logits, cache)."""
+    extras = extras or {}
+    cfg = model.cfg
+    if cfg.encdec:
+        return model.prefill(params, tokens, cache, encoder_frames=extras["encoder_frames"])
+    if cfg.vision_stub:
+        return model.prefill(params, tokens, cache, extra_embeddings=extras["extra_embeddings"])
+    return model.prefill(params, tokens, cache)
+
+
 def make_prefill_step(cfg: ArchConfig, device="cuda") -> Tuple[Model, Callable]:
     model = build_model(cfg, device=device)
 
@@ -95,15 +138,7 @@ def make_prefill_step(cfg: ArchConfig, device="cuda") -> Tuple[Model, Callable]:
     def prefill_step(params, tokens, cache, extras=None):
         """``extras``: {"encoder_frames": ...} for the encoder-decoder,
         {"extra_embeddings": ...} for the VLM; other models ignore it."""
-        extras = extras or {}
-        if cfg.encdec:
-            logits, cache = model.prefill(params, tokens, cache,
-                                          encoder_frames=extras["encoder_frames"])
-        elif cfg.vision_stub:
-            logits, cache = model.prefill(params, tokens, cache,
-                                          extra_embeddings=extras["extra_embeddings"])
-        else:
-            logits, cache = model.prefill(params, tokens, cache)
+        logits, cache = prefill_logits(model, params, tokens, cache, extras)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return model, prefill_step

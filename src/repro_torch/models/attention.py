@@ -11,7 +11,7 @@ the compressed latent space.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import functools
 
@@ -22,7 +22,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import ops
 from ..kernels.decode_attention import decode_attention_ref
 from .common import apply_rope
-from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, on_shards, summed_where
+from .sharding_utils import (BATCH, P, is_dtensor, key_shard, maybe_shard, on_shards, relayout,
+                             replicate_like, rows_of, summed, summed_where)
 
 NEG_INF = -2.0e38
 
@@ -176,7 +177,12 @@ def mla_decode(cq: torch.Tensor, ckv_cache: torch.Tensor, krope_cache: torch.Ten
     space, the cache stays (B, T, Rkv) + (B, T, dr).
 
     cq: (B, 1, Rq). krope_cache rows are stored *post-rope*. Returns
-    (B, 1, H, dv)."""
+    (B, 1, H, dv).
+
+    Under a mesh (caches laid out by ``cache_specs``, their slots sharded)
+    each rank scores every head's latent query against its own slots, with
+    their global positions, and the ranks' partial contexts (in the latent
+    space) merge by log-sum-exp (``ops.merge_partials``) before ``wv``."""
     q_nope = torch.einsum("bsr,rhd->bshd", cq, wq_nope)          # (B,1,H,dn)
     q_rope = torch.einsum("bsr,rhd->bshd", cq, wq_rope)
     q_rope = apply_rope(q_rope, cache_len[:, None] - 1, rope_theta)
@@ -184,11 +190,48 @@ def mla_decode(cq: torch.Tensor, ckv_cache: torch.Tensor, krope_cache: torch.Ten
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_nope)      # (B,1,H,Rkv)
     dn, dr = q_nope.shape[-1], q_rope.shape[-1]
     scale = (dn + dr) ** -0.5
-    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv_cache)
-              + torch.einsum("bshd,btd->bhst", q_rope, krope_cache)).float() * scale
-    T = ckv_cache.shape[1]
-    ok = torch.arange(T, device=cq.device)[None, :] < cache_len[:, None]
-    logits = torch.where(ok[:, None, None, :], logits, NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(cq.dtype)
-    ctx = torch.einsum("bhst,btr->bshr", w, ckv_cache)           # (B,1,H,Rkv)
+    if is_dtensor(ckv_cache):
+        ctx = _mla_context_on_shards(q_lat, q_rope, ckv_cache, krope_cache, cache_len, scale)
+    else:
+        ctx = _mla_context(q_lat, q_rope, ckv_cache, krope_cache, cache_len, scale)[0]
     return torch.einsum("bshr,rhd->bshd", ctx, wv)               # (B,1,H,dv)
+
+
+def _mla_context(q_lat: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+                 krope: torch.Tensor, cache_len: torch.Tensor, scale: float,
+                 kv_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ctx (B,1,H,Rkv) in q_lat's type, lse (B,1,H) float32): the latent
+    context of slots ``kv_offset`` to ``kv_offset + T`` of the caches, slot
+    j live below ``cache_len``, normalised over the live slots, and the log
+    of its softmax denominator (NEG_INF, ctx 0, where none is live)."""
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+              + torch.einsum("bshd,btd->bhst", q_rope, krope)).float() * scale
+    T = ckv.shape[1]
+    ok = torch.arange(T, device=q_lat.device)[None, :] + kv_offset < cache_len[:, None]
+    logits = torch.where(ok[:, None, None, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q_lat.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv)                 # (B,1,H,Rkv)
+    live = ok.any(dim=-1)[:, None, None]
+    lse = torch.where(live, torch.logsumexp(logits, dim=-1), NEG_INF).transpose(1, 2)
+    return torch.where(live[..., None], ctx, 0.0), lse
+
+
+def _mla_context_on_shards(q_lat, q_rope, ckv, krope, cache_len, scale: float):
+    """``_mla_context`` of DTensors: every head's queries gathered and laid
+    out by the caches' batch rows, each rank's partial over its own slots,
+    merged across the mesh dims that shard them; the context laid out by
+    batch rows."""
+    from torch.distributed.tensor import DTensor
+    at = key_shard(ckv)
+    if at is None or tuple(ckv.placements) != tuple(krope.placements):
+        raise ValueError(f"MLA caches laid out as {ckv.placements} / {krope.placements}: "
+                         "cache_specs shards only the batch and the sequence, evenly")
+    offset, dims = at
+    ops.decode_branch["sharded_keys"] += 1
+    rows = rows_of(ckv)
+    q_l, r_l, len_l = (relayout(summed(replicate_like(t, ckv)), rows).to_local()
+                       for t in (q_lat, q_rope, cache_len))
+    ctx, lse = _mla_context(q_l, r_l, ckv.to_local(), krope.to_local(), len_l, scale, offset)
+    ctx = ops.merge_partials(ctx.float(), lse, ckv.device_mesh, dims).to(q_lat.dtype)
+    return DTensor.from_local(ctx, ckv.device_mesh, rows, run_check=False, shape=q_lat.shape,
+                              stride=q_lat.stride())

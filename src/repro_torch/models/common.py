@@ -51,9 +51,10 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
                ) -> torch.Tensor:
     """Rotary embedding, split-half layout. x: (..., seq, heads, head_dim);
-    positions: (..., seq)."""
+    positions: (..., seq), a DTensor under a mesh at decode (laid out as
+    the batch)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, device=x.device)              # (hd/2,)
+    freqs = replicate_like(rope_freqs(hd, theta, device=x.device), positions)   # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., seq, hd/2)
     cos = replicate_like(torch.cos(angles)[..., None, :], x)    # (..., seq, 1, hd/2)
     sin = replicate_like(torch.sin(angles)[..., None, :], x)

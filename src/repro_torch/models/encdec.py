@@ -34,7 +34,7 @@ from . import attention as attn_lib
 from .common import apply_rope, dtype_of, embed_init, resolve_device, rms_norm, zeros
 from .config import ArchConfig
 from .mlp import apply_mlp, init_mlp
-from .sharding_utils import maybe_shard, replicate_like
+from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, replicate_like
 from .transformer import (GATHERED, RESIDUAL, Params, _fit_cache, _heads_in, _heads_out,
                           _layer, _unbind, _write_cache, gathered_table, head, init_attn,
                           token_nll)
@@ -83,6 +83,21 @@ def _cross_kv(p: Params, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 def _cross_attn(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     q = _heads_in(x, p["wq"])
     return _heads_out(attn_lib.gqa_attention(q, k, v, causal=False), p["wo"])
+
+
+def _cross_attn_decode(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                       ) -> torch.Tensor:
+    """Cross-attention of one decode step against the cross cache. Under a
+    mesh (the cache's frames sharded by ``cache_specs``) the decode kernel's
+    sharded-keys mode reads each rank's frames, every one of them live, and
+    the ranks merge (``ops.decode_attention``), so the cache is never
+    gathered; on one device the plain non-causal attention, as the JAX
+    package computes it."""
+    if not is_dtensor(k):
+        return _cross_attn(p, x, k, v)
+    q = _heads_in(x, p["wq"])
+    n = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=k.device)
+    return _heads_out(attn_lib.decode_attention(q, k, v, n), p["wo"])
 
 
 def _self_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
@@ -213,37 +228,47 @@ class EncDecLM:
                 encoder_frames: torch.Tensor) -> Tuple[torch.Tensor, Params]:
         """Encode ``encoder_frames`` (B, enc_seq, D) into the cross cache,
         prefill the decoder's self cache with ``tokens``: the last
-        position's logits (B, 1, V)."""
+        position's logits (B, 1, V). Under a mesh the stream is laid out at
+        the reference's sites (``src/repro/models/encdec.py`` prefill), the
+        cross cache written in its ``cache_specs`` layout."""
         cfg = self.cfg
+        eps = cfg.norm_eps
         cross = cache["cross"]
         if encoder_frames.shape[1] != cross["k"].shape[2]:
             raise ValueError(f"{cfg.name}: {encoder_frames.shape[1]} encoder frames, the cross "
                              f"cache holds {cross['k'].shape[2]}")
+        params = gathered_table(params)
         enc_out = self.encode(params, encoder_frames, remat="none")
-        x = params["embed"][tokens.long()]
+        x = maybe_shard(F.embedding(tokens.long(), params["embed"]), RESIDUAL)
         for i in range(cfg.n_layers):
-            p = _layer(params["dec"], i)
+            p, c = _layer(params["dec"], i), _layer(cross, i)
             k, v = _cross_kv(p["cross_attn"], enc_out)
-            cross["k"][i].copy_(k)
-            cross["v"][i].copy_(v)
-            x = x + _self_attn(p["self_attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                               mode="prefill", cache=_layer(cache["self"], i), pos=None)
-            x = x + _cross_attn(p["cross_attn"], rms_norm(x, p["ln_x"], cfg.norm_eps), k, v)
-            x = x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+            _fit_cache(c["k"], k)
+            _fit_cache(c["v"], v)
+            x = _add(x, _self_attn(p["self_attn"], _normed(x, p["ln1"], eps), cfg,
+                                   mode="prefill", cache=_layer(cache["self"], i), pos=None))
+            x = _add(x, _cross_attn(p["cross_attn"], _normed(x, p["ln_x"], eps), k, v))
+            x = _add(x, apply_mlp(p["mlp"], _normed(x, p["ln2"], eps), cfg.act))
+        x = _normed(x, params["ln_f"], eps)
         return head(cfg, params, x[:, -1:]), cache
 
     def decode(self, params: Params, token: torch.Tensor, cache: Params,
                pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
-        """token (B, 1); pos (B,) — uniform position of the new token."""
+        """token (B, 1); pos (B,) — uniform position of the new token. Under
+        a mesh the stream is laid out by batch (the reference's decode
+        sites), and the cross-attention reads each rank's frames of the
+        cross cache (``_cross_attn_decode``)."""
         cfg = self.cfg
-        x = params["embed"][token.long()]
+        eps = cfg.norm_eps
+        params = gathered_table(params)
+        token = maybe_shard(token, P(BATCH, None))        # a greedy token as the prompt
+        x = maybe_shard(F.embedding(token.long(), params["embed"]), GATHERED)
         for i in range(cfg.n_layers):
             p, cross = _layer(params["dec"], i), _layer(cache["cross"], i)
-            x = x + _self_attn(p["self_attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                               mode="decode", cache=_layer(cache["self"], i), pos=pos)
-            x = x + _cross_attn(p["cross_attn"], rms_norm(x, p["ln_x"], cfg.norm_eps),
-                                cross["k"], cross["v"])
-            x = x + apply_mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+            x = _add(x, _self_attn(p["self_attn"], _normed(x, p["ln1"], eps), cfg,
+                                   mode="decode", cache=_layer(cache["self"], i), pos=pos))
+            x = _add(x, _cross_attn_decode(p["cross_attn"], _normed(x, p["ln_x"], eps),
+                                           cross["k"], cross["v"]))
+            x = _add(x, apply_mlp(p["mlp"], _normed(x, p["ln2"], eps), cfg.act))
+        x = _normed(x, params["ln_f"], eps)
         return head(cfg, params, x), cache

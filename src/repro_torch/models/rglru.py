@@ -29,6 +29,7 @@ from ..kernels import ops
 from ..kernels.rglru_scan import rglru_scan_ref
 from .common import dense_init
 from .config import ArchConfig
+from .sharding_utils import BATCH, P, maybe_shard, replicate_like
 
 _C = 8.0
 
@@ -57,8 +58,8 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor,
                  tail: Optional[torch.Tensor]) -> torch.Tensor:
     """Depthwise causal conv as the sum of shifted products (no cuDNN)."""
     K = w.shape[0]
-    pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device) \
-        if tail is None else tail
+    pad = replicate_like(torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                                     device=x.device), x) if tail is None else tail
     xp = torch.cat([pad, x], dim=1)
     return sum(xp[:, i:i + x.shape[1]] * w[i][None, None] for i in range(K))
 
@@ -78,6 +79,7 @@ def apply_rglru(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) → (out, new_state {lru (B,W) f32, conv (B,K−1,W)})."""
     B, S, _ = x.shape
+    x = maybe_shard(x, P(BATCH, None, None))    # under a mesh: the sequence whole
     gate = F.gelu(x @ p["w_gate_branch"], approximate="tanh")
     proj = x @ p["w_in"]
     tail = state["conv"] if state is not None else None
@@ -85,8 +87,8 @@ def apply_rglru(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     K = cfg.conv_width
     hist = proj if tail is None else torch.cat([tail, proj], dim=1)
     if hist.shape[1] < K - 1:
-        padz = torch.zeros((B, K - 1 - hist.shape[1], hist.shape[2]), dtype=hist.dtype,
-                           device=hist.device)
+        padz = replicate_like(torch.zeros((B, K - 1 - hist.shape[1], hist.shape[2]),
+                                          dtype=hist.dtype, device=hist.device), hist)
         hist = torch.cat([padz, hist], dim=1)
     new_conv = hist[:, -(K - 1):]
 

@@ -163,11 +163,50 @@ def distribute(t: torch.Tensor, spec: Sequence, mesh):
                               stride=torch.empty(t.shape, device="meta").stride())
 
 
+def zeros_on_mesh(shape: Sequence[int], dtype, spec: Sequence, mesh, device):
+    """A DTensor of zeros of ``shape`` laid out by ``spec`` on ``mesh``, each
+    rank allocating only its own shard on ``device`` (a serving cache too
+    large to be made whole on every rank first)."""
+    from torch.distributed.tensor import DTensor
+    pl = placements(clean_spec(spec, shape, mesh_sizes(mesh)), mesh)
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh, pl,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(tuple(shape), device="meta").stride())
+
+
 def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
     """``distribute`` over nested dicts of tensors laid out like ``specs``."""
     if isinstance(tree, dict):
         return {k: distribute_tree(v, specs[k], mesh) for k, v in tree.items()}
     return distribute(tree, specs, mesh)
+
+
+def summed(t):
+    """The DTensor ``t`` with its pending sums (a projection whose
+    contraction DTensor sharded) carried out: ``Partial()`` placements
+    become ``Replicate()``."""
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in t.placements])
+
+
+def layer_view(t, i: int):
+    """Layer ``i`` of a stacked DTensor (L, ...) whose layer dim is whole: a
+    DTensor over a view of the local tensor (no communication), so an
+    in-place write to it (a serving cache) reaches the stacked tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    if any(p.is_shard(0) for p in t.placements):
+        raise ValueError(f"layer_view: the layer dim is sharded ({t.placements})")
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in t.placements)
+    shape = t.shape[1:]
+    return DTensor.from_local(t.to_local()[i], t.device_mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def replicate_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -212,6 +251,39 @@ def relayout(x, target: Sequence) -> torch.Tensor:
         if via != list(x.placements):
             x = x.redistribute(x.device_mesh, via)
     return x.redistribute(x.device_mesh, target)
+
+
+def rows_of(t) -> tuple:
+    """The placements of ``t``'s batch rows alone: ``Shard(0)`` where ``t``
+    shards dim 0, ``Replicate()`` on every other mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if p.is_shard(0) else Replicate() for p in t.placements)
+
+
+def key_shard(cache) -> Optional[Tuple[int, Tuple[int, ...]]]:
+    """(this rank's offset in the sequence, the mesh dims that shard it) of a
+    cache DTensor whose every mesh dim replicates it or shards its batch
+    (dim 0) or its sequence (dim 1) evenly, as ``cache_specs`` lays caches
+    out (a dim sharded over several mesh dims: major to minor); None for any
+    other layout. Read from the mesh's coordinates: no communication."""
+    mesh, pls = cache.device_mesh, cache.placements
+    n_rows = n_keys = 1
+    idx = 0
+    coord = mesh.get_coordinate()
+    dims = []
+    for i, p in enumerate(pls):
+        n = mesh.size(i)
+        if p.is_shard(0):
+            n_rows *= n
+        elif p.is_shard(1):
+            n_keys *= n
+            idx = idx * n + coord[i]
+            dims.append(i)
+        elif not p.is_replicate():
+            return None
+    if cache.shape[0] % n_rows or cache.shape[1] % n_keys:
+        return None
+    return idx * (cache.shape[1] // n_keys), tuple(dims)
 
 
 def moved(pl: Sequence, moves: Dict[int, Optional[int]]) -> tuple:

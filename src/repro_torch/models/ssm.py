@@ -19,6 +19,7 @@ from ..kernels import ops
 from ..kernels.ssd_scan import _segsum, ssd_chunked
 from .common import dense_init, rms_norm
 from .config import ArchConfig
+from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, replicate_like
 
 __all__ = ["_segsum", "ssd_chunked", "ssd_scanned", "init_mamba2", "_causal_conv",
            "apply_mamba2", "apply_mamba2_decode", "mamba2_state_shape"]
@@ -86,8 +87,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv as the sum of shifted products (no cuDNN).
     x: (B, S, C); w: (K, C); tail: (B, K-1, C)."""
     K = w.shape[0]
-    pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device) \
-        if tail is None else tail
+    pad = replicate_like(torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                                     device=x.device), x) if tail is None else tail
     xp = torch.cat([pad, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i][None, None] for i in range(K))
     return F.silu(out)
@@ -108,6 +109,7 @@ def apply_mamba2(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     B, S, D = x.shape
     din, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
     pdim = cfg.ssm_headdim
+    x = maybe_shard(x, P(BATCH, None, None))    # under a mesh: the sequence whole
     proj = x @ p["in_proj"]
     z, xc, bc, cc, dt = _split(proj, cfg)
     conv_in = torch.cat([xc, bc, cc], dim=-1)
@@ -116,8 +118,8 @@ def apply_mamba2(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     K = cfg.ssm_conv
     hist = conv_in if tail is None else torch.cat([tail, conv_in], dim=1)
     if hist.shape[1] < K - 1:       # very short prefill: left-pad with zeros
-        pad = torch.zeros((B, K - 1 - hist.shape[1], hist.shape[2]), dtype=hist.dtype,
-                          device=hist.device)
+        pad = replicate_like(torch.zeros((B, K - 1 - hist.shape[1], hist.shape[2]),
+                                         dtype=hist.dtype, device=hist.device), hist)
         hist = torch.cat([pad, hist], dim=1)
     new_conv = hist[:, -(K - 1):]
     xc, bc, cc = torch.split(conv_out, [din, g * n, g * n], dim=-1)
@@ -133,7 +135,7 @@ def apply_mamba2(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     h0 = state["ssm"] if state is not None else None
     chunk = min(cfg.ssm_chunk, S)
     if h0 is None and S % chunk == 0:
-        if x.is_cuda:
+        if x.is_cuda or is_dtensor(x):      # a DTensor: each rank's rows (ops.ssd_scan)
             y, hfin = ops.ssd_scan(xdt, a_log_steps, bmat, cmat, chunk=chunk)
         elif S // chunk > 4:
             # long sequences: sequential chunk scan — one (l, l) decay

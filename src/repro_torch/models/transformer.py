@@ -46,7 +46,8 @@ from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_devic
 from .config import ArchConfig
 from .mlp import apply_mlp, apply_moe, init_mlp, init_moe
 from .rglru import apply_rglru, init_rglru, rglru_state_shape
-from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, on_shards, replicate_like
+from .sharding_utils import (BATCH, P, is_dtensor, key_shard, layer_view, maybe_shard, moved,
+                             on_shards, relayout, replicate_like, rows_of, summed)
 from .ssm import apply_mamba2, apply_mamba2_decode, init_mamba2, mamba2_state_shape
 
 Params = Dict[str, Any]
@@ -193,23 +194,69 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     return _heads_out(o, p["wo"])
 
 
+def _cache_shard(cache) -> Tuple[int, Any]:
+    """(this rank's first slot, the rows placements) of a cache DTensor laid
+    out by ``cache_specs`` (its batch and its slots sharded, or whole)."""
+    at = key_shard(cache)
+    if at is None:
+        raise ValueError(f"a serving cache laid out as {cache.placements}: cache_specs shards "
+                         "only the batch and the sequence, evenly")
+    return at[0], rows_of(cache)
+
+
 def _write_cache(cache: torch.Tensor, kv: torch.Tensor, pos: torch.Tensor) -> None:
-    """Write (B,1,KV,hd) in place at position ``pos[0]`` (uniform over the
+    """Write (B,1,...) in place at position ``pos[0]`` (uniform over the
     batch; clamped into the buffer as ``dynamic_update_slice`` does). The
-    index stays on the device, so decode never waits on the host."""
-    idx = pos[:1].clamp(0, cache.shape[1] - 1).long()
-    cache.index_copy_(1, idx, kv.to(cache.dtype))
+    index stays on the device, so decode never waits on the host. Under a
+    mesh (a cache sharded over its slots by ``cache_specs``) every rank of
+    a batch row gets the new row, and the rank whose shard holds the slot
+    writes it: the local slot clamped into the shard, the old row kept by a
+    select on the others."""
+    if not is_dtensor(cache):
+        idx = pos[:1].clamp(0, cache.shape[1] - 1).long()
+        cache.index_copy_(1, idx, kv.to(cache.dtype))
+        return
+    offset, rows = _cache_shard(cache)
+    local = cache.to_local()
+    n = local.shape[1]
+    new = relayout(summed(kv), moved(cache.placements, {1: None})).to_local()
+    slot = relayout(replicate_like(pos, cache), rows).to_local()[:1]
+    slot = slot.clamp(0, cache.shape[1] - 1) - offset
+    own = ((slot >= 0) & (slot < n)).reshape((1,) * local.ndim)
+    idx = slot.clamp(0, n - 1).long()
+    local.index_copy_(1, idx, torch.where(own, new.to(local.dtype), local.index_select(1, idx)))
 
 
 def _fit_cache(cache: torch.Tensor, kv: torch.Tensor) -> None:
     """Place prefill K/V into the cache buffer in place. When the prefill is
     longer than a (windowed) ring buffer, keep the last T_buf entries laid
-    out at their ring slots (slot = absolute_pos % T_buf)."""
+    out at their ring slots (slot = absolute_pos % T_buf). Under a mesh the
+    ring is rolled on each rank's whole sequence (its own heads), then the
+    buffer laid out as the cache (the all-to-all from heads to slots), and
+    each rank copies the prefill's slots of its shard."""
     t_buf, s = cache.shape[1], kv.shape[1]
+    if not is_dtensor(cache):
+        if s <= t_buf:
+            cache[:, :s].copy_(kv)
+        else:
+            cache.copy_(torch.roll(kv[:, -t_buf:], s % t_buf, dims=1))
+        return
+    from torch.distributed.tensor import DTensor
+    offset, _ = _cache_shard(cache)
+    kv = summed(kv)
+    kv = relayout(kv, moved(kv.placements, {1: None}))
+    loc = kv.to_local().to(cache.dtype)
     if s <= t_buf:
-        cache[:, :s].copy_(kv)
+        pad = loc.new_zeros(loc.shape[:1] + (t_buf - s,) + loc.shape[2:])
+        buf = torch.cat([loc, pad], dim=1)
     else:
-        cache.copy_(torch.roll(kv[:, -t_buf:], s % t_buf, dims=1))
+        buf = torch.roll(loc[:, -t_buf:], s % t_buf, dims=1)
+    shape = cache.shape
+    buf = DTensor.from_local(buf, cache.device_mesh, kv.placements, run_check=False,
+                             shape=shape, stride=torch.empty(shape, device="meta").stride())
+    local = cache.to_local()
+    n = min(max(min(s, t_buf) - offset, 0), local.shape[1])
+    local[:, :n].copy_(relayout(buf, cache.placements).to_local()[:, :n])
 
 
 def apply_mla_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
@@ -243,9 +290,16 @@ def apply_mla_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
 
 
 def _store(cache: Params, new: Dict[str, torch.Tensor]) -> None:
-    """Write a recurrent layer's new state into its cache views in place."""
+    """Write a recurrent layer's new state into its cache views in place;
+    under a mesh the state is laid out as its cache first (``cache_specs``:
+    by batch)."""
     for name, value in new.items():
-        cache[name].copy_(value)
+        c = cache[name]
+        if is_dtensor(c):
+            c.to_local().copy_(relayout(summed(replicate_like(value, c)),
+                                        c.placements).to_local())
+        else:
+            c.copy_(value)
 
 
 def apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
@@ -356,10 +410,11 @@ def _prepend(x: torch.Tensor, extra: Optional[torch.Tensor], prefix_len: int
 
 
 def _layer(tree: Union[Params, torch.Tensor], i: int):
-    """Layer ``i`` of a stacked tree, as views into the stacked tensors."""
+    """Layer ``i`` of a stacked tree, as views into the stacked tensors (a
+    DTensor's of its local tensor, ``layer_view``)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return layer_view(tree, i) if is_dtensor(tree) else tree[i]
 
 
 def _unbind(tree: Union[Params, torch.Tensor], n: int):
@@ -592,10 +647,15 @@ class LM:
                extra_embeddings: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
         cfg = self.cfg
         # serving starts from the config's prefix (``apply`` from none), as
-        # the JAX package does
-        x, prefix_len = _prepend(params["embed"][tokens.long()], extra_embeddings,
+        # the JAX package does; under a mesh (params, caches laid out by
+        # ``cache_specs``, tokens, ``pos`` and stubs by ``batch_specs``) the
+        # stream is laid out as ``apply`` lays it out
+        params = gathered_table(params)
+        tokens = maybe_shard(tokens, P(BATCH, None))      # a greedy token as the prompt
+        x, prefix_len = _prepend(F.embedding(tokens.long(), params["embed"]), extra_embeddings,
                                  cfg.prefix_len)
+        x = maybe_shard(x, RESIDUAL)
         for kind, p, c in self._layers(params, cache):
             x = apply_block(p, x, cfg, kind, mode=mode, cache=c, pos=pos, prefix_len=prefix_len)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = maybe_shard(rms_norm(x, params["ln_f"], cfg.norm_eps), GATHERED)
         return self._head(params, x[:, -1:]), cache

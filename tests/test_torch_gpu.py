@@ -1247,3 +1247,208 @@ def test_mesh_archs_float32_parity_on_four_cards(mesh):
                                                    devices=devices), f"f32 parity {mesh}")
     assert [len(s["rows"]) for s in out] == [2, 2, 2, 2]
     assert out[0]["launches"]["flash_attention"] == 2 * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_partial_matches_plain_and_merges(dtype):
+    """The sharded-keys mode at chip_smoke.py phase 2's shapes: qwen3-32b's
+    (B 4, T 4128 in 4 shards of 1032) and h2o-danube-1.8b's d = 80 with its
+    4096 window (T 8256 in 4 shards of 2064; a length past shard 0's end
+    with its window's start inside it), lengths that leave shards empty:
+    each shard's o (bf16 bound, or float32 tolerance) and lse (float32
+    tolerance) against ``decode_attention_partial_ref``, one launch each;
+    the four shards merged by log-sum-exp against the one-card kernel."""
+    from repro_torch.kernels import decode_attention as dec
+    gen = _card()
+    cs, _ = _chip_smoke()
+    for (B, T, H, KV, d), lens, window in [((4, 4128, 64, 8, 128), [4128, 3000, 1100, 17], None),
+                                           ((4, 8256, 32, 8, 80), [8256, 5000, 2100, 1], 4096)]:
+        q = torch.randn((B, 1, H, d), generator=gen, device="cuda").to(dtype)
+        kc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
+        vc = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        n = T // 4
+        parts = []
+        for a in range(0, T, n):
+            ks, vs = kc[:, a:a + n].contiguous(), vc[:, a:a + n].contiguous()
+            n0 = kernels.decode_attention.launches
+            o, lse = dec.decode_attention_partial(q, ks, vs, cl, kv_offset=a, window=window)
+            torch.cuda.synchronize()
+            assert kernels.decode_attention.launches == n0 + 1
+            assert o.dtype == lse.dtype == torch.float32 and lse.shape == (B, H)
+            exp_o, exp_lse = dec.decode_attention_partial_ref(
+                q.float(), ks.float(), vs.float(), cl, kv_offset=a, window=window)
+            if dtype == torch.float32:
+                torch.testing.assert_close(o, exp_o, **F32_TOL)
+            else:
+                _assert_within_bf16_bound(o, exp_o)
+            torch.testing.assert_close(lse, exp_lse, **F32_TOL)
+            parts.append((o, lse))
+        merged = cs.merge_on_one_card(torch, parts)
+        one = ops.decode_attention(q, kc, vc, cl, window=window)
+        if dtype == torch.float32:
+            torch.testing.assert_close(merged, one, **F32_TOL)
+        else:
+            _assert_within_bf16_bound(merged, one.float())
+
+
+def _reduced_serve_runs(cs, dtype, mesh=(1, 1)):
+    """Every arch's reduced config at 2 layers (recurrentgemma 3: one
+    (rec, rec, local_attn) unit), head_dim 64 where the reduced one has none
+    the decode kernel takes, batch 4, prompt 16 (h2o 40, past its 32-token
+    window), 4 steps, with the launches each makes."""
+    R = cs.ServeMeshRun
+    hd = (("head_dim", 64),)
+    return [R("qwen3_32b", 2, dtype, 4, 16, 4, {}, {"decode_attention": 2}, mesh=mesh,
+              reduced=True),
+            R("h2o_danube_1_8b", 2, dtype, 4, 40, 4, {}, {"decode_attention": 2}, mesh=mesh,
+              reduced=True, qk_fan_in=True),
+            R("mamba2_780m", 2, dtype, 4, 16, 4, {"ssd_scan": 2}, {}, mesh=mesh, reduced=True),
+            R("recurrentgemma_9b", 3, dtype, 4, 16, 4, {"rglru_scan": 2}, {"decode_attention": 1},
+              mesh=mesh, reduced=True, overrides=hd, qk_fan_in=True),
+            R("olmoe_1b_7b", 2, dtype, 4, 16, 4, {}, {"decode_attention": 2}, mesh=mesh,
+              reduced=True),
+            R("deepseek_v2_236b", 2, dtype, 4, 16, 4, {}, {}, mesh=mesh, reduced=True),
+            R("whisper_small", 2, dtype, 4, 16, 4, {}, {"decode_attention": 4}, mesh=mesh,
+              reduced=True, overrides=hd, qk_fan_in=True),
+            R("paligemma_3b", 2, dtype, 4, 16, 4, {}, {"decode_attention": 2}, mesh=mesh,
+              reduced=True, overrides=hd, qk_fan_in=True)]
+
+
+@pytest.mark.gpu
+def test_serving_mesh_one_card_small():
+    """chip_smoke.py phase 8's serving runs at a small size, float32, on one
+    nccl rank's (1, 1) mesh: every arch's greedy tokens equal to the plain
+    serve's in the same rank, the logits within 1e-5 relative L2, the
+    launches exact, every decode attention on the sharded-keys branch."""
+    _card()
+    from repro_torch.runtime.ranks import run_ranks
+
+    cs, card = _chip_smoke()
+    runs = _reduced_serve_runs(cs, "float32")
+    recs = run_ranks(cs.serve_mesh_rank, 1, (runs,), backend="nccl", timeout=300,
+                     devices=["cuda:0"])
+    out = cs.serve_mesh_gate(torch, card, recs, "small serving mesh", 1e-5)
+    assert len(out) == len(runs) and all(s["logits_rel_l2"] <= 1e-5 for s in out)
+
+
+@pytest.fixture(scope="module")
+def four_card_serve():
+    """qwen3_32b at full width and all 64 layers on a (1, 4) nccl mesh, one
+    rank a card: batch 4, a 32256-token prompt (through the flash kernel on
+    each rank's 16 heads), 32 greedy steps into a 32768-slot cache sharded
+    over "model" (8192 slots a rank, each holding live keys), then a fresh
+    prefill of the prompt and the 32 fed tokens on the same mesh; beside it
+    the same 8 layers on the mesh and on one card alone; deepseek_v2_236b at
+    4 of 60 layers in float32 at the lossless capacity (its MLA latents
+    sharded over "model"), batch 4 x 512, 16 steps, with the same check.
+    Each group's exception is kept for the tests that read it."""
+    devices = _four_cards()
+    from repro_torch.runtime.ranks import run_ranks
+
+    cs, card = _chip_smoke()
+    L = cs.ServeLongRun
+    from repro_torch.configs import get_config
+    ds_cfg = get_config("deepseek_v2_236b")
+    lossless = (("capacity_factor", ds_cfg.n_experts / ds_cfg.experts_per_token),)
+    groups = {"qwen3": (L("qwen3_32b", None, "bfloat16", 4, 32256, 32, 32768), 4, 900),
+              "qwen3 8 layers": (L("qwen3_32b", 8, "bfloat16", 4, 32256, 32, 32768,
+                                   check=False), 4, 600),
+              "qwen3 8 layers one card": (L("qwen3_32b", 8, "bfloat16", 4, 32256, 32, 32768,
+                                            mesh=None, check=False), 1, 600),
+              "deepseek": (L("deepseek_v2_236b", 4, "float32", 4, 512, 16, 528,
+                             overrides=lossless), 4, 600)}
+    out = {}
+    for name, (run, world, timeout) in groups.items():
+        try:
+            out[name] = run_ranks(cs.serve_long_rank, world, (run,), backend="nccl",
+                                  timeout=timeout, devices=devices[:world])
+        except Exception as e:          # re-raised by the tests that read this group
+            out[name] = e
+    return cs, card, out
+
+
+def _long(runs, name):
+    cs, card, out = runs
+    if isinstance(out[name], Exception):
+        raise out[name]
+    return cs, card, out[name]
+
+
+def _log_long(cs, card, name, recs):
+    r0 = recs[0]
+    lat = r0["decode_ms"][1:]
+    p50 = float(sorted(lat)[len(lat) // 2])
+    p99 = float(sorted(lat)[min(len(lat) - 1, int(0.99 * len(lat)))])
+    cs.log(card, f"{name}: {r0['config']} {r0['n_layers']} of {r0['full_layers']} layers "
+                 f"{r0['dtype']} on {r0['mesh']}, batch {r0['batch']} x {r0['prompt']} + "
+                 f"{r0['gen']} steps into {r0['max_len']} slots: prefill {r0['prefill_ms']:.1f} "
+                 f"ms, decode p50 {p50:.2f} ms p99 {p99:.2f} ms (host clock, synchronised); "
+                 f"peak GiB a rank {[round(r['peak_bytes'] / 2**30, 2) for r in recs]}, cache "
+                 f"GiB a rank {[round(r['cache_bytes'] / 2**30, 3) for r in recs]}, parameter "
+                 f"GiB a rank {[round(r['param_bytes'] / 2**30, 2) for r in recs]}; launches "
+                 f"{ {k: v for k, v in r0['launches'].items() if v} }; check "
+                 f"{r0.get('check')}; decode profile "
+                 f"{ {k: r0['profile'][k] for k in ('wall_ms', 'busy_ms', 'decode kernel', 'collectives')} }")
+    return p50, p99
+
+
+@pytest.mark.gpu
+def test_qwen3_full_depth_serves_a_32k_cache_on_four_cards(four_card_serve):
+    """All 64 layers: the flash kernel once a layer at prefill and the decode
+    kernel's sharded-keys mode once a layer a step, every rank's shard 8192
+    slots, and the last step's logits within phase 3's bf16 bound of the fresh
+    prefill's."""
+    cs, card, recs = _long(four_card_serve, "qwen3")
+    _log_long(cs, card, "four cards", recs)
+    for r in recs:
+        assert r["n_layers"] == 64
+        assert r["launches"]["flash_attention"] == 64
+        assert r["launches"]["decode_attention"] == 64 * 32
+        assert r["cache_bytes"] == 64 * 2 * 4 * 8192 * 8 * 128 * 2      # k and v, 8192 slots
+    check = recs[0]["check"]
+    assert check["finite"] and check["rel_l2"] <= cs.DECODE_PREFILL_TOL, check
+
+
+@pytest.mark.gpu
+def test_qwen3_eight_layers_on_four_cards_and_one(four_card_serve):
+    """The same cache at 8 layers on the (1, 4) mesh and on one card alone:
+    both serve, and their times are logged side by side."""
+    cs, card, mesh = _long(four_card_serve, "qwen3 8 layers")
+    _, _, one = _long(four_card_serve, "qwen3 8 layers one card")
+    _log_long(cs, card, "four cards", mesh)
+    _log_long(cs, card, "one card", one)
+    assert one[0]["launches"]["decode_attention"] == mesh[0]["launches"]["decode_attention"] \
+        == 8 * 32
+    assert one[0]["cache_bytes"] == 4 * mesh[0]["cache_bytes"]
+
+
+@pytest.mark.gpu
+def test_deepseek_mla_cache_sharded_on_four_cards(four_card_serve):
+    """deepseek_v2_236b at 4 of 60 layers in float32 at the lossless
+    capacity: its MLA latents sharded over "model", the last step's logits
+    within phase 3's bound of a fresh prefill's."""
+    cs, card, recs = _long(four_card_serve, "deepseek")
+    _log_long(cs, card, "four cards", recs)
+    check = recs[0]["check"]
+    assert check["finite"] and check["rel_l2"] <= cs.DECODE_PREFILL_TOL, check
+    assert all(r["cache_bytes"] == 4 * 4 * 132 * (512 + 64) * 4 for r in recs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)])
+def test_serving_mesh_float32_parity_on_four_cards(mesh):
+    """Every arch's small float32 config served on a (1, 4) and a (2, 2)
+    mesh of four cards against the plain serve in each rank: the greedy
+    tokens equal, the logits within 1e-5 relative L2, the launches exact,
+    every decode attention merged across the ranks (``serve_mesh_gate``)."""
+    devices = _four_cards()
+    from repro_torch.runtime.ranks import run_ranks
+
+    cs, card = _chip_smoke()
+    runs = _reduced_serve_runs(cs, "float32", mesh=mesh)
+    out = cs.serve_mesh_gate(torch, card, run_ranks(cs.serve_mesh_rank, 4, (runs,),
+                                                    backend="nccl", timeout=300,
+                                                    devices=devices), f"f32 serving {mesh}", 1e-5)
+    assert len(out) == len(runs)

@@ -393,3 +393,51 @@ def launcher_ckpt_rank(rank, world, arch, ckpt_dir):
     return dict(restored_equal=equal, leaves=len(a), experts=experts,
                 steps0=[r["step0"] for r in runs], n_losses=[len(r["losses"]) for r in runs],
                 losses=runs[0]["losses"] + runs[2]["losses"])
+
+
+def serve_rank(rank, world, cases):
+    """Each case ``(arch, overrides, mesh_shape, params_np, tokens, stubs_np,
+    gen)``: the reduced arch (``overrides`` applied) served by
+    ``launch.serve.generate`` on a ("data", "model") mesh of ``mesh_shape``,
+    the parameters (numpy) laid out by ``param_specs``, the cache by
+    ``cache_specs``, the prompt, positions and stubs by ``batch_specs``:
+    prefill and ``gen`` greedy steps. Each step's logits (whole), the
+    tokens, the DTensor attention branches taken by the decode steps and
+    each cache leaf's placements."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    out = []
+    for arch, overrides, mesh_shape, params_np, tokens, stubs_np, gen in cases:
+        cfg = dataclasses.replace(reduced_config(arch), **dict(overrides))
+        model = build_model(cfg, device="cpu")
+        mesh = make_mesh(mesh_shape, ("data", "model"))
+        params = from_numpy(params_np, device="cpu")
+        params = distribute_tree(params, ShardingRules(cfg, mesh).param_specs(params), mesh)
+        stubs = {k: torch.from_numpy(v) for k, v in stubs_np.items()}
+        before = {}
+
+        def after_prefill(i):
+            if i < 0:
+                before.update(ops.decode_branch)
+        res = generate(model, params, torch.from_numpy(tokens), stubs, gen, mesh=mesh,
+                       keep_logits=True, on_step=after_prefill)
+        placements = {}
+
+        def walk(tree, path=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, f"{path}/{k}")
+                else:
+                    placements[f"{path}/{k}"] = [str(p) for p in v.placements]
+        walk(res["cache"])
+        out.append(dict(logits=res["logits"], tokens=res["tokens"], placements=placements,
+                        branches={k: ops.decode_branch[k] - before[k] for k in before}))
+    return out
+
+
+def serve_launcher_rank(rank, world, argv):
+    """The serve launcher (``launch.serve.main``) on this group: its last
+    greedy tokens and its mesh."""
+    from repro_torch.launch import serve
+    out = serve.main(argv)
+    return dict(last_token=torch.from_numpy(out["last_token"]), mesh=out["mesh"])
