@@ -218,7 +218,15 @@ phases:
    launch: its sequences stay below attn_chunk); the traffic-monitor example
    replays its dynamics timeline and decodes greedily, one decode launch a
    layer a step, checked exactly, its tokens equal to the same decode of CPU
-   copies of its weights.
+   copies of its weights;
+10. the dry-run (``launch/dryrun.py``) on fake "cuda" tensors
+   (``phase_dryrun``): two shallow production cells on the fake (16, 16)
+   mesh, no launch; h2o-danube-1.8b at 2 layers, 1 x 4096, as a dry-run on
+   a fake one-rank mesh and as a real train step on the card under
+   ``FlopCounterMode``, whose count must equal the dry-run's FLOPs besides
+   its kernels exactly (the card's kernels are invisible to the counter);
+   the dry-run's peak beside the step's ``max_memory_allocated``; the
+   decode wrapper's host cost with and without its shape-only test.
 
 The h2o, whisper and paligemma paths and recurrentgemma's training path
 draw wq and wk at the fan-in of d_model (``fan_in_qk``):
@@ -5063,6 +5071,141 @@ def phase_examples(torch, card: str) -> dict:
     return out
 
 
+# ==============================================================================
+# phase 10: the dry-run, and its FLOP count tied to a real step on the card
+# ==============================================================================
+# two shallow production cells on fake "cuda" tensors on the fake (16, 16) mesh
+DRYRUN_CELLS = (("qwen3_32b", "decode_32k"), ("h2o_danube_1_8b", "train_4k"))
+DRYRUN_UNITS = 2
+# the real step beside its dry-run: h2o-danube-1.8b at 2 of 24 layers, train_4k's
+# sequence at batch 1
+DRYRUN_ARCH, DRYRUN_LAYERS = "h2o_danube_1_8b", 2
+# the decode wrapper's host cost: calls a reading, readings (the best kept)
+HOST_CALLS, HOST_READS = 2000, 7
+HOST_DECODE = (1, 64, 8, 2, 64)       # B, T, H, KV, d: a kernel shorter than its host cost
+
+
+def host_us(torch, fn, calls: int, reads: int = HOST_READS) -> float:
+    """Host time of one ``fn()`` in microseconds: ``calls`` back to back with
+    no sync between them, the best of ``reads`` readings (the card's queue
+    drained after each)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reads):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return best * 1e6
+
+
+def phase_dryrun(torch, card: str) -> dict:
+    """``launch/dryrun.py`` on the card machine (its torch is built with CUDA,
+    so the dry-run's tensors are fake ``"cuda"`` ones and the kernel wrappers
+    hold them to the card's checks):
+
+    (a) ``DRYRUN_CELLS`` at ``DRYRUN_UNITS`` units on the fake (16, 16) mesh,
+        each to a record, no kernel launched;
+    (b) h2o-danube-1.8b at 2 layers, 1 x 4096: the dry-run on a fake one-rank
+        mesh, and the real train step on the card under ``FlopCounterMode``;
+        the card's kernels are invisible to the counter, so its count must
+        equal the dry-run's ``per_device_flops - kernel_flops`` exactly;
+    (c) the dry-run's ``peak_gb`` beside the real step's
+        ``torch.cuda.max_memory_allocated()`` and their ratio (a reading);
+    (d) the decode wrapper's host cost on one call, and the same less the
+        shape-only test the wrapper added (``shape_only.data_free`` on a card
+        tensor): the parent's path, which is the same code without it."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import shape_only
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    if dist.is_initialized():
+        raise AssertionError("phase_dryrun: a process group is already up in this process")
+    out = {"cells": []}
+    kernels.reset_launches()
+    for arch, shape in DRYRUN_CELLS:                                      # (a)
+        rec = dryrun.run_cell(arch, SHAPES[shape], False, units=DRYRUN_UNITS, device=DEVICE)
+        if dist.is_initialized() or rec["device"] != DEVICE or not (
+                rec["memory"]["peak_gb"] > 0 and rec["per_device_flops"] > 0
+                and all(math.isfinite(v) for v in rec["memory"].values())):
+            raise AssertionError(f"dry-run {arch} x {shape}: {rec}")
+        r = rec["roofline"]
+        log(card, f"dry-run {arch} x {shape} x 16x16 at {DRYRUN_UNITS} units on fake {DEVICE} "
+                  f"tensors: {rec['lower_s']} s, peak {rec['memory']['peak_gb']:.3f} GB, "
+                  f"{rec['per_device_flops']:.4e} FLOPs ({rec['kernel_flops']} in kernels), "
+                  f"{rec['per_device_bytes']:.4e} B, collectives {rec['collectives']}, "
+                  f"bound {r['bound']} ({dryrun.ESTIMATE})")
+        out["cells"].append(rec)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the dry-run launched {kernels.launch_counts()}")
+
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), n_layers=DRYRUN_LAYERS)   # (b)
+    shape = ShapeSpec("train_4k_batch_1", SHAPES["train_4k"].seq_len, 1, "train")
+    dry = dryrun.run_one_rank(cfg, shape, device=DEVICE)
+    besides = dry["per_device_flops"] - sum(dry["kernel_flops"].values())
+    model, step = make_train_step(cfg, device=DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+    opt = adamw_init(params)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, shape.seq_len + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with FlopCounterMode(display=False) as counter:
+        _, _, metrics = step(params, opt, batch, 0)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    real_flops = counter.get_total_flops()
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(metrics["loss"])
+    log(card, f"dry-run identity, {DRYRUN_ARCH} {DRYRUN_LAYERS} layers, 1 x {shape.seq_len}: "
+              f"per_device_flops {dry['per_device_flops']:.0f} - kernel_flops "
+              f"{sum(dry['kernel_flops'].values()):.0f} = {besides:.0f}; the card's step "
+              f"under FlopCounterMode {real_flops} (loss {loss:.4f}, launches {launches})")
+    if besides != real_flops:
+        raise AssertionError(f"the dry-run's FLOPs besides the kernels {besides} != the card "
+                             f"step's count {real_flops}")
+    if not math.isfinite(loss) or not launches["flash_attention"] \
+            or not launches["flash_attention_bwd"]:
+        raise AssertionError(f"the card's step: loss {loss}, launches {launches}")
+    ratio = dry["memory"]["peak_gb"] * 1e9 / peak                                # (c)
+    log(card, f"dry-run peak {dry['memory']['peak_gb']:.4f} GB (MemTracker on fake tensors) "
+              f"beside the card step's max_memory_allocated {peak / 1e9:.4f} GB: ratio "
+              f"{ratio:.4f}")
+    del params, opt, batch, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    B, T, H, KV, d = HOST_DECODE                                                   # (d)
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    q = torch.randn(B, 1, H, d, device=DEVICE, generator=g).to(torch.bfloat16)
+    kc, vc = (torch.randn(B, T, KV, d, device=DEVICE, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.full((B,), T, dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        wrapper = host_us(torch, lambda: dec.decode_attention(q, kc, vc, lens), HOST_CALLS)
+        test = host_us(torch, lambda: shape_only.data_free(q), 50 * HOST_CALLS)
+    log(card, f"decode wrapper host cost at B={B}, T={T}, H={H}, KV={KV}, d={d} bf16: "
+              f"{wrapper:.3f} us a call with the shape-only test, {wrapper - test:.3f} us "
+              f"without it (the test alone {test:.4f} us; best of {HOST_READS} x {HOST_CALLS})")
+    out.update(arch=DRYRUN_ARCH, layers=DRYRUN_LAYERS, dry=dry, real_flops=real_flops,
+               besides_kernels=besides, real_peak_gb=peak / 1e9, peak_ratio=ratio, loss=loss,
+               launches=launches, host_us={"wrapper": wrapper, "without_test": wrapper - test,
+                                           "test": test, "shape": list(HOST_DECODE)})
+    return out
+
+
 def _to(tree, device):
     """A copy of ``tree`` on ``device`` (a copy on the same device too: the
     train step updates its parameters in place)."""
@@ -5306,6 +5449,11 @@ def main() -> int:
     t0 = time.perf_counter()
     examples = phase_examples(torch, card)   # phase 9
     timed("9 examples", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = phase_dryrun(torch, card)          # phase 10
+    timed("10 dry-run", t0)
 
     # the backward has no Pallas kernel: it replaces the gradient the JAX
     # package takes through its rematerialised query-chunked attention
@@ -5360,6 +5508,7 @@ def main() -> int:
         by_path["train launcher"] = train_launcher["launches"][name]
         by_path[f"{grads['config']} gradients"] = grads["launches"][name]
         by_path.update({f"{ex} example": examples[ex]["launches"][name] for ex in examples})
+        by_path[f"{dry['arch']} dry-run check step"] = dry["launches"][name]
         entry = {"name": name, "route": "cuda", "source": sources[name][0],
                  "replaces": sources[name][1], "launches": sum(by_path.values()),
                  "launches_by_path": by_path, **{k: kern[name][k] for k in keys},
@@ -5373,7 +5522,7 @@ def main() -> int:
               "small_train": small_train, "train": train, "train_launcher": train_launcher,
               "grads": grads, "examples": examples, "dora": dora,
               "calibration": calibration, "mesh": mesh, "mesh_archs": mesh_archs,
-              "serve_mesh": serve_mesh,
+              "serve_mesh": serve_mesh, "dryrun": dry,
               "ptxas": ptxas, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out_dir = os.path.join(REPO, "build")

@@ -23,6 +23,14 @@ positions), returning the output in float32 normalised over the shard and
 the log-sum-exp of its scores, which ``ops`` merges across the ranks. It
 counts in ``launches`` too. Its plain version is
 ``decode_attention_partial_ref``.
+
+A tensor without data (fake or meta) takes the shape-only path
+(``kernels/shape_only.py``): the same allocations as the card's call (the
+output, ``split_plan``'s partials) handed to the registered op that stands
+for the C entry point. It launches nothing and counts nothing. Data-free
+tensors on the card's device type get the card's checks; on any other
+only the DTensor and no-grad guards apply. A real CUDA tensor calls the C
+entry point directly, past one more test (``shape_only.data_free``).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import shape_only as _shape
 from ._guard import refuse_dtensor, require_no_grad
 
 NEG_INF = -2.0e38
@@ -179,6 +188,8 @@ def _launch(what: str, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     require_no_grad(what, "'Backward kernels'", q, k_cache, v_cache)
     B, one, H, d = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
+    if not q.is_cuda:           # a data-free tensor of another device type
+        return _shape_only(what, q, k_cache, v_cache, cache_len, window, scale, kv_offset)
     tensors = (k_cache, v_cache, cache_len)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{what}: q, caches and cache_len must lie on one CUDA device")
@@ -192,6 +203,8 @@ def _launch(what: str, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
                          f"supported (head_dim in {HEAD_DIMS})")
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: {H} heads not a multiple of {KV} KV heads")
+    if _shape.data_free(q):
+        return _shape_only(what, q, k_cache, v_cache, cache_len, window, scale, kv_offset)
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError(f"{what}: tensors must be 16-byte aligned")
@@ -224,11 +237,35 @@ def _launch(what: str, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     return out
 
 
+def _shape_only(what: str, q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                cache_len: torch.Tensor, window: Optional[int], scale: Optional[float],
+                kv_offset: Optional[int]):
+    """``_launch``'s allocations on data-free tensors, handed to the
+    registered op of the C entry point (``kernels/shape_only.py``)."""
+    B, _, H, d = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    lens = cache_len.to(torch.int32).contiguous()
+    n_splits = split_plan(T, B, KV, H // KV)[1]
+    part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, H, n_splits, d), dtype=torch.float32, device=q.device)
+    scale = float(scale) if scale is not None else d ** -0.5
+    if kv_offset is None:
+        out = torch.empty_like(q)
+        _shape.OPS[what](q, k_cache, v_cache, lens, part_ml, part_acc, out, window, scale)
+        return out
+    out = (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+           torch.empty((B, H), dtype=torch.float32, device=q.device))
+    _shape.OPS[what](q, k_cache, v_cache, lens, part_ml, part_acc, *out, int(kv_offset), window,
+                     scale)
+    return out
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: torch.Tensor, *, window: Optional[int] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q (B,1,H,d); k/v cache (B,T,KV,d); cache_len (B,) -> (B,1,H,d) in q's type."""
-    if not q.is_cuda:
+    if not q.is_cuda and not _shape.data_free(q):
         return decode_attention_ref(q, k_cache, v_cache, cache_len, window=window,
                                     scale=scale)
     return _launch("decode_attention", q, k_cache, v_cache, cache_len, window, scale, None)
@@ -242,7 +279,7 @@ def decode_attention_partial(q: torch.Tensor, k_shard: torch.Tensor, v_shard: to
     ``kv_offset + Tk`` of a cache, k/v (B,Tk,KV,d); ``cache_len`` (B,) and
     ``window`` in global positions -> (o (B,1,H,d) float32, lse (B,H)
     float32); see ``decode_attention_partial_ref``."""
-    if not q.is_cuda:
+    if not q.is_cuda and not _shape.data_free(q):
         return decode_attention_partial_ref(q, k_shard, v_shard, cache_len,
                                             kv_offset=kv_offset, window=window, scale=scale)
     return _launch("decode_attention_partial", q, k_shard, v_shard, cache_len, window, scale,

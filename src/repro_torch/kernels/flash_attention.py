@@ -22,6 +22,16 @@ the backward reads; the plain versions are ``flash_attention_ref``,
 ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` (the
 FlashAttention-2 formulas written out). ``launches`` counts forward
 launches, ``bwd_launches`` backward calls, and nothing else.
+
+A tensor without data (fake or meta) takes the shape-only path
+(``kernels/shape_only.py``): the wrapper allocates what the card's call
+would (out, lse; the backward's dq, dk, dv and f32 scratch) and calls the
+registered op that stands for the C entry point, through
+``FlashAttentionFn`` when grad is needed, so a dry-run's backward takes it
+too. It launches nothing and counts nothing. Data-free tensors on the
+card's device type get the card's checks; on any other they stand for the
+plain version's shapes, and the card's head-dim and backward limits are
+not applied.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import shape_only as _shape
 from ._guard import refuse_dtensor
 from .decode_attention import SMS
 
@@ -163,8 +174,26 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def bwd_scratch_floats(B: int, S: int, H: int, KV: int, d: int, dtype: torch.dtype,
+                       n_split: int) -> int:
+    """The backward's f32 scratch in floats, the C entry
+    ``flash_attention_bwd_scratch_floats`` in Python (for the shape-only
+    path, which loads no library): float32 the row sums D, (B,H,S); bfloat16
+    lse in log2 units and D, (B,H,S_pad) each, the dQ accumulator (B,H,S_pad,
+    d + 8), and with a split group the dK and dV accumulators, S_pad = S
+    rounded up to 64."""
+    if dtype == torch.float32:
+        return B * H * S
+    rows = B * H * (-(-S // 64) * 64)
+    return rows * (2 + d + 8) + (2 * B * S * KV * d if n_split > 1 else 0)
+
+
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dims) -> None:
+    """The card's checks; a data-free tensor of another device type than
+    the card's gets only the DTensor refusal."""
     refuse_dtensor("flash_attention", q, k, v)
+    if not q.is_cuda and _shape.data_free(q):
+        return
     B, S, H, d = q.shape
     T, KV = k.shape[1], k.shape[2]
     if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
@@ -186,10 +215,14 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     """One launch of the forward kernel (inputs checked and contiguous)."""
     B, S, H, d = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: tensors must be 16-byte aligned")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+    if _shape.data_free(q):
+        _shape.OPS["flash_attention"](q, k, v, out, lse if with_lse else q.new_empty(
+            0, dtype=torch.float32), causal, window, scale)
+        return out, lse
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned")
     lib = _lib()
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -233,14 +266,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward, at head_dim 64, 80, 128 or 256 in bfloat16 and 64, 80 or 128
     in float32 (``BWD_HEAD_DIMS``); anything else raises before the forward
     runs."""
-    if not q.is_cuda:
+    if not q.is_cuda and not _shape.data_free(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check_inputs(q, k, v, HEAD_DIMS.get(q.dtype, ()))
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        bwd_dims = BWD_HEAD_DIMS[q.dtype]
-        if not causal or q.shape[1] != k.shape[1] or q.shape[-1] not in bwd_dims:
+        bwd_dims = BWD_HEAD_DIMS.get(q.dtype, ())
+        if q.is_cuda and (not causal or q.shape[1] != k.shape[1]
+                          or q.shape[-1] not in bwd_dims):
             raise NotImplementedError(
                 f"flash_attention: no backward on the card for causal={causal}, S="
                 f"{q.shape[1]}, T={k.shape[1]}, head_dim {q.shape[-1]} {q.dtype} (causal "
@@ -256,7 +290,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The forward with its second output: (out (B,S,H,d), lse (B,H,S)
     float32), the log-sum-exp that ``flash_attention_bwd`` reads. Not
     differentiable; CPU tensors take the plain versions."""
-    if not q.is_cuda:
+    if not q.is_cuda and not _shape.data_free(q):
         return (flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale),
                 flash_attention_lse_ref(q, k, causal=causal, window=window, scale=scale))
     _check_inputs(q, k, v, HEAD_DIMS.get(q.dtype, ()))
@@ -276,7 +310,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward kernels (one count a call), CPU tensors take the plain version.
     In bfloat16 dq (and, with a split group, dk and dv) is summed in f32 in
     an order that changes from run to run: not bit-reproducible."""
-    if not q.is_cuda:
+    free = _shape.data_free(q)
+    if not q.is_cuda and not free:
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
                                        scale=scale)
     _check_inputs(q, k, v, BWD_HEAD_DIMS.get(q.dtype, ()))
@@ -287,23 +322,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"S={S}, T={k.shape[1]})")
     if (out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype
             or tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32
-            or not all(t.is_cuda and t.device == q.device for t in (out, lse, dout))):
+            or not all(t.device == q.device for t in (out, lse, dout))):
         raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} {out.dtype}, "
                          f"lse{tuple(lse.shape)} {lse.dtype}, dout{tuple(dout.shape)} do not "
                          f"match q{tuple(q.shape)} {q.dtype}")
     q, k, v, out, lse = (t.contiguous() for t in (q, k, v, out, lse))
     dout = dout.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_split = bwd_split_plan(B, S, KV, H // KV, d) if q.dtype == torch.bfloat16 else 1
+    scale = float(scale) if scale is not None else d ** -0.5
+    if free:
+        scratch = torch.empty(bwd_scratch_floats(B, S, H, KV, d, q.dtype, n_split),
+                              dtype=torch.float32, device=q.device)
+        _shape.OPS["flash_attention_bwd"](q, k, v, out, lse, dout, scratch, dq, dk, dv, causal,
+                                          window, scale)
+        return dq, dk, dv
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("flash_attention_bwd: tensors must be 16-byte aligned")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dtype = _DTYPES[q.dtype]
-    n_split = bwd_split_plan(B, S, KV, H // KV, d) if q.dtype == torch.bfloat16 else 1
     lib = _bwd_lib()
     # f32 scratch: the row sums D, and in bf16 also lse in log2 units and the
     # f32 accumulators (zeroed by the first kernel)
     scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, S, H, KV, d, dtype, n_split),
                           dtype=torch.float32, device=q.device)
-    scale = float(scale) if scale is not None else d ** -0.5
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -14,6 +14,13 @@ differentiates. On the card, when grad is needed, it goes through
 backward; it differentiates its associative-scan oracle). Its plain version
 is ``rglru_scan_bwd_ref``. ``launches`` counts forward launches,
 ``bwd_launches`` backward launches, and nothing else.
+
+A tensor without data (fake or meta) takes the shape-only path
+(``kernels/shape_only.py``): the outputs allocated as the card's call
+allocates them (h, h_last; da_log, db), written by the registered op that
+stands for the C entry point, through ``RglruScanFn`` so a dry-run's
+backward takes it too. It launches nothing and counts nothing. Data-free
+tensors on the card's device type get the card's checks.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import shape_only as _shape
 from ._guard import refuse_dtensor
 
 launches = 0
@@ -84,6 +92,8 @@ def _check(what: str, a_log: torch.Tensor, x: torch.Tensor) -> None:
     """a_log and x (b for the forward, h for the backward): float32 (B,S,W)
     with S > 0 on one CUDA device."""
     refuse_dtensor(what, a_log, x)
+    if not x.is_cuda and _shape.data_free(x):
+        return
     if not (x.is_cuda and x.device == a_log.device):
         raise ValueError(f"{what}: a_log and its second input must lie on one CUDA device")
     if a_log.dtype != torch.float32 or x.dtype != torch.float32:
@@ -98,6 +108,9 @@ def _forward(a_log: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.
     B, S, W = a_log.shape
     h = torch.empty_like(b)
     h_last = torch.empty((B, W), dtype=torch.float32, device=b.device)
+    if _shape.data_free(b):
+        _shape.OPS["rglru_scan"](a_log, b, h, h_last)
+        return h, h_last
     lib = _lib()
     err = lib.rglru_scan_fwd(a_log.data_ptr(), b.data_ptr(), h.data_ptr(), h_last.data_ptr(),
                              B, S, W, torch.cuda.current_stream(b.device).cuda_stream)
@@ -132,7 +145,7 @@ class RglruScanFn(torch.autograd.Function):
 def rglru_scan(a_log: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a_log, b (B,S,W) float32 -> (h (B,S,W) float32, h_last (B,W) float32).
     Differentiable: on the card through ``RglruScanFn`` when grad is needed."""
-    if not a_log.is_cuda:
+    if not a_log.is_cuda and not _shape.data_free(a_log):
         return rglru_scan_ref(a_log, b)
     _check("rglru_scan", a_log, b)
     a_log, b = a_log.contiguous(), b.contiguous()
@@ -148,7 +161,7 @@ def rglru_scan_bwd(a_log: torch.Tensor, h: torch.Tensor, dh: Optional[torch.Tens
     h and the cotangents dh (B,S,W) and dh_last (B,W) (None for zero). CUDA
     tensors launch the backward kernel (one count a call), CPU tensors take
     ``rglru_scan_bwd_ref``."""
-    if not a_log.is_cuda:
+    if not a_log.is_cuda and not _shape.data_free(a_log):
         return rglru_scan_bwd_ref(a_log, h, dh, dh_last)
     _check("rglru_scan_bwd", a_log, h)
     B, S, W = a_log.shape
@@ -160,6 +173,9 @@ def rglru_scan_bwd(a_log: torch.Tensor, h: torch.Tensor, dh: Optional[torch.Tens
     dh = None if dh is None else dh.detach().to(torch.float32).contiguous()
     dh_last = None if dh_last is None else dh_last.detach().to(torch.float32).contiguous()
     da_log, db = torch.empty_like(a_log), torch.empty_like(a_log)
+    if _shape.data_free(a_log):
+        _shape.OPS["rglru_scan_bwd"](a_log, h, dh, dh_last, da_log, db)
+        return da_log, db
     lib = _lib()
     err = lib.rglru_scan_bwd(a_log.data_ptr(), h.data_ptr(), None if dh is None else dh.data_ptr(),
                              None if dh_last is None else dh_last.data_ptr(), da_log.data_ptr(),

@@ -30,6 +30,14 @@ it sums db and dc over a group's heads in a fixed order, so every output is
 bit-reproducible. In float32 it launches three kernels on the CUDA cores,
 which add db and dc with atomics (not bit-reproducible). None of these
 launches moves ``launches``, the forward's count.
+
+A tensor without data (fake or meta) takes the shape-only path
+(``kernels/shape_only.py``): the outputs allocated as the card's call
+allocates them (y, the final state; dx, da_log, db, dc), written by the
+registered op that stands for the C entry points, through ``SsdScanFn`` so
+a dry-run's backward takes it too. The stages' intermediates are not
+allocated there. It launches nothing and counts nothing. Data-free tensors
+on the card's device type get the card's checks.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from . import shape_only as _shape
 from ._guard import refuse_dtensor
 
 MAX_CHUNK, MAX_P, MAX_N = 256, 64, 128
@@ -549,6 +558,8 @@ def _check(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tenso
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     refuse_dtensor(what, x, a_log, b, c)
+    if not x.is_cuda and _shape.data_free(x):
+        return
     if not all(t.is_cuda and t.device == x.device for t in (a_log, b, c)):
         raise ValueError(f"{what}: x, a_log, b and c must lie on one CUDA device")
     if x.dtype not in _DTYPES or not x.dtype == b.dtype == c.dtype \
@@ -573,6 +584,11 @@ def _forward(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Ten
     """The forward kernels on checked, contiguous CUDA tensors (one count)."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
+    if _shape.data_free(x):
+        y = torch.empty_like(x)
+        state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+        _shape.OPS["ssd_scan"](x, a_log, b, c, y, state, chunk)
+        return y, state
     if any(t.data_ptr() % 16 for t in (x, b, c)):
         raise ValueError("ssd_scan: x, b and c must be 16-byte aligned")
     if x.dtype == torch.bfloat16:
@@ -619,7 +635,7 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Ten
     float32 the CUDA-core kernel. Differentiable on the card (``SsdScanFn``)."""
     S = x.shape[1]
     chunk = min(chunk, S)
-    if not x.is_cuda:
+    if not x.is_cuda and not _shape.data_free(x):
         return ssd_chunked(x, a_log, b, c, chunk)
     _check(x, a_log, b, c, chunk)
     x, a_log, b, c = x.contiguous(), a_log.contiguous(), b.contiguous(), c.contiguous()
@@ -640,10 +656,11 @@ def ssd_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     chunk = min(chunk, S)
-    if not x.is_cuda:
+    free = _shape.data_free(x)
+    if not x.is_cuda and not free:
         return ssd_scan_bwd_ref(x, a_log, b, c, dy, dstate, chunk)
     _check(x, a_log, b, c, chunk, "ssd_scan_bwd")
-    if dy.shape != x.shape or not dy.is_cuda or dy.device != x.device or (
+    if dy.shape != x.shape or dy.device != x.device or (
             dstate is not None and (tuple(dstate.shape) != (B, H, P, N)
                                     or dstate.device != x.device)):
         raise ValueError(f"ssd_scan_bwd: dy{tuple(dy.shape)} / dstate "
@@ -652,6 +669,12 @@ def ssd_scan_bwd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch
     x, a_log, b, c = (t.detach().contiguous() for t in (x, a_log, b, c))
     dy = dy.to(x.dtype).contiguous()
     dstate = None if dstate is None else dstate.to(torch.float32).contiguous()
+    if free:
+        dx, da = torch.empty_like(x), torch.empty((B, S, H), dtype=torch.float32,
+                                                  device=x.device)
+        db, dc = torch.empty_like(b), torch.empty_like(c)
+        _shape.OPS["ssd_scan_bwd"](x, a_log, b, c, dy, dstate, dx, da, db, dc, chunk)
+        return dx, da, db, dc
     if any(t.data_ptr() % 16 for t in (x, b, c, dy) + (() if dstate is None else (dstate,))):
         raise ValueError("ssd_scan_bwd: x, b, c, dy and dstate must be 16-byte aligned")
     if x.dtype == torch.bfloat16:

@@ -6,10 +6,12 @@ A rank is one process with one device (``runtime.ranks.run_ranks`` or
 named axes. ``use_mesh`` makes a mesh ambient for ``maybe_shard``.
 
 The reference's ``compat_make_mesh`` shims jax versions and has no
-counterpart; ``make_production_mesh`` (the 256- and 512-device meshes)
-belongs to the dry-run (ROADMAP, Queue 1 item 14). The trainer and the
-server (``launch/train.py``, ``launch/serve.py``) run on
-``make_host_mesh`` under a process group.
+counterpart. ``make_production_mesh`` lays out the 256- and 512-device
+meshes the dry-run (``launch/dryrun.py``) lowers on, over a group of that
+many ranks (the fake group the dry-run starts, or a real one). The trainer
+and the server (``launch/train.py``, ``launch/serve.py``) run on
+``make_host_mesh`` under a process group. Importing this module starts no
+process group and touches no device.
 """
 from __future__ import annotations
 
@@ -54,6 +56,16 @@ def make_host_mesh(device=None):
     mesh, the reference's (1, n) over its local devices (``device`` as in
     ``make_mesh``)."""
     return make_mesh((1, dist.get_world_size()), ("data", "model"), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The reference's production mesh over the current group: (16, 16)
+    ('data', 'model'), or (2, 16, 16) ('pod', 'data', 'model') with
+    ``multi_pod``; the group must have 256 or 512 ranks (``device`` as in
+    ``make_mesh``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
 
 
 def use_mesh(mesh):

@@ -47,10 +47,10 @@ from ..configs import get_config, reduced_config
 from ..core import DynamicsEvent, QoESpec, Workload
 from ..models.registry import planning_graph
 from ..models.sharding import ShardingRules
-from ..models.sharding_utils import distribute_tree, is_dtensor, relayout, rows_of, summed
+from ..models.sharding_utils import distribute_tree
 from .mesh import make_host_mesh, use_mesh
 from ..models import build_model
-from .steps import (_plain, frontend_stubs, init_serving_cache, lay_out_serving,
+from .steps import (_plain, frontend_stubs, greedy, init_serving_cache, lay_out_serving,
                     prefill_logits)
 from .train import _join_torchrun
 
@@ -58,15 +58,6 @@ from .train import _join_torchrun
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def greedy(logits: torch.Tensor) -> torch.Tensor:
-    """The argmax token of each row's logits (B, 1, V) -> (B, 1) int32; under
-    a mesh the vocabulary is gathered first, each rank keeping its batch
-    rows."""
-    if is_dtensor(logits):
-        logits = relayout(summed(logits), rows_of(logits))
-    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 @torch.no_grad()

@@ -22,13 +22,54 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import ops
 from ..kernels.decode_attention import decode_attention_ref
 from .common import apply_rope
-from .sharding_utils import (BATCH, P, is_dtensor, key_shard, maybe_shard, on_shards, relayout,
-                             replicate_like, rows_of, summed, summed_where)
+from .sharding_utils import (BATCH, FSDP, P, current_mesh, is_dtensor, key_shard, maybe_shard,
+                             mesh_sizes, on_shards, pinned, relayout, replicate_like, rows_of,
+                             summed, summed_where)
 
 NEG_INF = -2.0e38
 
-__all__ = ["NEG_INF", "gqa_attention", "gqa_attention_chunked", "decode_attention",
-           "decode_attention_ref", "mla_prefill", "mla_decode"]
+__all__ = ["NEG_INF", "heads_layout", "heads_in", "heads_out", "gqa_attention",
+           "gqa_attention_chunked", "decode_attention", "decode_attention_ref", "mla_prefill",
+           "mla_decode"]
+
+
+def heads_layout(h: int) -> P:
+    """The layout of a (B, S, h*k) projection before its view into h heads,
+    as the reference's rules place it: the heads over "model" where h
+    divides it, else whole there (the batch as the residual stream's, the
+    sequence gathered, as the projections take it). DTensor's own choice
+    may shard the flattened h*k over "model" through a head, which the view
+    then refuses (KV = 8 heads on a 16-rank "model" axis)."""
+    mesh = current_mesh()
+    tp = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
+    return P(BATCH, None, "model" if h % tp == 0 else None)
+
+
+def heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (d, h*k) product (``aten.mm``, a
+    product without batch dims, which ``remat="dots"`` keeps): DTensor
+    shards it as any matmul (its einsum backward on head-sharded weights
+    viewed a non-contiguous local gradient and raised), and a plain step
+    takes the same product, so a (1, 1) mesh's step is the plain step's
+    arithmetic. Under a mesh the product is laid out by ``heads_layout``
+    before the view into heads, and the flattened weight as its rule lays
+    it out (``FSDP`` on d, the heads as ``heads_layout``'s), so its
+    gradient comes back in a layout the view into heads takes."""
+    d, h, k = w.shape
+    lay = heads_layout(h)
+    y = x @ pinned(w.reshape(d, h * k), P(FSDP, lay[-1]))
+    return maybe_shard(y, lay).reshape(*x.shape[:-1], h, k)
+
+
+def heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one (h*k, d) product (see ``heads_in``):
+    under a mesh ``o`` and its flattened form laid out by ``heads_layout``,
+    and their gradients brought back to it (the product's backward may shard
+    h*k through a head, which the flattening's backward view refuses)."""
+    h, k, d = w.shape
+    lay = heads_layout(h)
+    o = pinned(maybe_shard(o, lay + (None,)).reshape(*o.shape[:-2], h * k), lay)
+    return o @ pinned(w.reshape(h * k, d), P(lay[-1], FSDP))
 
 
 def _mask_bias(s_len: int, t_len: int, *, causal: bool, window: Optional[int],
@@ -135,14 +176,14 @@ def mla_prefill(cq: torch.Tensor, ckv: torch.Tensor, k_rope: torch.Tensor,
                                     for x, w in zip(x_in, w_in)))
     S = cq.shape[1]
     T = ckv.shape[1]
-    k_nope = torch.einsum("btr,rhd->bthd", ckv, wk_nope)
-    v = torch.einsum("btr,rhd->bthd", ckv, wv)
+    k_nope = heads_in(ckv, wk_nope)
+    v = heads_in(ckv, wv)
     k_pos = torch.arange(T, device=cq.device)[None, :]
     k_rope_r = apply_rope(k_rope[:, :, None, :], k_pos, rope_theta)[:, :, 0]   # (B,T,dr)
 
     def block(cq_blk: torch.Tensor, offset: int) -> torch.Tensor:
-        q_nope = torch.einsum("bsr,rhd->bshd", cq_blk, wq_nope)
-        q_rope = torch.einsum("bsr,rhd->bshd", cq_blk, wq_rope)
+        q_nope = heads_in(cq_blk, wq_nope)
+        q_rope = heads_in(cq_blk, wq_rope)
         q_nope = maybe_shard(q_nope, P(BATCH, None, "model", None))
         q_pos = torch.arange(cq_blk.shape[1], device=cq.device)[None, :] + offset
         q_rope = apply_rope(q_rope, q_pos, rope_theta)
@@ -183,8 +224,8 @@ def mla_decode(cq: torch.Tensor, ckv_cache: torch.Tensor, krope_cache: torch.Ten
     each rank scores every head's latent query against its own slots, with
     their global positions, and the ranks' partial contexts (in the latent
     space) merge by log-sum-exp (``ops.merge_partials``) before ``wv``."""
-    q_nope = torch.einsum("bsr,rhd->bshd", cq, wq_nope)          # (B,1,H,dn)
-    q_rope = torch.einsum("bsr,rhd->bshd", cq, wq_rope)
+    q_nope = heads_in(cq, wq_nope)                              # (B,1,H,dn)
+    q_rope = heads_in(cq, wq_rope)
     q_rope = apply_rope(q_rope, cache_len[:, None] - 1, rope_theta)
     # absorb W_uk: q' = q_nope @ wk_nope^T  -> latent-space query
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_nope)      # (B,1,H,Rkv)

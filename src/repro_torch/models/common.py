@@ -19,10 +19,14 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; asking for a missing card raises."""
+    """The device an entry point runs on; asking for a missing card raises,
+    except under an active ``FakeTensorMode``, whose tensors stand for the
+    card's and hold no data (a dry-run)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
+        from torch._guards import detect_fake_mode
+        if detect_fake_mode() is None:
+            raise RuntimeError(f"device {device!r} requested but no CUDA device is available")
     return dev
 
 

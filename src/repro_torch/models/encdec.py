@@ -31,13 +31,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_lib
+from .attention import heads_in, heads_out
 from .common import apply_rope, dtype_of, embed_init, resolve_device, rms_norm, zeros
 from .config import ArchConfig
 from .mlp import apply_mlp, init_mlp
 from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, replicate_like
-from .transformer import (GATHERED, RESIDUAL, Params, _fit_cache, _heads_in, _heads_out,
-                          _layer, _unbind, _write_cache, gathered_table, head, init_attn,
-                          token_nll)
+from .transformer import (GATHERED, RESIDUAL, Params, _fit_cache, _layer, _unbind,
+                          _write_cache, gathered_table, head, init_attn, token_nll)
 
 
 def _normed(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -72,17 +72,17 @@ def _init_dec_layers(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> Pa
 
 
 def _attn_noncausal(p: Params, x: torch.Tensor) -> torch.Tensor:
-    q, k, v = (_heads_in(x, p[w]) for w in ("wq", "wk", "wv"))
-    return _heads_out(attn_lib.gqa_attention(q, k, v, causal=False), p["wo"])
+    q, k, v = (heads_in(x, p[w]) for w in ("wq", "wk", "wv"))
+    return heads_out(attn_lib.gqa_attention(q, k, v, causal=False), p["wo"])
 
 
 def _cross_kv(p: Params, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _heads_in(enc_out, p["wk"]), _heads_in(enc_out, p["wv"])
+    return heads_in(enc_out, p["wk"]), heads_in(enc_out, p["wv"])
 
 
 def _cross_attn(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    q = _heads_in(x, p["wq"])
-    return _heads_out(attn_lib.gqa_attention(q, k, v, causal=False), p["wo"])
+    q = heads_in(x, p["wq"])
+    return heads_out(attn_lib.gqa_attention(q, k, v, causal=False), p["wo"])
 
 
 def _cross_attn_decode(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -95,9 +95,9 @@ def _cross_attn_decode(p: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Ten
     package computes it."""
     if not is_dtensor(k):
         return _cross_attn(p, x, k, v)
-    q = _heads_in(x, p["wq"])
+    q = heads_in(x, p["wq"])
     n = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=k.device)
-    return _heads_out(attn_lib.decode_attention(q, k, v, n), p["wo"])
+    return heads_out(attn_lib.decode_attention(q, k, v, n), p["wo"])
 
 
 def _self_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
@@ -106,14 +106,14 @@ def _self_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     prefill and decode write ``cache`` in place."""
     S = x.shape[1]
     positions = pos[:, None] if mode == "decode" else torch.arange(S, device=x.device)[None, :]
-    q, k, v = (_heads_in(x, p[w]) for w in ("wq", "wk", "wv"))
+    q, k, v = (heads_in(x, p[w]) for w in ("wq", "wk", "wv"))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if mode == "decode":
         _write_cache(cache["k"], k, pos)
         _write_cache(cache["v"], v, pos)
         o = attn_lib.decode_attention(q, cache["k"], cache["v"], pos + 1)
-        return _heads_out(o, p["wo"])
+        return heads_out(o, p["wo"])
     if S > cfg.attn_chunk:
         # long prefill: never materialize the (S, S) score matrix
         o = attn_lib.gqa_attention_chunked(q, k, v, causal=True, q_chunk=cfg.attn_chunk // 4)
@@ -122,7 +122,7 @@ def _self_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     if mode == "prefill":
         _fit_cache(cache["k"], k)
         _fit_cache(cache["v"], v)
-    return _heads_out(o, p["wo"])
+    return heads_out(o, p["wo"])
 
 
 class EncDecLM:
@@ -178,9 +178,8 @@ class EncDecLM:
         """tokens (B, S), encoder_frames (B, T, D) → (logits (B, S, V) f32, a
         float32 zero aux loss). ``remat="full"`` recomputes each encoder and
         decoder layer in the backward, as the JAX package wraps each in
-        ``jax.remat``; ``"none"`` keeps every activation."""
-        if remat not in ("full", "none"):
-            raise ValueError(f"remat={remat!r}: 'full' or 'none'")
+        ``jax.remat``; any other value keeps every activation, as the JAX
+        package runs any value but "full" (``"dots"`` included)."""
         cfg = self.cfg
         params = gathered_table(params)
         enc_out = self.encode(params, encoder_frames, remat)

@@ -17,7 +17,8 @@ import torch
 
 from .common import activation, dense_init
 from .config import ArchConfig
-from .sharding_utils import BATCH, P, is_dtensor, maybe_shard, moved, on_shards, summed_where
+from .sharding_utils import (BATCH, P, current_mesh, is_dtensor, maybe_shard, mesh_sizes, moved,
+                             on_shards, summed_where)
 
 
 # -- dense MLP -----------------------------------------------------------------
@@ -102,7 +103,9 @@ def _route_local(xg: torch.Tensor, router: torch.Tensor, cfg: ArchConfig, C: int
     and top-1 share of each expert over these groups, (1, E) each."""
     G, Tl, _ = xg.shape
     E, K = cfg.n_experts, cfg.experts_per_token
-    logits = torch.einsum("gtd,de->gte", xg, router.to(xg.dtype)).float()
+    # einsum("gtd,de->gte") as one 2-D product (``aten.mm``, no batch dims:
+    # ``remat="dots"`` keeps it, as the reference's policy keeps its dot)
+    logits = (xg @ router.to(xg.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = _top_k(probs, K)                                   # (G, Tl, K)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)  # renorm
@@ -203,6 +206,24 @@ class _Uses(torch.autograd.Function):
         return total, None
 
 
+def _group_axes(G: int) -> tuple:
+    """The batch axes the G dispatch groups are laid out over under the
+    ambient mesh: ("pod", "data") where their ranks divide G, else the
+    widest of them alone that does (a decode step's 128 tokens make 16
+    groups of 8, fewer than the (2, 16, 16) mesh's 32 batch shards), else
+    none. Each rank then holds whole groups, which the view into groups
+    needs."""
+    sizes = mesh_sizes(current_mesh()) if current_mesh() is not None else {}
+    for axes in (BATCH, ("data",), ("pod",)):
+        kept = tuple(a for a in axes if a in sizes)
+        n = 1
+        for a in kept:
+            n *= sizes[a]
+        if kept and G % n == 0:
+            return kept
+    return ()
+
+
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (out, aux_loss). Token-choice top-k with capacity.
 
@@ -224,24 +245,26 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, 
     G = dispatch_groups(T, cfg)
     Tl = T // G
 
-    xg = maybe_shard(x.reshape(G, Tl, D), P(BATCH, None, None))
+    gb = _group_axes(G)
+    x = maybe_shard(x, P(gb, None, None))        # the groups whole on each rank
+    xg = maybe_shard(x.reshape(G, Tl, D), P(gb, None, None))
     uses = 3 if "shared" in p else 2
     xg_r, xg_d, *xg_s = _Uses.apply(xg, uses) if xg.requires_grad else (xg,) * uses
     r = route(p, xg_r, cfg)
     C = r.capacity
-    xg_d = maybe_shard(xg_d, P(BATCH, None, "model"))
+    xg_d = maybe_shard(xg_d, P(gb, None, "model"))
     if is_dtensor(xg_d):
         pl_r, pl_d = tuple(r.dest.placements), tuple(xg_d.placements)
         h = on_shards(functools.partial(_dispatch, E=E, C=C), (r.dest, xg_d),
                       ins=(pl_r, pl_d), outs=moved(pl_d, {2: 3}))
-        h = maybe_shard(h, P(BATCH, "model", None, None))
+        h = maybe_shard(h, P(gb, "model", None, None))
         pl_h = tuple(h.placements)
         pl_w = moved(pl_h, {0: None, 1: 0})       # own experts, whole over the batch axes
         w_grad = summed_where(pl_w, pl_h, (0,))
         y = on_shards(functools.partial(_experts, act=cfg.act),
                       (h, p["w_up"], p["w_gate"], p["w_down"]), ins=(pl_h, pl_w, pl_w, pl_w),
                       grads=(None, w_grad, w_grad, w_grad), outs=pl_h)
-        y = maybe_shard(y, P(BATCH, None, None, "model"))
+        y = maybe_shard(y, P(gb, None, None, "model"))
         pl_y = tuple(y.placements)
         out = on_shards(_combine, (y, r.dest, r.gate), ins=(pl_y, pl_r, pl_r),
                         grads=(None, None, summed_where(pl_r, pl_y, (3,))),

@@ -74,6 +74,9 @@ def _rglru_scan(b: torch.Tensor, a_log: torch.Tensor, h0: torch.Tensor
     return h, h[:, -1]
 
 
+_CHANNELS = P(BATCH, None, "model")     # (B, S, W): the batch, the channels over "model"
+
+
 def apply_rglru(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -92,8 +95,13 @@ def apply_rglru(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
         hist = torch.cat([padz, hist], dim=1)
     new_conv = hist[:, -(K - 1):]
 
-    r = torch.sigmoid((u @ p["wa"]).float() + p["ba"])
-    i = torch.sigmoid((u @ p["wx"]).float() + p["bx"])
+    # under a mesh the gates' products (their contraction over "model", a
+    # pending sum) are laid out as the scan takes them, the channels over
+    # "model": DTensor's own pointwise strategy carried them out over the
+    # sequence, and on the (2, 16, 16) mesh wx's weight gradient then
+    # refused the sequence-sharded tokens
+    r = torch.sigmoid(maybe_shard(u @ p["wa"], _CHANNELS).float() + p["ba"])
+    i = torch.sigmoid(maybe_shard(u @ p["wx"], _CHANNELS).float() + p["bx"])
     a_log = -_C * F.softplus(p["lam"]) * r                          # (B,S,W) f32
     xg = i * u.float()
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * a_log), min=1e-12)) * xg

@@ -234,6 +234,18 @@ def maybe_shard(x: torch.Tensor, spec: Optional[Sequence]) -> torch.Tensor:
     return relayout(x, placements(cleaned, x.device_mesh))
 
 
+def pinned(x: torch.Tensor, spec: Sequence) -> torch.Tensor:
+    """``maybe_shard(x, spec)`` whose gradient comes back laid out by
+    ``spec`` too: a redistribute node even where ``x`` already has that
+    layout (``maybe_shard`` then returns ``x`` itself, and the gradient keeps
+    whatever layout the consumer's strategy gave it)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    x = maybe_shard(x, spec)
+    return x.redistribute(x.device_mesh, x.placements)
+
+
 def relayout(x, target: Sequence) -> torch.Tensor:
     """The DTensor ``x`` redistributed to the placements ``target``."""
     target = tuple(target)
@@ -338,6 +350,7 @@ def on_shards(fn, args: Sequence, ins: Sequence, outs, grads: Optional[Sequence]
 
 # canonical logical specs used across the model zoo ----------------------------
 BATCH = ("pod", "data")     # batch dim shards over pod+data
+FSDP = BATCH                # a weight's FSDP dim too (``sharding.FSDP``)
 
 
 def batch_spec(*rest) -> P:

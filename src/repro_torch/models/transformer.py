@@ -34,13 +34,16 @@ package. The encoder-decoder is ``models.encdec.EncDecLM``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn_lib
+from .attention import heads_in, heads_out
 from .common import (apply_rope, dense_init, dtype_of, embed_init, resolve_device,
                      rms_norm, zeros)
 from .config import ArchConfig
@@ -127,26 +130,11 @@ RESIDUAL = P(BATCH, "model", None)
 GATHERED = P(BATCH, None, None)
 
 
-def _heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one (d, h*k) product: DTensor shards it as
-    any matmul (its einsum backward on head-sharded weights viewed a
-    non-contiguous local gradient and raised), and a plain step takes the
-    same product, so a (1, 1) mesh's step is the plain step's arithmetic."""
-    d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
-
-
-def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one (h*k, d) product (see ``_heads_in``)."""
-    h, k, d = w.shape
-    return o.reshape(*o.shape[:-2], h * k) @ w.reshape(h * k, d)
-
-
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _heads_in(x, p["wq"])
-    k = _heads_in(x, p["wk"])
-    v = _heads_in(x, p["wv"])
+    q = heads_in(x, p["wq"])
+    k = heads_in(x, p["wk"])
+    v = heads_in(x, p["wv"])
     if cfg.qk_norm:                   # qk-norm comes before rope
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -174,7 +162,7 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
             o = attn_lib.decode_attention(q, kc, vc, valid, window=None)
         else:
             o = attn_lib.decode_attention(q, kc, vc, pos + 1, window=window)
-        return _heads_out(o, p["wo"])
+        return heads_out(o, p["wo"])
 
     positions = torch.arange(S, device=x.device)[None, :]
     # under a mesh the residual stream is sequence-sharded over "model" and
@@ -191,7 +179,7 @@ def apply_attn(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     if mode == "prefill":
         _fit_cache(cache["k"], k)
         _fit_cache(cache["v"], v)
-    return _heads_out(o, p["wo"])
+    return heads_out(o, p["wo"])
 
 
 def _cache_shard(cache) -> Tuple[int, Any]:
@@ -277,7 +265,7 @@ def apply_mla_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
         o = attn_lib.mla_decode(cq, cache["ckv"], cache["krope"], pos + 1,
                                 p["wq_nope"], p["wq_rope"], p["wk_nope"], p["wv"],
                                 rope_theta=cfg.rope_theta)
-        return _heads_out(o, p["wo"])
+        return heads_out(o, p["wo"])
     o = attn_lib.mla_prefill(cq, ckv, k_rope, p["wq_nope"], p["wq_rope"], p["wk_nope"],
                              p["wv"], rope_theta=cfg.rope_theta,
                              q_chunk=cfg.attn_chunk // 4 if S > cfg.attn_chunk else None)
@@ -286,7 +274,7 @@ def apply_mla_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
         k_rope_rot = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
         _fit_cache(cache["ckv"], ckv)
         _fit_cache(cache["krope"], k_rope_rot)
-    return _heads_out(o, p["wo"])
+    return heads_out(o, p["wo"])
 
 
 def _store(cache: Params, new: Dict[str, torch.Tensor]) -> None:
@@ -327,7 +315,11 @@ def apply_block_aux(p: Params, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
             y, new = apply_mamba2(p["mixer"], h, cfg, None)
         if mode != "train":
             _store(cache, new)
-        return x + y, aux
+        # laid out as the residual stream before the add (as the other
+        # branches below), so its gradient comes back in y's own layout:
+        # the sequence-sharded one reached out_proj's weight gradient
+        # flattened over (batch, sequence) and DTensor's product refused it
+        return maybe_shard(x + maybe_shard(y, RESIDUAL), RESIDUAL), aux
     if kind == "rec":
         y, new = apply_rglru(p["mixer"], h, cfg, cache if mode == "decode" else None)
         if mode != "train":
@@ -407,6 +399,33 @@ def _prepend(x: torch.Tensor, extra: Optional[torch.Tensor], prefix_len: int
         return x, prefix_len
     x, extra = maybe_shard(x, GATHERED), maybe_shard(extra.to(x.dtype), GATHERED)
     return torch.cat([extra, x], dim=1), max(prefix_len, extra.shape[1])
+
+
+# the products without batch dimensions: every projection is a 2-D product
+# (``attention.heads_in``, ``_heads_out``, the MLPs' and the router's
+# ``x @ W``), which dispatches to ``aten.mm``; scores, the MoE experts' and
+# the scans' products carry batch dims and go to ``aten.bmm`` (einsum), the
+# kernels to their own ops
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``'s policy, ``jax.checkpoint_dots_with_no_batch_dims``:
+    keep the output of a product without batch dims (``aten.mm``,
+    ``aten.addmm``), recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if func in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematted(fn, remat: str):
+    """``fn`` as ``remat`` runs it where grad is enabled: ``"full"``
+    recomputed in the backward (non-reentrant ``torch.utils.checkpoint``),
+    ``"dots"`` recomputed but for its products without batch dims
+    (``dots_policy``), ``"none"`` (or no grad) as it is."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, dots_policy)}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def _layer(tree: Union[Params, torch.Tensor], i: int):
@@ -545,15 +564,12 @@ class LM:
 
         ``remat="full"`` recomputes each stacked unit in the backward
         (``torch.utils.checkpoint``, non-reentrant), as the JAX package wraps
-        each scanned unit in ``jax.remat``; ``"none"`` keeps every
-        activation. The JAX ``"dots"`` policy (keep the products without
-        batch dimensions) has no one-line torch counterpart and raises."""
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (jax.checkpoint_dots_with_no_batch_dims) is not ported "
-                "(ROADMAP: Queue 1 item 1, 'Training'); use 'full' or 'none'")
-        if remat not in ("full", "none"):
-            raise ValueError(f"remat={remat!r}: 'full' or 'none'")
+        each scanned unit in ``jax.remat``; ``"dots"`` recomputes it but
+        keeps the outputs of its products without batch dimensions
+        (``dots_policy``), as ``jax.checkpoint_dots_with_no_batch_dims``
+        does; ``"none"`` keeps every activation."""
+        if remat not in ("full", "dots", "none"):
+            raise ValueError(f"remat={remat!r}: 'full', 'dots' or 'none'")
         cfg = self.cfg
         params = gathered_table(params)
         # F.embedding: DTensor shards it on a vocab-sharded table (indexing it
@@ -575,11 +591,7 @@ class LM:
         if self.tail_first:
             x, aux = run_tail(x, aux)
         for unit_params in _unbind(params["stack"], n_units):
-            if remat == "full" and torch.is_grad_enabled():
-                x, a = checkpoint(self._unit_apply, x, unit_params, prefix_len,
-                                  use_reentrant=False)
-            else:
-                x, a = self._unit_apply(x, unit_params, prefix_len)
+            x, a = rematted(self._unit_apply, remat)(x, unit_params, prefix_len)
             aux = aux + a
         if not self.tail_first:
             x, aux = run_tail(x, aux)

@@ -1452,3 +1452,65 @@ def test_serving_mesh_float32_parity_on_four_cards(mesh):
                                                     backend="nccl", timeout=300,
                                                     devices=devices), f"f32 serving {mesh}", 1e-5)
     assert len(out) == len(runs)
+
+
+# -- the dry-run's shape-only path on the card machine ---------------------------------
+@pytest.mark.gpu
+def test_dryrun_flops_besides_the_kernels_equal_a_card_step():
+    """h2o_danube_1_8b at 2 layers, 1 x 4096 (chip_smoke phase 10's check):
+    the dry-run on a fake one-rank mesh of fake "cuda" tensors, and the real
+    train step on the card under FlopCounterMode, which cannot see the
+    card's kernels: its count equals the dry-run's FLOPs besides the
+    kernels exactly."""
+    _card()
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(get_config("h2o_danube_1_8b"), n_layers=2)
+    shape = ShapeSpec("train_4k_batch_1", 4096, 1, "train")
+    dry = dryrun.run_one_rank(cfg, shape, device="cuda")
+    assert set(dry["kernel_flops"]) == {"flash_attention", "flash_attention_bwd"}
+    model, step = make_train_step(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    toks = torch.randint(0, cfg.vocab_size, (1, 4097), device="cuda", dtype=torch.int32)
+    kernels.reset_launches()
+    with FlopCounterMode(display=False) as counter:
+        step(params, opt, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    assert counter.get_total_flops() == \
+        dry["per_device_flops"] - sum(dry["kernel_flops"].values())
+
+
+@pytest.mark.gpu
+def test_shape_only_path_on_fake_card_tensors():
+    """Fake "cuda" tensors take the shape-only path with the card's checks:
+    no launch, the kernel's shapes, a head_dim the kernels lack refused; the
+    Python copy of the flash backward's scratch size equals the C entry's."""
+    _card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as fa
+
+    kernels.reset_launches()
+    with FakeTensorMode():
+        q, k, v = (torch.empty(2, 256, n, 80, dtype=torch.bfloat16, device="cuda")
+                   for n in (8, 2, 2))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        assert out.shape == q.shape and lse.shape == (2, 8, 256) and out.is_cuda
+        bad = torch.empty(2, 256, 8, 32, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(bad, bad[:, :, :2], bad[:, :, :2])
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    lib = fa._bwd_lib()
+    for B, S, H, KV, d, dt, n in ((2, 4096, 64, 8, 128, torch.bfloat16, 1),
+                                  (1, 100, 48, 1, 80, torch.bfloat16, 4),
+                                  (2, 333, 8, 2, 64, torch.float32, 1)):
+        code = 1 if dt == torch.bfloat16 else 0
+        assert fa.bwd_scratch_floats(B, S, H, KV, d, dt, n) == \
+            lib.flash_attention_bwd_scratch_floats(B, S, H, KV, d, code, n)

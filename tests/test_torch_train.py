@@ -149,10 +149,15 @@ def test_loss_and_grads_match_jax(arch, attn_chunk, remat, mask):
 
 
 def test_remat_dots_names_its_roadmap_item():
+    """``remat="dots"`` once raised, naming its ROADMAP item; it now runs,
+    and its logits equal "full"'s (tests/test_torch_remat_dots.py holds its
+    gradients to JAX's)."""
     tm = build_model(reduced_config("qwen3_32b"), device="cpu")
     params = tm.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.apply(params, torch.zeros((1, 4), dtype=torch.int32), remat="dots")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    dots, _ = tm.apply(params, toks, remat="dots")
+    full, _ = tm.apply(params, toks, remat="full")
+    torch.testing.assert_close(dots, full, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch,attn_chunk,remat", [("qwen3_32b", 8, "full"),
