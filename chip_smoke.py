@@ -296,6 +296,12 @@ PG_PROMPT, PG_PATCHES, PG_HEADS, PG_HEAD_DIM = 128, 256, 8, 256
 # paligemma at 4 of 18 layers (the script's time), B=2 x 512 tokens after its patches
 WH_TRAIN_BATCH, WH_TRAIN_SEQ = 8, 448
 PG_TRAIN_LAYERS, PG_TRAIN_BATCH, PG_TRAIN_SEQ = 4, 2, 512
+# the reduced configs' attention at their registered head dims, (query heads, KV
+# heads, window): 16 (qwen3's and the other dense and MoE configs': 8 heads on 2 KV
+# heads), 24 (whisper_small's: 4 on 4), 32 (recurrentgemma_9b's: 4 on 1, its window
+# of 32; paligemma_3b's 4 on 1 reach only the decode kernel); phase 2 times each
+# kernel at these widths with B = 4 and S = T = 4096 in both types
+REDUCED_ATTN = {16: (8, 2, None), 24: (4, 4, None), 32: (4, 1, 32)}
 # olmoe-1b-7b's training path: 8 of 16 layers (AdamW's float32 state of all 16
 # would not fit), batch 2 x 4096 (train_4k's sequence, above attn_chunk: the flash
 # forward and backward at G = 1, d = 128), bf16
@@ -494,9 +500,20 @@ def kernels_flash(kp: KernelPhase) -> None:
     Bk, Sk, Hk, KVk, Dk = mb.FLASH_SHAPE
     mains = {"main path": "flash_attention", "d256 main path": "flash_attention_d256",
              "d80 main path": "flash_attention_d80", "G=48 main path": "flash_attention_g48",
-             "G=1 main path": "flash_attention_g1", "G=1 train path": "flash_attention_g1_train"}
+             "G=1 main path": "flash_attention_g1", "G=1 train path": "flash_attention_g1_train",
+             "f32 d256 main path": "flash_attention_f32_d256"}
+    # the reduced configs' head dims (REDUCED_ATTN), each at B = 4, S = T = 4096 (timed),
+    # ragged with a window, and non-causal with S != T, in both types
+    reduced = []
+    for d, (h, kv, w) in REDUCED_ATTN.items():
+        for dt, tag in (("bfloat16", ""), ("float32", "f32 ")):
+            mains[f"{tag}d{d} reduced path"] = f"flash_attention_{tag.replace(' ', '_')}d{d}"
+            reduced += [(f"{tag}d{d} reduced path", (BATCH, PROMPT, PROMPT, h, kv, d), True, w, dt),
+                        (f"{tag}d{d} ragged window 100", (1, 300, 300, h, kv, d), True, 100, dt),
+                        (f"{tag}d{d} non-causal ragged", (2, 200, 333, h, kv, d), False, None,
+                         dt)]
 
-    for name, (B, S, T, h, kv, d), causal, window, dt in [
+    for name, (B, S, T, h, kv, d), causal, window, dt in reduced + [
             ("main path", (BATCH, PROMPT, PROMPT, H, KV, D), True, None, "bfloat16"),
             # recurrentgemma-9b prefill above its attn_chunk: MQA, head_dim 256, window 2048
             ("d256 main path", (BATCH, PROMPT, PROMPT, RG_HEADS, 1, RG_HEAD_DIM), True,
@@ -543,7 +560,15 @@ def kernels_flash(kp: KernelPhase) -> None:
             ("f32 d80 plan", (H2O_MB, PLAN_SEQ, PLAN_SEQ, H2O_HEADS, H2O_KV, H2O_HEAD_DIM), True,
              H2O_WINDOW, "float32"),
             # phase 7's calibration: kernel_rates' shape
-            ("f32 calibration rate", (Bk, Sk, Sk, Hk, KVk, Dk), True, None, "float32")]:
+            ("f32 calibration rate", (Bk, Sk, Sk, Hk, KVk, Dk), True, None, "float32"),
+            # float32 at head_dim 256 (the full recurrentgemma_9b's and paligemma_3b's):
+            # recurrentgemma's prefill shape with its window, ragged with a small
+            # window, non-causal with S != T on two KV heads
+            ("f32 d256 main path", (BATCH, PROMPT, PROMPT, RG_HEADS, 1, RG_HEAD_DIM), True,
+             RG_PROMPT, "float32"),
+            ("f32 ragged window 40 d256", (2, 300, 300, 4, 1, RG_HEAD_DIM), True, 40, "float32"),
+            ("f32 non-causal ragged d256", (2, 200, 333, 4, 2, RG_HEAD_DIM), False, None,
+             "float32")]:
         q, k, v = rand((B, S, h, d), dtypes[dt]), rand((B, T, kv, d), dtypes[dt]), \
             rand((B, T, kv, d), dtypes[dt])
         out = launched(kernels.flash_attention,
@@ -563,7 +588,7 @@ def kernels_flash(kp: KernelPhase) -> None:
         if name in mains:
             live = live_pairs(S, T, causal, window)      # scored pairs per (b, h)
             ops_n = 4.0 * B * h * d * live               # QK^T and PV, 2 ops per MAC
-            nbytes = 2 * (2 * B * S * h * d + 2 * B * T * kv * d)
+            nbytes = (2 if dt == "bfloat16" else 4) * (2 * B * S * h * d + 2 * B * T * kv * d)
             bound_ms, bound_by = bound(ops_n, nbytes, dt)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             if window is None or window >= S:     # a window as long as S masks no key
@@ -596,7 +621,13 @@ def kernels_flash(kp: KernelPhase) -> None:
                       ("flash_attention_d80", "h2o-danube-1.8b's d=80 prefill shape"),
                       ("flash_attention_g48", "granite-20b's G=48 prefill shape"),
                       ("flash_attention_g1", "olmoe-1b-7b's G=1 prefill shape"),
-                      ("flash_attention_g1_train", "olmoe-1b-7b's G=1 training shape")):
+                      ("flash_attention_g1_train", "olmoe-1b-7b's G=1 training shape"),
+                      ("flash_attention_f32_d256", "recurrentgemma-9b's d=256 prefill shape "
+                                                   "in float32"),
+                      *((f"flash_attention_{t}d{d}", f"the reduced d={d} shape (B={BATCH}, "
+                                                     f"S=T={PROMPT}) in "
+                                                     f"{'float32' if t else 'bfloat16'}")
+                        for d in REDUCED_ATTN for t in ("", "f32_"))):
         r = rec[key]
         log(card, f"flash_attention at {what}: kernel {r['ms']:.3f} ms, plain "
                   f"{r['plain_ms']:.3f} ms, scaled_dot_product_attention "
@@ -709,6 +740,17 @@ def kernels_decode(kp: KernelPhase) -> None:
         # the traffic-monitor example's cache: lengths 17 (the warm-up step) to 48
         ("d16 traffic example first step", TRAFFIC_DECODE, [17] * 4, None, "float32"),
         ("d16 traffic example", TRAFFIC_DECODE, [48, 17, 33, 40], None, "float32")])
+    # the reduced configs' head dims 24 (whisper_small: 4 heads on 4 KV heads) and
+    # 32 (recurrentgemma_9b's and paligemma_3b's: 4 on 1; d = 24 runs the D = 32
+    # instance), in both types: B = 4 over a full 4128-slot cache (timed), lengths
+    # down to 0, and a window over a ragged cache
+    for d in (24, 32):
+        h, kv, _ = REDUCED_ATTN[d]
+        for dt, tag in (("bfloat16", ""), ("float32", "f32 ")):
+            run_decode(f"decode_attention_{tag.replace(' ', '_')}d{d}", f"{tag}d{d} main path", [
+                (f"{tag}d{d} main path", (BATCH, T, h, kv, d), [T] * BATCH, None, dt),
+                (f"{tag}d{d} lengths", (4, T, h, kv, d), [T, PROMPT + 1, 17, 0], None, dt),
+                (f"{tag}d{d} window", (3, 300, h, kv, d), [300, 101, 7], 96, dt)])
     # granite-20b's group: 48 query heads on one KV head of 128
     run_decode("decode_attention_g48", "G=48 main path", [
         ("G=48 main path", (BATCH, T, G48_HEADS, 1, D), [T] * BATCH, None, "bfloat16"),
@@ -775,13 +817,18 @@ def kernels_decode_partial(kp: KernelPhase) -> None:
     torch, card, rec, cases_out, rand, launched, dtypes = kp.unpack()
     T = PROMPT + GEN
     bf16 = torch.bfloat16
-    for name, (B, t, h, kv, d), lens, window in [
+    for name, (B, t, h, kv, d), lens, window, dt in [
             ("sharded keys main path", (BATCH, T, HEADS, KV_HEADS, HEAD_DIM), [T, 3000, 1100, 17],
-             None),
+             None, "bfloat16"),
             ("sharded keys d80 window", (4, 2 * T, H2O_HEADS, H2O_KV, H2O_HEAD_DIM),
-             [2 * T, 5000, 2100, 1], H2O_WINDOW)]:
-        q = rand((B, 1, h, d), bf16)
-        kc, vc = rand((B, t, kv, d), bf16), rand((B, t, kv, d), bf16)
+             [2 * T, 5000, 2100, 1], H2O_WINDOW, "bfloat16"),
+            # the reduced configs' head dims (whisper_small's cross and self cache at 24,
+            # recurrentgemma_9b's and paligemma_3b's at 32), in both types
+            *((f"sharded keys {'f32 ' if dt == 'float32' else ''}d{d}",
+               (4, T, *REDUCED_ATTN[d][:2], d), [T, 3000, 1100, 0], 96 if d == 32 else None, dt)
+              for d in (24, 32) for dt in ("bfloat16", "float32"))]:
+        q = rand((B, 1, h, d), dtypes[dt])
+        kc, vc = rand((B, t, kv, d), dtypes[dt]), rand((B, t, kv, d), dtypes[dt])
         cl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
         n = t // PARTIAL_SHARDS
         parts = []
@@ -792,15 +839,15 @@ def kernels_decode_partial(kp: KernelPhase) -> None:
                 q, ks, vs, cl, kv_offset=a, window=window))
             exp_o, exp_lse = dec.decode_attention_partial_ref(q.float(), ks.float(), vs.float(),
                                                               cl, kv_offset=a, window=window)
-            err, share = check(torch, o, exp_o, "bfloat16")
+            err, share = check(torch, o, exp_o, dt)
             lerr, lshare = check(torch, lse, exp_lse, "float32")
             cases_out.append(dict(kernel="decode_attention", case=f"{name} shard {i}",
-                                  dtype="bfloat16", max_abs_err=err, bound_share=share,
-                                  lse_max_abs_err=lerr, lse_bound_share=lshare, tol=TOL["bfloat16"],
+                                  dtype=dt, max_abs_err=err, bound_share=share,
+                                  lse_max_abs_err=lerr, lse_bound_share=lshare, tol=TOL[dt],
                                   kv_offset=a))
             log(card, f"decode_attention_partial {name} shard {i} (keys {a}..{a + n}): B={B} "
-                      f"H={h} KV={kv} d={d} lens={lens} window={window}: o max abs err "
-                      f"{err:.3e} at {share:.3f} of its bound ({TOL['bfloat16']}), lse max abs "
+                      f"H={h} KV={kv} d={d} {dt} lens={lens} window={window}: o max abs err "
+                      f"{err:.3e} at {share:.3f} of its bound ({TOL[dt]}), lse max abs "
                       f"err {lerr:.3e} at {lshare:.3f} of its bound ({TOL['float32']})")
             parts.append((o, lse))
             del ks, vs
@@ -808,14 +855,14 @@ def kernels_decode_partial(kp: KernelPhase) -> None:
         one = launched(dec, lambda: ops.decode_attention(q, kc, vc, cl, window=window))
         exp = dec.decode_attention_ref(q.float(), kc.float(), vc.float(), cl, window=window)
         exp[cl == 0] = 0.0
-        err1, share1 = check(torch, merged, one.float(), "bfloat16")
-        err2, share2 = check(torch, merged, exp, "bfloat16")
-        cases_out.append(dict(kernel="decode_attention", case=f"{name} merged", dtype="bfloat16",
+        err1, share1 = check(torch, merged, one.float(), dt)
+        err2, share2 = check(torch, merged, exp, dt)
+        cases_out.append(dict(kernel="decode_attention", case=f"{name} merged", dtype=dt,
                               max_abs_err=err2, bound_share=share2, vs_one_card_err=err1,
-                              vs_one_card_share=share1, tol=TOL["bfloat16"]))
+                              vs_one_card_share=share1, tol=TOL[dt]))
         log(card, f"decode_attention_partial {name}: {PARTIAL_SHARDS} shards merged by "
                   f"log-sum-exp against the one-card kernel on the whole cache: max abs err "
-                  f"{err1:.3e} at {share1:.3f} of the bf16 bound; against the float32 plain "
+                  f"{err1:.3e} at {share1:.3f} of the {dt} bound; against the float32 plain "
                   f"version {err2:.3e} at {share2:.3f}")
         del q, kc, vc, parts, merged, one, exp
 
@@ -1305,11 +1352,29 @@ BWD_CASES = [
     ("d256 split one tile", (1, 64, RG_HEADS, 1, RG_HEAD_DIM), None, "bfloat16"),
     # olmoe-1b-7b's training shape: 16 query heads on 16 KV heads (G = 1), d = 128
     ("G=1 train path", (OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, OLMOE_HEADS, OLMOE_HEADS, HEAD_DIM),
-     None, "bfloat16")]
+     None, "bfloat16"),
+    # float32 at head_dim 256 (the CUDA-core kernels, 32 keys a dk/dv block): the
+    # recurrentgemma training shape, and ragged with a small window
+    ("f32 d256 train path", (RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_HEADS, 1, RG_HEAD_DIM), RG_PROMPT,
+     "float32"),
+    ("f32 d256 ragged window 40", (1, 1000, RG_HEADS, 1, RG_HEAD_DIM), 40, "float32")]
+# the reduced configs' head dims (REDUCED_ATTN) in both types: B = 4, S = 4096
+# (timed), and ragged with a window over a group the plan splits
+BWD_CASES += [case for d, (h, kv, w) in REDUCED_ATTN.items()
+              for dt, t in (("bfloat16", ""), ("float32", "f32 "))
+              for case in ((f"{t}d{d} reduced path", (BATCH, PROMPT, h, kv, d), w, dt),
+                           (f"{t}d{d} ragged window 100", (1, 300, 8, 1, d), 100, dt))]
 # the cases timed against their bound and the library, by record key
 BWD_MAINS = {"train path": "flash_attention_bwd", "d80 train path": "flash_attention_bwd_d80",
              "G=48": "flash_attention_bwd_g48", "d256 train path": "flash_attention_bwd_d256",
-             "G=1 train path": "flash_attention_bwd_g1"}
+             "G=1 train path": "flash_attention_bwd_g1",
+             "f32 d256 train path": "flash_attention_bwd_f32_d256",
+             **{f"{t}d{d} reduced path": f"flash_attention_bwd_{t.replace(' ', '_')}d{d}"
+                for d in REDUCED_ATTN for t in ("", "f32 ")}}
+# the profiler's kernel names of a backward call, by type
+BWD_STAGES_BY_DTYPE = {"bfloat16": BWD_STAGES,
+                       "float32": ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_f32_kernel",
+                                   "flash_bwd_dq_f32_kernel")}
 
 
 def flash_bwd_plain(torch, ref, q, k, v, out, lse, dout, window):
@@ -1370,14 +1435,18 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                   + f" ({tol}); the forward's lse {err_l:.3e}, {share_l:.3f} of "
                     f"{TOL['float32']}")
         if name in BWD_MAINS:
-            n_split = mod.bwd_split_plan(B, S, kv, h // kv, d)
-            blocks = -(-S // mod.bwd_key_tile(d)) * kv * B * n_split
-            log(card, f"flash_attention_bwd {name}: split plan {n_split} (query heads of a "
-                      f"group per block {h // kv // n_split}), {blocks} blocks of the wgmma kernel")
+            if dt == "bfloat16":
+                n_split = mod.bwd_split_plan(B, S, kv, h // kv, d)
+                blocks = -(-S // mod.bwd_key_tile(d)) * kv * B * n_split
+                log(card, f"flash_attention_bwd {name}: split plan {n_split} (query heads of a "
+                          f"group per block {h // kv // n_split}), {blocks} blocks of the wgmma "
+                          f"kernel")
+            else:       # the f32 dk/dv kernel: 64 keys a block, 32 at d = 256; no split
+                n_split, blocks = 1, -(-S // (32 if d == 256 else 64)) * kv * B
             live = live_pairs(S, S, True, window)
             # the least work: the S recompute, dP, dV, dK and dQ, 2 d each per live pair
             ops_n = 10.0 * B * h * d * live
-            elt = 2
+            elt = 2 if dt == "bfloat16" else 4
             nbytes = elt * (4 * B * S * h * d + 4 * B * S * kv * d) + 4 * B * h * S
             bound_ms, bound_by = bound(ops_n, nbytes, dt)
             if window is None or window >= S:     # causal GQA: the flash backend
@@ -1408,9 +1477,9 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
             def three():
                 for _ in range(3):
                     ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
-            stages = {k_: 0.0 for k_ in BWD_STAGES}
+            stages = {k_: 0.0 for k_ in BWD_STAGES_BY_DTYPE[dt]}
             for e in device_window(torch, card, three, cpu=False)[0]:
-                for k_ in BWD_STAGES:
+                for k_ in stages:
                     if f"{k_}<" in e.key or f"{k_}(" in e.key:
                         stages[k_] += e.self_device_time_total / 1e3 / 3
             if not all(t > 0 for t in stages.values()):
@@ -1420,7 +1489,7 @@ def kernels_flash_bwd(kp: KernelPhase) -> None:
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by, ops=ops_n, bytes=nbytes, max_abs_err=err, bound_share=share,
                 tol=tol, timing=readings, stages_ms=stages, n_split=n_split, blocks=blocks)
-            for k_ in BWD_STAGES:
+            for k_ in stages:
                 log(card, f"flash_attention_bwd {name} stage {k_}: {stages[k_]:.4f} ms on the "
                           f"device (profiler, mean of 3 calls)")
             del qt, kt, vt, o_lib, do_t
@@ -1907,53 +1976,80 @@ def phase_serve(torch, card: str, path: ServePath) -> dict:
                 moe=moe, profile=prof)
 
 
-# (arch, overrides, prefill length, decode steps, launches the card must make)
+# The ten reduced configs as ``configs.reduced_config`` registers them, head_dim
+# and all (16: the dense and MoE configs, 24: whisper_small, 32: recurrentgemma_9b
+# and paligemma_3b; h2o's d = 80 override covers the full config's dim at small
+# scale). attn_chunk 64 is an override that only picks the chunked path: below
+# the prompt, prefill takes the flash kernel.
+# (arch, overrides, prompt, decode steps, launches the card must make, wq and wk
+# at the fan-in of d_model, every cache leaf compared)
 SMALL = [
-    ("qwen3_32b", dict(head_dim=64, n_layers=2, attn_chunk=64), 128, 3,
+    ("qwen3_32b", dict(n_layers=2, attn_chunk=64), 128, 3,
      {"flash_attention": 2, "decode_attention": 6}),
+    # 8 query heads on one KV head and on two: G = 8 and 4 at d = 16. No qk-norm,
+    # so wq and wk at the fan-in of d_model: with the reference init's a 1e-7 change
+    # of the embedding moves the CPU's logits by 1.9e-3 and 5.0e-4, above the 1e-4
+    # tolerance
+    ("granite_20b", dict(attn_chunk=64), 128, 3, {"flash_attention": 4, "decode_attention": 12},
+     True),
+    ("granite_8b", dict(attn_chunk=64), 128, 3, {"flash_attention": 4, "decode_attention": 12},
+     True),
     ("mamba2_780m", {}, 64, 3, {"ssd_scan": 4}),                 # chunk 32: 2 chunks
-    # head_dim 64 for the decode kernel; window 32: prefill rolls the ring and
-    # every decode step wraps it; prompt 300, off the TPU kernel's 256-step
-    # tiles, still takes rglru_scan on every rec layer
-    ("recurrentgemma_9b", dict(head_dim=64), 300, 6, {"rglru_scan": 4, "decode_attention": 6}),
+    # window 32: prefill (flash at d = 32, MQA, the window binding) rolls the ring and
+    # every decode step wraps it; prompt 300, off the TPU kernel's 256-step tiles,
+    # still takes rglru_scan on every rec layer
+    ("recurrentgemma_9b", dict(attn_chunk=64), 300, 6,
+     {"rglru_scan": 4, "flash_attention": 1, "decode_attention": 6}, True),
     # head_dim 80; attn_chunk 64 < prompt 128, so prefill takes the flash kernel,
     # whose window 96 binds; the decode ring of 96 slots wraps on every step.
     # wq and wk at the fan-in of d_model
     ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 128, 6,
      {"flash_attention": 2, "decode_attention": 12}, True),
     # MoE, each also held on every cache leaf: the reduced olmoe (3 MoE layers of
-    # 8 experts top-2 at the reference's capacity, so tokens are dropped) at
-    # head_dim 64, attn_chunk 64 < prompt 256: the flash and decode kernels at
-    # G = 1; the reduced deepseek (MLA, shared experts, the dense-first tail
-    # first), attn_chunk 64 < 256: MLA's query-chunked prefill, no kernel
-    ("olmoe_1b_7b", dict(head_dim=64, attn_chunk=64), 256, 4,
+    # 8 experts top-2 at the reference's capacity, so tokens are dropped): the
+    # flash and decode kernels at G = 1; the reduced deepseek (MLA, shared
+    # experts, the dense-first tail first): MLA's query-chunked prefill, no kernel
+    ("olmoe_1b_7b", dict(attn_chunk=64), 256, 4,
      {"flash_attention": 3, "decode_attention": 12}, False, True),
     ("deepseek_v2_236b", dict(attn_chunk=64), 256, 4, {}, False, True),
+    # whisper over its stub frames: the decoder's causal self-attention prefill on
+    # flash at d = 24 and its decode on the decode kernel at d = 24, G = 1 (on one
+    # device the cross-attention decode is the plain non-causal attention, as the
+    # JAX package computes it; phase 8's mesh runs it on the kernel); paligemma's
+    # patches before the prompt: a prefix never reaches flash, decode at d = 32,
+    # G = 4. Both held on every cache leaf
+    ("whisper_small", dict(attn_chunk=64), 96, 4,
+     {"flash_attention": 3, "decode_attention": 12}, True, True),
+    ("paligemma_3b", dict(attn_chunk=64), 96, 4, {"decode_attention": 12}, True, True),
 ]
 # (arch, overrides, S, wq and wk at the fan-in of d_model) of the small float32
 # train steps, card against CPU: attn_chunk 64 < S, so the flash forward and
-# backward kernels run; the reduced mamba2 (4 layers, chunk 32) at S = 128 runs
-# the SSD scan's forward and backward kernels, the reduced recurrentgemma the
-# RG-LRU scan's
+# backward kernels run at the reduced configs' head dims (16, 24, 32; h2o 80);
+# the reduced mamba2 (4 layers, chunk 32) at S = 128 runs the SSD scan's forward
+# and backward kernels, the reduced recurrentgemma the RG-LRU scan's too
 SMALL_TRAIN = [
-    ("qwen3_32b", dict(head_dim=64, attn_chunk=64), 256, False),
-    # the reduced recurrentgemma (a (rec, rec, local_attn) unit and two rec tail layers),
-    # head_dim 64: its window of 32 binds in the flash kernels, and the RG-LRU scan's
+    ("qwen3_32b", dict(attn_chunk=64), 256, False),
+    ("granite_20b", dict(attn_chunk=64), 256, True),
+    ("granite_8b", dict(attn_chunk=64), 256, True),
+    # the reduced recurrentgemma (a (rec, rec, local_attn) unit and two rec tail layers):
+    # its window of 32 binds in the flash kernels at d = 32, and the RG-LRU scan's
     # forward and backward kernels run (6 + 4 a step; flash 2 + 1). wq and wk at the
     # fan-in of d_model: with the reference init's a 1e-7 change of the embedding moves
-    # the CPU's gradients by 3.0e-4 of a leaf's max, above the 1e-4 tolerance (4.5e-6
-    # with fan_in_qk)
-    ("recurrentgemma_9b", dict(head_dim=64, attn_chunk=64), 256, True),
+    # the CPU's gradients by 3.0e-4 of a leaf's max (at d = 64), above the 1e-4 tolerance
+    ("recurrentgemma_9b", dict(attn_chunk=64), 256, True),
     # head_dim 80, and a window below S that binds in both kernels
     ("h2o_danube_1_8b", dict(head_dim=80, n_layers=2, attn_chunk=64, window=96), 256, True),
     ("mamba2_780m", {}, 128, False),
     # MoE: the reduced olmoe (3 MoE layers of 8 experts top-2 at the reference's
-    # capacity, so slots drop) at head_dim 64: the flash forward and backward at
-    # G = 1; the reduced deepseek (MLA's query-chunked prefill nested in the unit's
-    # remat, the dense-first tail first, shared experts): no kernel. The aux loss
-    # is compared too
-    ("olmoe_1b_7b", dict(head_dim=64, attn_chunk=64), 256, False),
+    # capacity, so slots drop): the flash forward and backward at G = 1; the reduced
+    # deepseek (MLA's query-chunked prefill nested in the unit's remat, the
+    # dense-first tail first, shared experts): no kernel. The aux loss is compared too
+    ("olmoe_1b_7b", dict(attn_chunk=64), 256, False),
     ("deepseek_v2_236b", dict(attn_chunk=64), 256, False),
+    # whisper's decoder self-attention on flash at d = 24 (its encoder and
+    # cross-attention run as einsums); paligemma's prefix keeps flash away: no kernel
+    ("whisper_small", dict(attn_chunk=64), 128, True),
+    ("paligemma_3b", dict(attn_chunk=64), 128, True),
 ]
 
 
@@ -2033,68 +2129,69 @@ def _nudged(torch, params):
     return dict(params, embed=e * (1 + 1e-7 * noise))
 
 
-def _serve_logits(torch, model, params, toks, prompt: int, steps: int, caches=None) -> list:
-    """The logits of a prefill of ``prompt`` tokens and ``steps`` decode
-    steps; with a list ``caches``, every cache leaf after the last step is
-    appended to it (on the CPU, in tree order)."""
+def _served(torch, model, params, toks, stubs, steps: int, caches=None):
+    """``launch/serve.generate``, the serve launcher's own loop, on the
+    model's device: a prefill of ``toks`` (B, prompt) after the frontend
+    ``stubs``, then ``steps`` greedy decode steps. Returns the tokens (B,
+    steps + 1) and every step's last-position logits, on the CPU; with a
+    list ``caches``, every cache leaf after the last step is appended to it
+    (on the CPU, in tree order)."""
+    from repro_torch.launch.serve import generate
     dev = model.device
-    out = []
-    with torch.no_grad():
-        cache = model.init_cache(2, prompt + steps + 5)
-        logits, cache = model.prefill(params, toks[:, :prompt].to(dev), cache)
-        out.append(logits.cpu())
-        for i in range(steps):
-            pos = torch.full((2,), prompt + i, dtype=torch.int32, device=dev)
-            logits, cache = model.decode(params, toks[:, prompt + i:prompt + i + 1].to(dev),
-                                         cache, pos)
-            out.append(logits.cpu())
+    out = generate(model, params, toks.to(dev), _to(stubs, dev), steps, keep_logits=True)
     if caches is not None:
-        caches.extend(t.cpu() for t in _leaves(cache))
-    return out
+        caches.extend(t.cpu() for t in _leaves(out["cache"]))
+    return out["tokens"].cpu(), [t.cpu() for t in out["logits"]]
 
 
 def phase_small_model(torch, card: str, arch: str, overrides: dict, prompt: int, steps: int,
                       want: Dict[str, int], qk_fan_in: bool = False,
                       caches: bool = False) -> dict:
-    """A small float32 model on the card against the same weights on the
-    CPU, where the plain versions run (with ``caches``, also every cache leaf
-    after the last step); the check's conditioning (how far a 1e-7 change of
-    the embedding moves the CPU's logits) printed beside it."""
+    """A small float32 model served through ``launch/serve.generate`` on the
+    card against the same function on the CPU with the same weights, where
+    the plain versions run: the greedy tokens equal, every step's logits
+    within 1e-4 (with ``caches``, also every cache leaf after the last
+    step), the card's launches exact; the check's conditioning (how far a
+    1e-7 change of the embedding moves the CPU's logits) printed beside it."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import frontend_stubs
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(reduced_config(arch), **overrides)
     cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg, device=DEVICE)
     params = fan_in_qk(cfg, cpu.init(torch.Generator().manual_seed(1)), qk_fan_in)
     g = torch.Generator().manual_seed(2)
-    toks = torch.randint(0, cfg.vocab_size, (2, prompt + steps), generator=g,
-                         dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt), generator=g, dtype=torch.int32)
+    stubs = frontend_stubs(cfg, 2, "cpu", torch.Generator().manual_seed(3))
     kernels.reset_launches()
     want_c, got_c = ([], []) if caches else (None, None)
-    want_l = _serve_logits(torch, cpu, params, toks, prompt, steps, want_c)
-    got_l = _serve_logits(torch, gpu, _to(params, DEVICE), toks, prompt, steps, got_c)
+    want_t, want_l = _served(torch, cpu, params, toks, stubs, steps, want_c)
+    got_t, got_l = _served(torch, gpu, _to(params, DEVICE), toks, stubs, steps, got_c)
     counts = kernels.launch_counts()
+    same_tokens = bool(torch.equal(got_t, want_t))
     if counts != {k: want.get(k, 0) for k in kernels.KERNELS}:
         raise AssertionError(f"small {arch} launches {counts}, expected {want}")
     err = max(float((a - b).abs().max()) for a, b in zip(got_l, want_l))
     cache_err = None
     if caches:
         cache_err = max(float((a - b).abs().max()) for a, b in zip(got_c, want_c))
-    nudged = _serve_logits(torch, cpu, _nudged(torch, params), toks, prompt, steps)
+    nudged = _served(torch, cpu, _nudged(torch, params), toks, stubs, steps)[1]
     cond = max(float((a - b).abs().max()) for a, b in zip(nudged, want_l))
     tol = 1e-4
-    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}, wq/wk fan-in "
-              f"{'d_model' if qk_fan_in else 'heads'}) "
-              f"card vs CPU: max abs logit err {err:.3e} (tol {tol}) over prefill {prompt} + "
-              f"{steps} decode steps; a 1e-7 change of the embedding moves the CPU's logits by "
-              f"{cond:.3e}; launches {counts}"
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, head_dim {cfg.head_dim}, {overrides}, "
+              f"wq/wk fan-in {'d_model' if qk_fan_in else 'heads'}) served by generate, "
+              f"card vs CPU: greedy tokens {'equal' if same_tokens else 'DIFFER'}, max abs "
+              f"logit err {err:.3e} (tol {tol}) over prefill {prompt} + {steps} decode steps; a "
+              f"1e-7 change of the embedding moves the CPU's logits by {cond:.3e}; launches "
+              f"{counts}"
               + ("" if cache_err is None else
                  f"; every cache leaf ({len(got_c)}) within max abs err {cache_err:.3e} "
                  f"(tol {tol})"))
-    if err > tol or (cache_err is not None and cache_err > tol):
+    if not same_tokens or err > tol or (cache_err is not None and cache_err > tol):
         raise AssertionError("the card disagrees with the CPU on a small model")
-    return dict(arch=arch, max_abs_err=err, tol=tol, conditioning=cond, qk_fan_in=qk_fan_in,
+    return dict(arch=arch, head_dim=cfg.head_dim, overrides=overrides, max_abs_err=err, tol=tol,
+                tokens_equal=same_tokens, conditioning=cond, qk_fan_in=qk_fan_in,
                 launches=counts, cache_max_abs_err=cache_err)
 
 
@@ -2124,7 +2221,7 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
     and the launches of the step checked exactly."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import frontend_stubs, make_train_step
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
 
@@ -2134,7 +2231,8 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
                        qk_fan_in)
     toks = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=torch.Generator().manual_seed(2),
                          dtype=torch.int32)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],     # and whisper's or paligemma's stubs
+             **frontend_stubs(cfg, 2, "cpu", torch.Generator().manual_seed(3))}
     loss_c, grads_c = _grads(torch, build_model(cfg, device="cpu"), params, batch)
     loss_g, grads_g = _grads(torch, build_model(cfg, device=DEVICE), _to(params, DEVICE),
                              _to(batch, DEVICE))
@@ -2159,8 +2257,8 @@ def phase_small_train(torch, card: str, arch: str, overrides: dict, S: int,
     # relative, but the aux loss of a model without MoE layers is 0 on both
     step_err = {k: abs(float(out[DEVICE][k]) - float(out["cpu"][k]))
                 / (abs(float(out["cpu"][k])) or 1.0) for k in ("loss", "grad_norm", "aux")}
-    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, {overrides}, wq/wk fan-in "
-              f"{'d_model' if qk_fan_in else 'heads'}, "
+    log(card, f"small f32 {cfg.name} ({cfg.n_layers} layers, head_dim {cfg.head_dim}, {overrides}, "
+              f"wq/wk fan-in {'d_model' if qk_fan_in else 'heads'}, "
               f"S={S}) train step, card vs CPU: loss rel err {loss_err:.3e}; a 1e-7 change of "
               f"the embedding moves the CPU's gradients by up to {cond:.3e} of a leaf's max; "
               f"worst gradient "
@@ -4801,6 +4899,12 @@ SERVE_MESH_RUNS = [
                  {"decode_attention": 4}, qk_fan_in=True),
     ServeMeshRun("paligemma_3b", 2, "bfloat16", BATCH, PG_PROMPT, SERVE_MESH_GEN, {},
                  {"decode_attention": 2}, qk_fan_in=True),
+    # the reduced whisper as registered (head_dim 24, all 3 + 3 layers): its decoder
+    # prefill on flash (attn_chunk 64 < the 96-token prompt), then the self- and the
+    # cross-attention decode of every layer on the kernel's sharded-keys mode at d = 24
+    ServeMeshRun("whisper_small", None, "float32", BATCH, 96, SERVE_MESH_GEN,
+                 {"flash_attention": 3}, {"decode_attention": 6}, qk_fan_in=True, reduced=True,
+                 overrides=(("attn_chunk", 64),)),
 ]
 
 
@@ -5376,7 +5480,7 @@ def main() -> int:
     # the bf16 flash backward's main kernel runs on wgmma, in every instance
     hgmma = {r["function"]: r.get("hgmma", 0) for r in ptxas
              if r["function"].startswith("flash_bwd_wgmma_kernel")}
-    if len(hgmma) != 4 or not all(hgmma.values()):
+    if len(hgmma) != 7 or not all(hgmma.values()):
         raise AssertionError(f"flash_bwd_wgmma_kernel instances without HGMMA: {hgmma}")
     spills = [r["function"] for r in ptxas if r["source"] == "flash_attention_bwd"
               and (r.get("spill_stores", 0) or r.get("spill_loads", 0))]
@@ -5479,15 +5583,19 @@ def main() -> int:
     kernels_line = {"kernels": []}
     # the main entry is each kernel's qwen3-32b (or only) shape; the other
     # timed shapes ride beside it, each with the same keys
-    extra = {"flash_attention": ("d256", "d80", "g48", "g1", "g1_train"),
+    reduced = tuple(f"{t}d{d}" for d in REDUCED_ATTN for t in ("", "f32_"))
+    extra = {"flash_attention": ("d256", "d80", "g48", "g1", "g1_train", "f32_d256") + reduced,
              "decode_attention": ("d256", "d80", "g48", "d16", "g1", "whisper", "paligemma",
-                                  "partial"),
-             "flash_attention_bwd": ("d80", "g48", "d256", "g1"), "rglru_scan": ("train",)}
+                                  "partial", "d24", "f32_d24", "d32", "f32_d32"),
+             "flash_attention_bwd": ("d80", "g48", "d256", "g1", "f32_d256") + reduced,
+             "rglru_scan": ("train",)}
     extra_key = {"d256": "head_dim_256", "d80": "head_dim_80", "g48": "group_48",
                  "g1": "group_1", "d16": "head_dim_16", "train": "training_shape",
                  "g1_train": "group_1_training_shape",
                  "whisper": "whisper_d64_group_1", "paligemma": "paligemma_d256_group_8",
-                 "partial": "sharded_keys_quarter_shard"}
+                 "partial": "sharded_keys_quarter_shard", "d24": "head_dim_24",
+                 "d32": "head_dim_32", **{f"f32_d{d}": f"float32_head_dim_{d}"
+                                          for d in (16, 24, 32, 256)}}
     for name in sources:
         by_path = {arch: r["launches"][name] for arch, r in serve.items()}
         by_path.update({f"{arch} train": r["launches"][name] for arch, r in train.items()})
@@ -5506,6 +5614,9 @@ def main() -> int:
         by_path.update({f"{c} serving mesh (1, 1)": r["launches"][name]
                         for c, r in serve_mesh.items()})
         by_path["train launcher"] = train_launcher["launches"][name]
+        by_path.update({f"small {r['arch']}": r["launches"][name] for r in small})
+        by_path.update({f"small {r['arch']} train step": r["launches"][name]
+                        for r in small_train})
         by_path[f"{grads['config']} gradients"] = grads["launches"][name]
         by_path.update({f"{ex} example": examples[ex]["launches"][name] for ex in examples})
         by_path[f"{dry['arch']} dry-run check step"] = dry["launches"][name]

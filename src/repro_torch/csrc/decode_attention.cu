@@ -60,10 +60,18 @@
 // end. head_dim 80 (h2o-danube-1.8b) is five k-steps of 16 and ten n8
 // tiles of the same products, with rows padded to 88 elements (176 bytes,
 // conflict-free for ldmatrix). head_dim 16 (the reduced dense configs that
-// calibration times) is one k-step of Q K^T and two n8 tiles of P V. ptxas -v (nvcc 12.8, sm_90a), D = 64 / 80 /
+// calibration times) is one k-step of Q K^T and two n8 tiles of P V; head_dim
+// 32 (the reduced recurrentgemma and paligemma) two k-steps and four n8 tiles,
+// rows padded to 40 elements (80 bytes, conflict-free). head_dim 24 (the
+// reduced whisper) is not a whole k-step: it runs the D = 32 instance, whose
+// loads zero-fill columns 24-31 of Q, K and V in shared memory (cp.async of
+// source size 0; nothing is padded in device memory), so Q K^T takes two
+// k-steps whose last half adds zeros, and P V writes three of its four n8
+// tiles. ptxas -v (nvcc 12.8, sm_90a), D = 64 / 80 /
 // 128 / 256: 80 / 128 / 124 / 180 registers (with the sharded-keys offset), 0 bytes of spills, 29952 /
 // 36608 / 56576 / 109824 bytes of dynamic shared memory, so up to four
-// blocks fit on an SM at D <= 128 and two at D = 256.
+// blocks fit on an SM at D <= 128 and two at D = 256; D = 32 (head_dim 24
+// and 32): 64 registers, 0 spills, 16640 bytes.
 //
 // float32 keeps f32 arithmetic on the CUDA cores (tensor cores would round
 // to TF32): one block per (split, KV head, group of 8 heads), K and V tiles
@@ -72,7 +80,8 @@
 // its 256 threads without a key subset (12 subsets of 20 threads); those
 // threads idle there, and the combine kernel's 20 columns leave 16 threads
 // idle the same way. At D = 16 the P V step takes 16 key subsets of 4
-// threads (64 of 256 busy), so that its reduction buffer fits in the K tile.
+// threads (64 of 256 busy), so that its reduction buffer fits in the K tile;
+// at D = 24 and 32, 16 subsets of 6 and 8 (96 and 128 busy), the same way.
 //
 // NEG_INF is finite (-2e38), as in the TPU kernel, and masked keys get a
 // weight of exactly 0, so no row ever produces NaN.
@@ -153,8 +162,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Partials: ml[(b*H + h) * n_splits + split] = (m, l), m in base-2 units;
-// acc[((b*H + h) * n_splits + split) * D + c], unnormalised.
-template <int D>
+// acc[((b*H + h) * n_splits + split) * DO + c], unnormalised.
+// D: the row width in shared memory and in the products (whole k-steps of
+// 16); DO <= D: the head_dim, the columns that hold data. The loads
+// zero-fill columns DO..D-1 of Q, K and V in shared memory (a cp.async of
+// source size 0), so those columns add nothing to Q K^T, and the P V
+// columns past DO are computed and not written.
+template <int D, int DO = D>
 __global__ void __launch_bounds__(MW * 32)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
                   const __nv_bfloat16* __restrict__ vc, const int32_t* __restrict__ cache_len,
@@ -179,7 +193,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   // Q's rows (zeros past the group) go in flight before cache_len is read
   for (int i = tid; i < MR * (D / 8); i += MW * 32) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    cp_async16(smem_u32(Qs + r * RS + c), q + (row0 + (r < gc ? r : 0)) * D + c, r < gc);
+    const bool in = r < gc && c < DO;
+    cp_async16(smem_u32(Qs + r * RS + c), q + (row0 + (in ? r : 0)) * DO + (in ? c : 0), in);
   }
   cp_commit();
   const int len = cache_len[b] - kv_offset;   // the live range's end, in this call's keys
@@ -196,15 +211,16 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     return;
   }
 
-  const size_t k_row = size_t(KV) * D;
-  const __nv_bfloat16* kbase = kc + (size_t(b) * Tk * KV + kvh) * D;
-  const __nv_bfloat16* vbase = vc + (size_t(b) * Tk * KV + kvh) * D;
+  const size_t k_row = size_t(KV) * DO;
+  const __nv_bfloat16* kbase = kc + (size_t(b) * Tk * KV + kvh) * DO;
+  const __nv_bfloat16* vbase = vc + (size_t(b) * Tk * KV + kvh) * DO;
   const int n_chunks = (ke - kb + CK - 1) / CK;
   const int mine = n_chunks > warp ? (n_chunks - warp + MW - 1) / MW : 0;
   unsigned char* wring = smem_dec + L::ring + size_t(warp) * NSTAGE * L::stage;
 
   // this warp's j-th chunk (keys kb + (warp + j*MW)*CK ...) into stage j % NSTAGE;
-  // keys at or past ke are zero-filled, so masked keys never carry NaN into P V
+  // keys at or past ke (and columns past DO) are zero-filled, so masked keys
+  // never carry NaN into P V
   auto issue = [&](int j) {
     if (j < mine) {
       const int t0 = kb + (warp + j * MW) * CK;
@@ -212,8 +228,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       __nv_bfloat16* vs = ks + CK * RS;
       for (int i = lane; i < CK * (D / 8); i += 32) {
         const int r = i / (D / 8), c = (i % (D / 8)) * 8, t = t0 + r;
-        const bool in = t < ke;
-        const size_t off = size_t(in ? t : kb) * k_row + c;
+        const bool in = t < ke && c < DO;
+        const size_t off = size_t(in ? t : kb) * k_row + (in ? c : 0);
         cp_async16(smem_u32(ks + r * RS + c), kbase + off, in);
         cp_async16(smem_u32(vs + r * RS + c), vbase + off, in);
       }
@@ -356,9 +372,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       part_ml[2 * i] = m_r[r];
       part_ml[2 * i + 1] = l_r[r];
     }
-    float* out = part_acc + i * D + c2;
+    float* out = part_acc + i * DO + c2;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < DO / 8; ++n)
       *reinterpret_cast<float2*>(out + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
@@ -645,30 +661,32 @@ decode_combine_kernel(const float* __restrict__ part_ml, const float* __restrict
 }
 
 // With `lse` (the sharded-keys mode) the output is float32 and lse is written.
-template <int D>
+// head_dim DO in rows of D columns (D = DO, or 32 for DO = 24)
+template <int D, int DO = D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lens,
                         float* ml, float* acc, void* o, float* lse, int B, int Tk, int H, int KV,
                         int window, int kv_offset, int split_len, int n_splits, float scale,
                         cudaStream_t stream) {
   constexpr size_t smem = MmaSmem<D>::bytes;
   static_assert(smem <= 232448, "shared memory of one block");
-  cudaError_t err = cudaFuncSetAttribute(decode_mma_kernel<D>,
+  static_assert(D % 16 == 0 && DO <= D && DO % 8 == 0, "whole k-steps; whole n8 tiles written");
+  cudaError_t err = cudaFuncSetAttribute(decode_mma_kernel<D, DO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int G = H / KV;
   const dim3 grid(n_splits, KV * ((G + MR - 1) / MR), B);
-  decode_mma_kernel<D><<<grid, MW * 32, smem, stream>>>(
+  decode_mma_kernel<D, DO><<<grid, MW * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(lens), ml, acc, Tk, H,
       KV, window, kv_offset, split_len, n_splits, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int comb_blocks = B * H * (D / 4 / comb_cols<D>());
+  const int comb_blocks = B * H * (DO / 4 / comb_cols<DO>());
   if (lse != nullptr)
-    decode_combine_kernel<float, D><<<comb_blocks, NTC, 0, stream>>>(
+    decode_combine_kernel<float, DO><<<comb_blocks, NTC, 0, stream>>>(
         ml, acc, static_cast<float*>(o), lse, n_splits);
   else
-    decode_combine_kernel<__nv_bfloat16, D><<<comb_blocks, NTC, 0, stream>>>(
+    decode_combine_kernel<__nv_bfloat16, DO><<<comb_blocks, NTC, 0, stream>>>(
         ml, acc, static_cast<__nv_bfloat16*>(o), nullptr, n_splits);
   return cudaGetLastError();
 }
@@ -710,11 +728,15 @@ int decode_run(const void* q, const void* k, const void* v, const void* cache_le
 #define DECODE_ARGS q, k, v, cache_len, ml, acc, o, lse, B, Tk, H, KV, window, kv_offset, \
     split_len, n_splits, scale, st
   if (dtype == 1 && D == 16) return launch_bf16<16>(DECODE_ARGS);
+  if (dtype == 1 && D == 24) return launch_bf16<32, 24>(DECODE_ARGS);
+  if (dtype == 1 && D == 32) return launch_bf16<32>(DECODE_ARGS);
   if (dtype == 1 && D == 64) return launch_bf16<64>(DECODE_ARGS);
   if (dtype == 1 && D == 80) return launch_bf16<80>(DECODE_ARGS);
   if (dtype == 1 && D == 128) return launch_bf16<128>(DECODE_ARGS);
   if (dtype == 1 && D == 256) return launch_bf16<256>(DECODE_ARGS);
   if (dtype == 0 && D == 16) return launch_f32<16>(DECODE_ARGS);
+  if (dtype == 0 && D == 24) return launch_f32<24>(DECODE_ARGS);
+  if (dtype == 0 && D == 32) return launch_f32<32>(DECODE_ARGS);
   if (dtype == 0 && D == 64) return launch_f32<64>(DECODE_ARGS);
   if (dtype == 0 && D == 80) return launch_f32<80>(DECODE_ARGS);
   if (dtype == 0 && D == 128) return launch_f32<128>(DECODE_ARGS);
@@ -759,11 +781,14 @@ int decode_attention_partial_fwd(const void* q, const void* k, const void* v,
 // Dynamic shared memory of one block of the partial kernel for (dtype, D), in bytes.
 int decode_attention_smem_bytes(int dtype, int D) {
   if (dtype == 1 && D == 16) return int(MmaSmem<16>::bytes);
+  if (dtype == 1 && (D == 24 || D == 32)) return int(MmaSmem<32>::bytes);
   if (dtype == 1 && D == 64) return int(MmaSmem<64>::bytes);
   if (dtype == 1 && D == 80) return int(MmaSmem<80>::bytes);
   if (dtype == 1 && D == 128) return int(MmaSmem<128>::bytes);
   if (dtype == 1 && D == 256) return int(MmaSmem<256>::bytes);
   if (dtype == 0 && D == 16) return int(smem_bytes<16, key_tile<16>()>());
+  if (dtype == 0 && D == 24) return int(smem_bytes<24, key_tile<24>()>());
+  if (dtype == 0 && D == 32) return int(smem_bytes<32, key_tile<32>()>());
   if (dtype == 0 && D == 64) return int(smem_bytes<64, key_tile<64>()>());
   if (dtype == 0 && D == 80) return int(smem_bytes<80, key_tile<80>()>());
   if (dtype == 0 && D == 128) return int(smem_bytes<128, key_tile<128>()>());

@@ -44,7 +44,9 @@
 // * ptxas -v (nvcc 12.8, sm_90a), <D, BK, DO>: <64,128,64>,
 //   <128,128,128>, <128,128,80> and <256,64,256> each 168 registers at
 //   entry (the consumers run at 232 after setmaxnreg), 0 bytes of spills,
-//   83000 / 164920 / 164920 / 197688 bytes of dynamic shared memory.
+//   83000 / 164920 / 164920 / 197688 bytes of dynamic shared memory;
+//   <64,128,16>, <64,128,24> and <64,128,32> as <64,128,64>. The f32
+//   kernel at D = 256: 229 registers, 0 spills.
 //   chip_smoke.py prints and records them. The
 //   mbarrier wait spins on try_wait alone: a clock64 / __trap timeout in
 //   that loop made ptxas hold every warpgroup to 168 registers and spill
@@ -59,18 +61,30 @@
 //   are not written. Executed work is 1.3x the function's (P V 1.6x), for
 //   no new instance of the wgmma code: the alternative, a 32-byte swizzle
 //   with five 16-column slabs, needs new descriptors and an n = 80 P V.
+// * head_dim 16, 24 and 32 (the reduced configs) run the D = 64 instance the
+//   same way (`flash_wgmma_kernel<64, 128, DO>`): TMA maps of d-extent DO
+//   (a bf16 row of 32, 48 or 64 bytes, within the TMA's 16-byte stride rule)
+//   zero-fill the rest of the one 64-column slab; Q K^T issues the k-steps
+//   that hold real columns (1, 2 and 2: at 24 the second covers columns
+//   16-31, half of them zeros); P V runs at n = 64 and DO columns are
+//   written. Executed work is 2.5x, 2.0x and 1.5x the function's at 16, 24
+//   and 32 (P V 4x, 2.7x, 2x), for no new wgmma code.
 // Left for later: ping-pong scheduling between the two consumer
 // warpgroups, overlapping the softmax with the next tile's Q K^T, fp8.
 //
 // float32: the CUDA cores, so that f32 keeps f32 products (tensor cores
-// would round to TF32), D = 64, 80 and 128. A block owns one (b, h, 64-row
+// would round to TF32), D = 16, 24, 32, 64, 80, 128 and 256. A block owns one (b, h, 64-row
 // query tile) and walks its reachable 64-key tiles in a loop (the TPU's
 // sequential KV grid axis). Q and K tiles sit transposed in shared memory
 // so each of 128 threads reads its 4 query rows and 8 keys as float4s, P
 // is staged transposed for the PV product, and each thread keeps a 4x8
 // score tile and a 4x(D/8) output tile in registers (at D = 80, whose
 // rows are not a whole number of 32-column passes, the last pass is taken
-// by half of the key groups).
+// by half of the key groups; at D = 16 and 24, one pass narrower than 32
+// columns, by the first 4 and 6 key groups). At D = 256 the tiles take
+// 222,208 of the 232,448 bytes of shared memory a block may have, so one
+// block (4 warps) runs on an SM, and each thread holds 128 f32 output
+// registers.
 //
 // Scores are kept in base-2 units (scale * log2 e) so the exponentials
 // are exp2. When the caller asks for it (training), each row's natural-log
@@ -133,7 +147,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int ty = tid >> 3;       // row group: rows ty*4 .. ty*4+3
   const int tx = tid & 7;        // key group: keys tx*8 .. tx*8+7; dims tx*4 + 32*j
-  // at D = 80 the last chunk (dims 64 + tx*4) exists for tx < 4 only
+  // the last chunk (dims 32 j + tx*4) exists for tx*4 < D - 32 j only: tx < 4 at D = 80
+  // and 16, tx < 6 at D = 24
   auto has = [&](int j) { return D % 32 == 0 || tx * 4 + 32 * j < D; };
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -716,7 +731,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int hea
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// head_dim DO in tiles of D columns (D = DO, or 128 for DO = 80)
+// head_dim DO in tiles of D columns (D = DO; 128 for DO = 80; 64 for DO = 16, 24, 32)
 template <int D, int DO = D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                          int Tk, int H, int KV, int causal, int window, float scale,
@@ -724,7 +739,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   constexpr int BK = D == 256 ? 64 : 128;
   constexpr size_t smem = WgSmem<D, BK>::bytes;
   static_assert(smem <= 232448, "shared memory of one block");
-  static_assert(DO <= D && DO % 16 == 0, "whole k-steps of 16 columns");
+  static_assert(DO <= D && DO % 8 == 0, "whole n8 tiles written; rows of 16-byte multiples");
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -764,7 +779,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 extern "C" {
 
-// dtype: 0 = float32 (D = 64, 80, 128), 1 = bfloat16 (D = 64, 80, 128, 256).
+// dtype: 0 = float32, 1 = bfloat16; D = 16, 24, 32, 64, 80, 128 or 256 in both.
 // window < 0 means no window. All tensors contiguous and 16-byte aligned:
 // q/o (B,S,H,D), k/v (B,T,KV,D). lse, if not null, receives each row's
 // natural-log log-sum-exp of its scaled scores, (B,H,S) float32 (+inf for
@@ -775,12 +790,26 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   if (S <= 0 || B <= 0) return int(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  if (dtype == 0 && D == 16)
+    return launch<float, 16>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 0 && D == 24)
+    return launch<float, 24>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 0 && D == 32)
+    return launch<float, 32>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 0 && D == 80)
     return launch<float, 80>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 1 && D == 16)
+    return launch_wgmma<64, 16>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 1 && D == 24)
+    return launch_wgmma<64, 24>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
+  if (dtype == 1 && D == 32)
+    return launch_wgmma<64, 32>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 64)
     return launch_wgmma<64>(q, k, v, o, lse, B, S, Tk, H, KV, causal, window, scale, st);
   if (dtype == 1 && D == 80)
@@ -794,12 +823,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
 
 // Dynamic shared memory of one block of the kernel for (dtype, D), in bytes.
 int flash_attention_smem_bytes(int dtype, int D) {
-  if (dtype == 1 && D == 64) return int(WgSmem<64, 128>::bytes);
+  if (dtype == 1 && (D == 16 || D == 24 || D == 32 || D == 64)) return int(WgSmem<64, 128>::bytes);
   if (dtype == 1 && (D == 80 || D == 128)) return int(WgSmem<128, 128>::bytes);
   if (dtype == 1 && D == 256) return int(WgSmem<256, 64>::bytes);
+  if (dtype == 0 && D == 16) return int(smem_bytes<16>());
+  if (dtype == 0 && D == 24) return int(smem_bytes<24>());
+  if (dtype == 0 && D == 32) return int(smem_bytes<32>());
   if (dtype == 0 && D == 64) return int(smem_bytes<64>());
   if (dtype == 0 && D == 80) return int(smem_bytes<80>());
   if (dtype == 0 && D == 128) return int(smem_bytes<128>());
+  if (dtype == 0 && D == 256) return int(smem_bytes<256>());
   return -1;
 }
 

@@ -84,8 +84,14 @@
 // shared memory, S^T and dP^T issue only the 5 k-steps that hold data, dV,
 // dK and dQ run at n = 128 and 80 columns are written; nothing is padded
 // in device memory.
-// head_dim 256 (recurrentgemma-9b, bf16 only: the f32 forward has no 256) is
-// its own instance, `flash_bwd_wgmma_kernel<256, 256>`, an explicit
+// head_dim 16, 24 and 32 (the reduced configs) run the D = 64 instance the
+// same way (`flash_bwd_wgmma_kernel<64, DO>`): the TMA zero-fills columns
+// DO-63, S^T and dP^T issue the 1, 2 or 2 k-steps that hold data, dV, dK and
+// dQ run at n = 64 and DO columns are written; the dQ tile's f32 rows are DO
+// + 8 wide (24, 32, 40: each a whole number of 16 bytes, as the bulk
+// reduce-add needs). ptxas -v (nvcc 12.8): 168 registers at entry, 0 spills,
+// 90152 / 92200 / 94248 bytes of dynamic shared memory at 16 / 24 / 32.
+// head_dim 256 in bf16 (recurrentgemma-9b) is its own instance, `flash_bwd_wgmma_kernel<256, 256>`, an explicit
 // specialization with another layout, since the D = 128 one does not fit:
 // dK and dV of a consumer's 64 keys would take 256 f32 registers a thread
 // (budget 240), and 128-key K and V (128 KB) with a two-stage Q/dO ring
@@ -118,7 +124,9 @@
 // key tile, and dq one block per (64-query tile, head, b) looping over the
 // live key tiles; the tiles sit in shared memory with odd row strides,
 // each thread scores 8 (key, query) pairs and then owns one row's D/4
-// columns of the accumulators. Deterministic.
+// columns of the accumulators. At D = 256 the dk/dv block takes 32 keys
+// (each thread scores 4 pairs and owns D/8 columns: its dK, dV and step sums
+// are 128 registers, where D/4 columns would be 256). Deterministic.
 //
 // Rows past S are zero-filled on load and never written. NEG_INF stays
 // finite in the forward; here every dead pair is a select to exactly 0.
@@ -142,7 +150,8 @@ constexpr int WG_THREADS = 384;   // producer + two consumer warpgroups
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;   // 128 x 24 + 256 x 240 <= 64K
 constexpr int CONVERT_THREADS = 256;
 constexpr int F_THREADS = 256;    // float32 kernels
-constexpr int F_KB = 64, F_QB = 32;   // f32 dk/dv: keys per block, queries per step
+constexpr int F_QB = 32;              // f32 dk/dv: queries per step
+constexpr int f_kb(int D) { return D == 256 ? 32 : 64; }   // f32 dk/dv: keys per block
 constexpr int F_QD = 64, F_KD = 32;   // f32 dq: queries per block, keys per step
 
 __device__ __forceinline__ bool live(int qpos, int kpos, int S, int window) {
@@ -999,26 +1008,32 @@ flash_bwd_convert_kernel(const float* __restrict__ dq_acc, const float* __restri
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, int KB = f_kb(D)>
 struct FDkvSmem {                // float offsets
   static constexpr int DP = D + 1;                  // odd row stride: no bank conflicts
   static constexpr int PS = F_QB + 1;
-  static constexpr size_t k = 0, v = k + size_t(F_KB) * DP, q = v + size_t(F_KB) * DP;
+  static constexpr size_t k = 0, v = k + size_t(KB) * DP, q = v + size_t(KB) * DP;
   static constexpr size_t dout = q + size_t(F_QB) * DP, p = dout + size_t(F_QB) * DP;
-  static constexpr size_t ds = p + size_t(F_KB) * PS, lse = ds + size_t(F_KB) * PS;
+  static constexpr size_t ds = p + size_t(KB) * PS, lse = ds + size_t(KB) * PS;
   static constexpr size_t dsum = lse + F_QB;
   static constexpr size_t bytes = (dsum + F_QB) * 4;
 };
 
-template <int D>
+// KB keys a block: 64, or 32 at D = 256, where a thread's four D/TPK-column
+// accumulators (dK, dV and the step's two sums) would not fit in registers
+// with 4 threads a key (256 floats) and take 128 with 8
+template <int D, int KB = f_kb(D)>
 __global__ void __launch_bounds__(F_THREADS)
 flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dsum,
                           float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV,
                           int window, float scale, float scale2, int B) {
-  using L = FDkvSmem<D>;
-  constexpr int DP = L::DP, PS = L::PS, DJ = D / 4;
+  using L = FDkvSmem<D, KB>;
+  constexpr int NQG = F_THREADS / KB;           // query groups of the scoring step
+  constexpr int TPK = F_THREADS / KB;           // threads a key of the accumulating step
+  constexpr int DP = L::DP, PS = L::PS, DJ = D / TPK;
+  static_assert(F_QB % NQG == 0 && D % TPK == 0, "tile shapes");
   extern __shared__ __align__(16) float fsm[];
   float *Ks = fsm + L::k, *Vs = fsm + L::v, *Qs = fsm + L::q, *Os = fsm + L::dout;
   float *Ps = fsm + L::p, *DSs = fsm + L::ds, *Ls = fsm + L::lse, *Ds = fsm + L::dsum;
@@ -1027,20 +1042,20 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
   const int kvh = x % KV;
   x /= KV;
   const int b = x % B;
-  const int k0 = (x / B) * F_KB;
+  const int k0 = (x / B) * KB;
   const int G = H / KV;
-  const int2 qs = query_span(k0, F_KB, S, window);
+  const int2 qs = query_span(k0, KB, S, window);
   const int tid = threadIdx.x;
   const size_t krow = size_t(KV) * D, qrow = size_t(H) * D;
   const float* kb = k + (size_t(b) * S * KV + kvh) * D;
   const float* vb = v + (size_t(b) * S * KV + kvh) * D;
-  for (int i = tid; i < F_KB * D; i += F_THREADS) {
+  for (int i = tid; i < KB * D; i += F_THREADS) {
     const int r = i / D, c = i % D, t = k0 + r;
     Ks[r * DP + c] = t < S ? kb[size_t(t) * krow + c] : 0.f;
     Vs[r * DP + c] = t < S ? vb[size_t(t) * krow + c] : 0.f;
   }
-  const int sk = tid & 63, sq = tid >> 6;       // scoring: key sk, queries sq + 4 i
-  const int ak = tid >> 2, ad = tid & 3;        // accumulating: key ak, columns ad + 4 j
+  const int sk = tid % KB, sq = tid / KB;       // scoring: key sk, queries sq + NQG i
+  const int ak = tid / TPK, ad = tid % TPK;     // accumulating: key ak, columns ad + TPK j
   float dka[DJ], dva[DJ];
 #pragma unroll
   for (int j = 0; j < DJ; ++j) dka[j] = dva[j] = 0.f;
@@ -1063,21 +1078,21 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
         Ds[tid] = s < S ? dsum[li] : 0.f;
       }
       __syncthreads();
-      float sa[F_QB / 4], pa[F_QB / 4];
+      float sa[F_QB / NQG], pa[F_QB / NQG];
 #pragma unroll
-      for (int i = 0; i < F_QB / 4; ++i) sa[i] = pa[i] = 0.f;
+      for (int i = 0; i < F_QB / NQG; ++i) sa[i] = pa[i] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < D; ++c) {
         const float kv = Ks[sk * DP + c], vv = Vs[sk * DP + c];
 #pragma unroll
-        for (int i = 0; i < F_QB / 4; ++i) {
-          sa[i] = fmaf(Qs[(sq + 4 * i) * DP + c], kv, sa[i]);
-          pa[i] = fmaf(Os[(sq + 4 * i) * DP + c], vv, pa[i]);
+        for (int i = 0; i < F_QB / NQG; ++i) {
+          sa[i] = fmaf(Qs[(sq + NQG * i) * DP + c], kv, sa[i]);
+          pa[i] = fmaf(Os[(sq + NQG * i) * DP + c], vv, pa[i]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < F_QB / 4; ++i) {
-        const int ql = sq + 4 * i;
+      for (int i = 0; i < F_QB / NQG; ++i) {
+        const int ql = sq + NQG * i;
         const bool ok = live(q0 + ql, k0 + sk, S, window);
         const float p = ok ? exp2f(sa[i] * scale2 - Ls[ql]) : 0.f;
         Ps[sk * PS + ql] = p;
@@ -1094,8 +1109,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
         const float p = Ps[ak * PS + ql], ds = DSs[ak * PS + ql];
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
-          sv[j] = fmaf(p, Os[ql * DP + ad + 4 * j], sv[j]);
-          sk[j] = fmaf(ds, Qs[ql * DP + ad + 4 * j], sk[j]);
+          sv[j] = fmaf(p, Os[ql * DP + ad + TPK * j], sv[j]);
+          sk[j] = fmaf(ds, Qs[ql * DP + ad + TPK * j], sk[j]);
         }
       }
 #pragma unroll
@@ -1110,8 +1125,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
     const size_t off = ((size_t(b) * S + key) * KV + kvh) * D + ad;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[off + 4 * j] = dka[j] * scale;
-      dv[off + 4 * j] = dva[j];
+      dk[off + TPK * j] = dka[j] * scale;
+      dv[off + TPK * j] = dva[j];
     }
   }
 }
@@ -1279,14 +1294,14 @@ cudaError_t launch_dsum(const void* o, const void* dout, const float* lse, float
   return cudaGetLastError();
 }
 
-// head_dim DO in tiles of D columns (D = DO, or 128 for DO = 80)
+// head_dim DO in tiles of D columns (D = DO; 128 for DO = 80; 64 for DO = 16, 24, 32)
 template <int D, int DO = D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
                         const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int S,
                         int H, int KV, int window, int n_split, float scale, cudaStream_t st) {
   using L = BwdSmem<D, DO>;
   static_assert(L::bytes <= 232448, "shared memory of one block");
-  static_assert(DO <= D && DO % 16 == 0, "whole k-steps of 16 columns");
+  static_assert(DO <= D && DO % 8 == 0, "whole n8 tiles written; rows of 16-byte multiples");
   const int S_pad = pad_rows(S);
   const long long rows = (long long)B * H * S_pad;
   float* lse2 = scratch;
@@ -1336,7 +1351,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = launch_dsum<float>(o, dout, lse, dsum, nullptr, nullptr, nullptr, nullptr, B, S,
                                        S, H, KV, D, 0, st);
   if (err != cudaSuccess) return err;
-  const long long kv_blocks = (long long)((S + F_KB - 1) / F_KB) * KV * B;
+  const long long kv_blocks = (long long)((S + f_kb(D) - 1) / f_kb(D)) * KV * B;
   const int n_qt = (S + F_QD - 1) / F_QD;
   const long long q_blocks = (long long)n_qt * H * B;
   if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1356,7 +1371,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D = 64, 80 or 128, and 256 in bfloat16.
+// dtype: 0 = float32, 1 = bfloat16; D = 16, 24, 32, 64, 80, 128 or 256.
 // Causal self-attention:
 // q, o, dout, dq (B,S,H,D); k, v, dk, dv (B,S,KV,D); lse (B,H,S) float32;
 // scratch float32 of flash_attention_bwd_scratch_floats(...) elements.
@@ -1368,19 +1383,27 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
                         void* dv, int B, int S, int H, int KV, int D, int dtype, int window,
                         int n_split, float scale, void* stream) {
   if (S <= 0 || B <= 0) return int(cudaSuccess);
-  if (KV <= 0 || H % KV != 0 || (D != 64 && D != 80 && D != 128 && !(D == 256 && dtype == 1)) ||
-      (dtype != 0 && dtype != 1) || n_split < 1 || n_split > H / KV)
+  const bool head_dim = D == 16 || D == 24 || D == 32 || D == 64 || D == 80 || D == 128 || D == 256;
+  if (KV <= 0 || H % KV != 0 || !head_dim || (dtype != 0 && dtype != 1) || n_split < 1 ||
+      n_split > H / KV)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
 #define BWD_ARGS q, k, v, o, dout, lp, sc, dq, dk, dv, B, S, H, KV, window, n_split, scale, st
+  if (dtype == 1 && D == 16) return int(launch_bf16<64, 16>(BWD_ARGS));
+  if (dtype == 1 && D == 24) return int(launch_bf16<64, 24>(BWD_ARGS));
+  if (dtype == 1 && D == 32) return int(launch_bf16<64, 32>(BWD_ARGS));
   if (dtype == 1 && D == 64) return int(launch_bf16<64>(BWD_ARGS));
   if (dtype == 1 && D == 80) return int(launch_bf16<128, 80>(BWD_ARGS));
   if (dtype == 1 && D == 256) return int(launch_bf16<256>(BWD_ARGS));
   if (dtype == 1) return int(launch_bf16<128>(BWD_ARGS));
+  if (D == 16) return int(launch_f32<16>(BWD_ARGS));
+  if (D == 24) return int(launch_f32<24>(BWD_ARGS));
+  if (D == 32) return int(launch_f32<32>(BWD_ARGS));
   if (D == 64) return int(launch_f32<64>(BWD_ARGS));
   if (D == 80) return int(launch_f32<80>(BWD_ARGS));
+  if (D == 256) return int(launch_f32<256>(BWD_ARGS));
   return int(launch_f32<128>(BWD_ARGS));
 #undef BWD_ARGS
 }
@@ -1395,15 +1418,22 @@ long long flash_attention_bwd_scratch_floats(int B, int S, int H, int KV, int D,
 // wgmma kernel (kernel 0); float32 kernel 0 = dk/dv, 1 = dq.
 int flash_attention_bwd_smem_bytes(int dtype, int D, int kernel) {
   if (dtype == 1 && kernel == 0) {
+    if (D == 16) return int(BwdSmem<64, 16>::bytes);
+    if (D == 24) return int(BwdSmem<64, 24>::bytes);
+    if (D == 32) return int(BwdSmem<64, 32>::bytes);
     if (D == 64) return int(BwdSmem<64, 64>::bytes);
     if (D == 80) return int(BwdSmem<128, 80>::bytes);
     if (D == 128) return int(BwdSmem<128, 128>::bytes);
     if (D == 256) return int(BwdSmem<256, 256>::bytes);
   }
   if (dtype == 0) {
+    if (D == 16) return int(kernel == 0 ? FDkvSmem<16>::bytes : FDqSmem<16>::bytes);
+    if (D == 24) return int(kernel == 0 ? FDkvSmem<24>::bytes : FDqSmem<24>::bytes);
+    if (D == 32) return int(kernel == 0 ? FDkvSmem<32>::bytes : FDqSmem<32>::bytes);
     if (D == 64) return int(kernel == 0 ? FDkvSmem<64>::bytes : FDqSmem<64>::bytes);
     if (D == 80) return int(kernel == 0 ? FDkvSmem<80>::bytes : FDqSmem<80>::bytes);
     if (D == 128) return int(kernel == 0 ? FDkvSmem<128>::bytes : FDqSmem<128>::bytes);
+    if (D == 256) return int(kernel == 0 ? FDkvSmem<256>::bytes : FDqSmem<256>::bytes);
   }
   return -1;
 }

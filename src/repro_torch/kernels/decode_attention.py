@@ -45,7 +45,7 @@ from . import shape_only as _shape
 from ._guard import refuse_dtensor, require_no_grad
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (16, 64, 80, 128, 256)
+HEAD_DIMS = (16, 24, 32, 64, 80, 128, 256)   # either type, both modes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_TILE = 32        # keys: a split is a whole number of these
 HEADS_PER_BLOCK = 16   # query heads a block of the bf16 kernel scores (its mma rows)

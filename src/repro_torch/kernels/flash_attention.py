@@ -15,8 +15,9 @@ differentiates. On the card, when grad is needed, it goes through
 the backward is ``flash_attention_bwd`` (three kernels a call: dsum, the
 main kernel, and a convert of its f32 accumulators; ``bwd_split_plan``
 splits a KV head's query group across blocks where the key tiles alone
-do not fill the card). The backward takes head_dim 64, 80, 128 and, in
-bfloat16, 256 (``BWD_HEAD_DIMS``).
+do not fill the card). Forward and backward take head_dim 16, 24, 32, 64,
+80, 128 and 256 in both types (``HEAD_DIMS``, ``BWD_HEAD_DIMS``): every
+head_dim of every registered config, full or reduced.
 ``flash_attention_fwd`` returns the forward's two outputs (out, lse), which
 the backward reads; the plain versions are ``flash_attention_ref``,
 ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` (the
@@ -47,8 +48,8 @@ from ._guard import refuse_dtensor
 from .decode_attention import SMS
 
 NEG_INF = -2.0e38
-HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256), torch.float32: (64, 80, 128)}
-BWD_HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256), torch.float32: (64, 80, 128)}
+HEAD_DIMS = {dt: (16, 24, 32, 64, 80, 128, 256) for dt in (torch.bfloat16, torch.float32)}
+BWD_HEAD_DIMS = {dt: (16, 24, 32, 64, 80, 128, 256) for dt in (torch.bfloat16, torch.float32)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_KEY_TILE = 128     # keys per block of the bf16 backward kernel up to head_dim 128
 BWD_KEY_TILE_256 = 64  # and at head_dim 256 (csrc/flash_attention_bwd.cu's header)
@@ -260,12 +261,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B,S,H,d), k/v (B,T,KV,d) with H % KV == 0 -> (B,S,H,d) in q's type.
-    On the card the forward takes head_dim 64, 80, 128 or 256 in bfloat16
-    and 64, 80 or 128 in float32 (``HEAD_DIMS``). Differentiable: on the
-    card, when grad is needed, only causal self-attention (S == T) has a
-    backward, at head_dim 64, 80, 128 or 256 in bfloat16 and 64, 80 or 128
-    in float32 (``BWD_HEAD_DIMS``); anything else raises before the forward
-    runs."""
+    On the card the forward takes head_dim 16, 24, 32, 64, 80, 128 or 256
+    in either type (``HEAD_DIMS``). Differentiable: on the card, when grad
+    is needed, only causal self-attention (S == T) has a backward, at the
+    same head dims (``BWD_HEAD_DIMS``); anything else raises before the
+    forward runs."""
     if not q.is_cuda and not _shape.data_free(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check_inputs(q, k, v, HEAD_DIMS.get(q.dtype, ()))

@@ -66,7 +66,13 @@ def test_flash_attention_kernel_matches_plain(dtype):
             ((1, 130, 130, 16, 4, 64), True, 40),
             ((2, 300, 300, 8, 2, 80), True, 100),      # h2o-danube-1.8b's head_dim, ragged
             ((1, 200, 333, 4, 1, 80), False, None),
-            ((1, 256, 256, 48, 1, 128), True, None)]:  # granite-20b's 48 heads on 1 KV head
+            ((1, 256, 256, 48, 1, 128), True, None),   # granite-20b's 48 heads on 1 KV head
+            # the reduced configs' head dims: 16 (D = 64 instance in bf16), 24 (whisper),
+            # 32 (recurrentgemma with its window of 32); ragged, non-causal S != T
+            ((2, 300, 300, 8, 2, 16), True, 100),
+            ((2, 200, 333, 4, 4, 24), False, None),
+            ((1, 256, 256, 4, 4, 24), True, None),
+            ((2, 130, 130, 4, 1, 32), True, 32)]:
         q = torch.randn((B, S, H, d), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, T, KV, d), generator=gen, device="cuda").to(dtype)
@@ -118,7 +124,10 @@ def test_decode_attention_kernel_matches_plain(dtype):
              ((3, 300, 8, 2, 80), [300, 101, 7], 96),
              ((4, 4128, 48, 1, 128), [4128, 4000, 17, 1], None),   # granite-20b's G = 48
              ((2, 64, 8, 2, 16), [64, 33], None),        # the reduced dense configs' d = 16
-             ((3, 300, 8, 2, 16), [300, 101, 0], 96)]
+             ((3, 300, 8, 2, 16), [300, 101, 0], 96),
+             ((4, 256, 4, 4, 24), [256, 225, 17, 0], None),   # the reduced whisper's d = 24
+             ((3, 300, 4, 1, 32), [300, 101, 7], 96),          # recurrentgemma's, paligemma's 32
+             ((4, 4128, 8, 2, 24), [4128, 1, 0, 4127], None)]
     assert kernels.decode_attention.split_plan(32, 3, 1, 8)[1] == 1      # "one split"
     _check_decode(gen, dtype, cases)
 
@@ -360,9 +369,11 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention(q[..., :64].half(), q[..., :64].half(), q[..., :64].half())
-    q256 = torch.zeros((1, 16, 4, 256), device="cuda")         # float32 takes 64 and 128 only
+    q48 = torch.zeros((1, 16, 4, 48), device="cuda")           # head_dim 48: no config has it
     with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(q256, q256, q256)
+        ops.flash_attention(q48, q48, q48)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention_bwd(q48, q48, q48, q48, torch.zeros((1, 4, 16), device="cuda"), q48)
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q[:, :1], q, q, torch.ones(1, dtype=torch.int32, device="cuda"))
     x, a, bc = (torch.zeros((1, 96, 4, 64), device="cuda"), torch.zeros((1, 96, 4), device="cuda"),
@@ -385,14 +396,18 @@ def test_flash_attention_bwd_kernel_matches_plain(dtype):
     windowed, G = 1, 4, 8 and 48, ragged S, head_dim 64, 80 and 128, the
     query group split across blocks (G = 48 at S = 1024 with and without a
     window, and one key tile of a ragged S, where every block is one split);
-    the forward's log-sum-exp against the plain one."""
+    the reduced configs' head dims 16, 24 and 32; the forward's log-sum-exp
+    against the plain one."""
     gen = _card()
     for (B, S, H, KV, d), window in [((2, 256, 4, 4, 64), None), ((1, 300, 8, 2, 128), None),
                                      ((1, 333, 8, 1, 64), 100), ((2, 130, 16, 2, 128), 40),
                                      ((1, 300, 8, 2, 80), 100), ((2, 256, 32, 8, 80), None),
                                      ((1, 256, 48, 1, 128), None), ((1, 1024, 48, 1, 128), None),
                                      ((1, 1024, 48, 1, 128), 300), ((1, 777, 16, 2, 80), 300),
-                                     ((2, 555, 8, 2, 64), 200), ((1, 100, 8, 1, 128), None)]:
+                                     ((2, 555, 8, 2, 64), 200), ((1, 100, 8, 1, 128), None),
+                                     # the reduced configs' head dims 16, 24 and 32
+                                     ((2, 256, 8, 2, 16), None), ((1, 300, 4, 4, 24), 100),
+                                     ((1, 1024, 16, 1, 24), 300), ((2, 130, 4, 1, 32), 32)]:
         if (S, H) == (1024, 48) or S == 100:
             assert kernels.flash_attention.bwd_split_plan(B, S, KV, H // KV) > 1
         q, k, v = (torch.randn((B, S, n, d), generator=gen, device="cuda").to(dtype)
@@ -446,6 +461,55 @@ def test_flash_attention_bf16_bwd_head_dim_256_ragged_and_windowed():
         for g, e in zip(got, exp):
             assert g.dtype == torch.bfloat16
             _assert_within_bf16_bound(g, e, BWD_FLOOR)
+
+
+@pytest.mark.gpu
+def test_flash_attention_f32_head_dim_256_forward_and_backward():
+    """float32 at head_dim 256 (the full recurrentgemma_9b's and
+    paligemma_3b's) on the CUDA cores: the forward (one 222 KB block an SM)
+    and the backward (32 keys a dk/dv block) against the plain versions at
+    2e-5: MQA with a window, two KV heads over a ragged S, a small window;
+    and the forward non-causal with S != T."""
+    gen = _card()
+    fa = kernels.flash_attention
+    for (B, S, H, KV), window in [((1, 300, 16, 1), 100), ((2, 333, 8, 2), None),
+                                  ((1, 1000, 4, 1), 40)]:
+        q, k, v = (torch.randn((B, S, n, 256), generator=gen, device="cuda") for n in (H, KV, KV))
+        dout = torch.randn((B, S, H, 256), generator=gen, device="cuda")
+        n0, b0 = fa.launches, fa.bwd_launches
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+        got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.bwd_launches) == (n0 + 1, b0 + 1)
+        torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v, causal=True,
+                                                                window=window), **F32_TOL)
+        exp = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=True, window=window)
+        for g, e in zip(got, exp):
+            torch.testing.assert_close(g, e, **F32_TOL)
+    q = torch.randn((2, 200, 4, 256), generator=gen, device="cuda")
+    kv = torch.randn((2, 333, 2, 256), generator=gen, device="cuda")
+    torch.testing.assert_close(ops.flash_attention(q, kv, kv, causal=False),
+                               ref.flash_attention_ref(q, kv, kv, causal=False), **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_small", "recurrentgemma_9b", "paligemma_3b"])
+def test_serve_launcher_serves_the_reduced_config_on_the_card(arch):
+    """``python -m repro_torch.launch.serve --arch ARCH --reduced`` on the
+    launcher's default device (the card) exits 0: its decode steps run the
+    decode kernel at the reduced config's head_dim as registered (24 for
+    whisper_small, 32 for the other two), which the card once refused."""
+    _card()
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--reduced"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "layers on NVIDIA" in proc.stdout and "decode: p50=" in proc.stdout, proc.stdout
 
 
 @pytest.mark.gpu
@@ -1294,26 +1358,25 @@ def test_decode_attention_partial_matches_plain_and_merges(dtype):
 
 
 def _reduced_serve_runs(cs, dtype, mesh=(1, 1)):
-    """Every arch's reduced config at 2 layers (recurrentgemma 3: one
-    (rec, rec, local_attn) unit), head_dim 64 where the reduced one has none
-    the decode kernel takes, batch 4, prompt 16 (h2o 40, past its 32-token
-    window), 4 steps, with the launches each makes."""
+    """Every arch's reduced config as registered (head_dim 16, 24 or 32) at
+    2 layers (recurrentgemma 3: one (rec, rec, local_attn) unit), batch 4,
+    prompt 16 (h2o 40, past its 32-token window), 4 steps, with the launches
+    each makes."""
     R = cs.ServeMeshRun
-    hd = (("head_dim", 64),)
     return [R("qwen3_32b", 2, dtype, 4, 16, 4, {}, {"decode_attention": 2}, mesh=mesh,
               reduced=True),
             R("h2o_danube_1_8b", 2, dtype, 4, 40, 4, {}, {"decode_attention": 2}, mesh=mesh,
               reduced=True, qk_fan_in=True),
             R("mamba2_780m", 2, dtype, 4, 16, 4, {"ssd_scan": 2}, {}, mesh=mesh, reduced=True),
             R("recurrentgemma_9b", 3, dtype, 4, 16, 4, {"rglru_scan": 2}, {"decode_attention": 1},
-              mesh=mesh, reduced=True, overrides=hd, qk_fan_in=True),
+              mesh=mesh, reduced=True, qk_fan_in=True),
             R("olmoe_1b_7b", 2, dtype, 4, 16, 4, {}, {"decode_attention": 2}, mesh=mesh,
               reduced=True),
             R("deepseek_v2_236b", 2, dtype, 4, 16, 4, {}, {}, mesh=mesh, reduced=True),
             R("whisper_small", 2, dtype, 4, 16, 4, {}, {"decode_attention": 4}, mesh=mesh,
-              reduced=True, overrides=hd, qk_fan_in=True),
+              reduced=True, qk_fan_in=True),
             R("paligemma_3b", 2, dtype, 4, 16, 4, {}, {"decode_attention": 2}, mesh=mesh,
-              reduced=True, overrides=hd, qk_fan_in=True)]
+              reduced=True, qk_fan_in=True)]
 
 
 @pytest.mark.gpu

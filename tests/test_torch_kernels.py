@@ -59,6 +59,9 @@ def _np(x):
     (2, 128, 4, 1, 64),       # MQA
     (1, 512, 16, 4, 32),
     (1, 256, 8, 2, 80),       # h2o-danube-1.8b's head_dim
+    (2, 256, 8, 2, 16),       # the reduced dense configs' head_dim
+    (2, 256, 4, 4, 24),       # the reduced whisper_small's
+    (2, 256, 4, 1, 32),       # the reduced recurrentgemma_9b's and paligemma_3b's (MQA)
 ])
 @pytest.mark.parametrize("window", [None, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -91,6 +94,9 @@ def test_flash_attention_plain_ragged_t(causal):
     (1, 128, 8, 2, 32, None),     # G = 4
     (1, 100, 8, 1, 64, 24),       # G = 8, ragged S, window
     (2, 64, 4, 1, 16, 16),        # G = 4, window
+    (2, 96, 4, 4, 24, None),      # the reduced whisper_small: head_dim 24, G = 1
+    (1, 100, 4, 1, 24, 40),       # head_dim 24, ragged S, window
+    (1, 70, 4, 1, 32, 32),        # the reduced recurrentgemma_9b: MQA, its window of 32
 ])
 def test_flash_attention_bwd_plain_matches_jax_vjp(B, S, H, KV, d, window):
     """flash_attention_bwd_ref (FlashAttention-2's formulas, no autograd)
@@ -283,6 +289,8 @@ def test_flash_attention_lse_ref_row_without_live_key_is_inf():
     (2, 300, 16, 1, 256),     # recurrentgemma's MQA head_dim
     (2, 300, 8, 2, 80),       # h2o-danube-1.8b's head_dim
     (2, 64, 8, 2, 16),        # the reduced dense configs' head_dim (calibration's decode step)
+    (2, 64, 4, 4, 24),        # the reduced whisper_small's (G = 1)
+    (3, 300, 4, 1, 32),       # the reduced recurrentgemma_9b's and paligemma_3b's (MQA)
 ])
 @pytest.mark.parametrize("window", [None, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
